@@ -1,0 +1,40 @@
+"""PyTorch + CUDA port of ``d4pg_tpu`` for one NVIDIA H100.
+
+The JAX package ``d4pg_tpu`` is the reference; this package mirrors its
+module paths (``core/distribution.py`` here is the counterpart of
+``d4pg_tpu/core/distribution.py``) and imports nothing from it, nor JAX.
+What it covers so far is the fused PER replay+learn chunk
+(``learner/fused.py``) with hand-written CUDA kernels for the Bellman
+projection (``ops/projection.py``) and the PER sum-tree descent
+(``ops/sampler_descent.py``).
+
+Device rule: every entry point takes an explicit ``device`` and defaults
+to ``"cuda"``. With no card present that default fails loudly; only an
+explicit ``device="cpu"`` runs on the CPU (the tests pass it). No code
+carries on on the CPU when it finds no GPU.
+
+Precision: the port runs in float32, like ``D4PGConfig``'s default
+``compute_dtype``. TF32 is switched off for matmuls and cuDNN so a float32
+product on the card keeps float32 precision (the reference's numbers are
+float32 products; TF32 keeps about three decimal digits).
+"""
+
+from __future__ import annotations
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another. Raises when a CUDA device is asked for and none exists."""
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU")
+    return dev

@@ -1,0 +1,1 @@
+"""core of the PyTorch port (counterpart of ``d4pg_tpu/core``)."""

@@ -1,0 +1,1 @@
+"""io of the PyTorch port (counterpart of ``d4pg_tpu/io``)."""

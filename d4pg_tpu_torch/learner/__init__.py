@@ -1,0 +1,1 @@
+"""learner of the PyTorch port (counterpart of ``d4pg_tpu/learner``)."""

@@ -1,0 +1,1 @@
+"""models of the PyTorch port (counterpart of ``d4pg_tpu/models``)."""

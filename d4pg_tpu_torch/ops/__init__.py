@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (counterpart of ``d4pg_tpu/ops``)."""

@@ -1,0 +1,1 @@
+"""replay of the PyTorch port (counterpart of ``d4pg_tpu/replay``)."""
