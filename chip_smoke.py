@@ -16,20 +16,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   4. descent kernel vs its plain version, bitwise: cap = 262,144,
      Q = 256 and Q = 40 * 256, leaves with zero runs, masses equal to
      left-subtree sums, and the all-zero tree;
-  5. device time of each kernel, its plain version and, where one torch
+  5. the fused projection + cross-entropy kernels vs their plain
+     versions on the same inputs as phase 3 at B = 256, 100 and 1: the
+     forward's td at atol 1e-4 / rtol 1e-5, the backward's dq against
+     autograd of the plain loss mean(w * CE(stop_grad(proj), q)) with
+     random IS weights at atol 1e-5 / rtol 1e-5, and no gradient for
+     p, r or d;
+  6. device time of each kernel, its plain version and, where one torch
      call computes the same function, that call (CUDA events, warmed up);
      each kernel's bound from bytes and operations, and the descent's
      latency floor from a one-query descent (18 dependent L2 loads);
-  6. the fused chunk on the card vs the same chunk on the CPU (plain
-     versions), at full width on a small ring with injected uniforms;
-  7. the slice: ``FusedDeviceReplay(200_000, 376, 17)`` filled in
-     4,096-row blocks, ``init_state`` on cuda, ``make_fused_chunk(k=40,
-     batch_size=256, projection="pallas")``; one warm-up chunk, then timed
-     chunks with the launch counters set to 0 just before and read just
-     after (each kernel must launch exactly K times per chunk); then the
-     step's breakdown: host queueing time, and device time by kernel from
-     one profiled chunk;
-  8. a ``kernels`` JSON line, then the result line.
+  7. the projection autotuner: ``select_projection("auto")`` at batch 256,
+     51 atoms on [0, 800], its selection and timings;
+  8. the fused PER chunk on the card vs the same chunk on the CPU (plain
+     versions) under both the ``pallas`` and ``pallas_ce`` arms, and
+     ``multi_update_step`` at K = 3 on the card vs the CPU, at full width
+     on a small ring with injected uniforms;
+  9. the slice: ``FusedDeviceReplay(200_000, 376, 17)`` filled once in
+     4,096-row blocks (a ``prioritized=False`` twin beside it); for each
+     arm (``pallas``, ``pallas_ce``) a fresh ``init_state`` on cuda driven
+     by ``FusedLoop(k=40, batch_size=256)`` and warmed up by one chunk;
+     then timed windows of 2 chunks in turns (A B B A A B B A A B, five
+     per arm), each with the launch counters set to 0 just
+     before and read just after (each kernel of the arm must launch
+     exactly K times per chunk, the other arm's kernel 0 times); then
+     each arm's breakdown: host queueing time, and device time by kernel
+     from one profiled chunk; then one uniform chunk on the twin (no
+     descent);
+ 10. a ``kernels`` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -53,7 +67,7 @@ ROOT = Path(__file__).resolve().parent
 OBS, ACT, HIDDEN, ATOMS = 376, 17, (256, 256, 256), 51
 V_MIN, V_MAX = 0.0, 800.0
 BATCH, CAPACITY, K, FILL_BLOCK = 256, 200_000, 40, 4096
-TIMED_CHUNKS = 10
+TIMED_CHUNKS, WINDOW_CHUNKS = 10, 2  # per arm, per timed window
 CAP = 262_144  # next_pow2(CAPACITY): the sum tree's leaf count
 LEVELS = 18  # log2(CAP): dependent loads per descent
 
@@ -272,6 +286,110 @@ def phase_descent(dev) -> dict:
             "enqueue_ms": enq, "distinct_nodes": nodes}
 
 
+def phase_projection_ce(dev) -> list[dict]:
+    from d4pg_tpu_torch.core.distribution import CategoricalSupport
+    from d4pg_tpu_torch.ops import projection_ce as pce
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sup = CategoricalSupport(V_MIN, V_MAX, ATOMS)
+
+    def pred(batch):
+        q = torch.rand(batch, ATOMS, generator=gen, device=dev)
+        return (q / q.sum(-1, keepdim=True)).contiguous()
+
+    worst_fwd = worst_bwd = 0.0
+    for batch in (BATCH, 100, 1):
+        p, r, d = projection_inputs(gen, batch, ATOMS, V_MIN, V_MAX, dev)
+        q = pred(batch)
+        got = pce.projection_ce(sup, p, r, d, q)
+        want = pce.projection_ce_plain(sup, p, r, d, q)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(bool(((got - want).abs() <= 1e-4 + 1e-5 * want.abs()).all()),
+              f"projection_ce forward B={batch}")
+        worst_fwd = max(worst_fwd, err)
+
+        w = torch.rand(batch, generator=gen, device=dev)
+        leaves = [t.clone().requires_grad_(True) for t in (p, r, d, q)]
+        torch.mean(w * pce.projection_ce(sup, *leaves)).backward()
+        q_ref = q.clone().requires_grad_(True)
+        torch.mean(w * pce.projection_ce_plain(sup, p, r, d, q_ref)).backward()
+        torch.cuda.synchronize()
+        dq, dq_ref = leaves[3].grad, q_ref.grad
+        err_bwd = (dq - dq_ref).abs().max().item()
+        check(bool(((dq - dq_ref).abs() <= 1e-5 + 1e-5 * dq_ref.abs()).all()),
+              f"projection_ce backward B={batch}")
+        check(all(t.grad is None or not t.grad.any() for t in leaves[:3]),
+              f"projection_ce: no gradient for p, r, d at B={batch}")
+        worst_bwd = max(worst_bwd, err_bwd)
+        print(f"projection_ce B={batch}: forward max abs err {err:.3e}, "
+              f"backward max abs err {err_bwd:.3e}")
+
+    p, r, d = projection_inputs(gen, BATCH, ATOMS, V_MIN, V_MAX, dev)
+    q = pred(BATCH)
+    g = torch.rand(BATCH, generator=gen, device=dev) / BATCH
+    fwd_ms, fwd_enq = device_ms(
+        lambda: pce.forward_kernel(sup, p, r, d, q), calls=100)
+    bwd_ms, bwd_enq = device_ms(
+        lambda: pce.backward_kernel(sup, p, r, d, q, g), calls=100)
+    # the plain versions: the forward as the CPU path runs it, and dq as
+    # autograd of the plain loss produces it (forward, then backward)
+    fwd_plain_ms, _ = device_ms(
+        lambda: pce.projection_ce_plain(sup, p, r, d, q), calls=20)
+    q_leaf = q.clone().requires_grad_(True)
+    bwd_plain_ms, _ = device_ms(lambda: torch.autograd.grad(
+        pce.projection_ce_plain(sup, p, r, d, q_leaf), q_leaf, g), calls=10)
+    # per atom the projection needs ~10 operations (phase 3's count) and
+    # the loss ~3 more: log(q + eps), the product and the row sum forward;
+    # q + eps, the division and the product by -g backward
+    n_ops = 13 * BATCH * ATOMS
+    fwd_bytes = 4 * (2 * BATCH * ATOMS + 2 * BATCH + BATCH)
+    bwd_bytes = 4 * (2 * BATCH * ATOMS + 3 * BATCH + BATCH * ATOMS)
+    no_library = ("no single torch call computes the projection fused "
+                  "with the cross-entropy")
+    out = []
+    for name, line, worst, ms, enq, plain_ms, n_bytes in (
+            ("projection_ce_fwd", 118, worst_fwd, fwd_ms, fwd_enq,
+             fwd_plain_ms, fwd_bytes),
+            ("projection_ce_bwd", 144, worst_bwd, bwd_ms, bwd_enq,
+             bwd_plain_ms, bwd_bytes)):
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        out.append({"name": name, "route": "cuda",
+                    "source": "d4pg_tpu_torch/ops/csrc/projection_ce.cu",
+                    "replaces": f"d4pg_tpu/ops/projection_ce.py:{line}",
+                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "library_note": no_library, "enqueue_ms": enq})
+    return out
+
+
+def phase_autotune(dev) -> None:
+    from d4pg_tpu_torch.ops.autotune import select_projection
+
+    r = select_projection("auto", batch_size=BATCH, v_min=V_MIN,
+                          v_max=V_MAX, n_atoms=ATOMS, device=dev)
+    check(r.selected in ("einsum", "pallas", "pallas_ce"),
+          "autotuner selects a candidate")
+    check(all(isinstance(t, float) for t in r.timings_ms.values()),
+          "autotuner timed every candidate")
+    print(f"autotune: selected {r.selected!r}, timings_ms {r.timings_ms}")
+    # what the timed race is made of: each loss core's device time per
+    # value-and-grad step and the host's time to queue it
+    from d4pg_tpu_torch.core.distribution import CategoricalSupport
+    from d4pg_tpu_torch.ops.autotune import _loss_fn
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p, r_, d = projection_inputs(gen, BATCH, ATOMS, V_MIN, V_MAX, dev)
+    pred = p.clone().requires_grad_(True)
+    sup = CategoricalSupport(V_MIN, V_MAX, ATOMS)
+    for arm in ("pallas", "pallas_ce"):
+        loss = _loss_fn(arm, sup)
+        ms, enq = device_ms(lambda: torch.autograd.grad(
+            loss(pred, p, r_, d), pred), calls=10)
+        print(f"autotune loss core {arm}: device {ms * 1e3:.2f} us, host "
+              f"enqueue {enq * 1e3:.2f} us per value-and-grad step")
+
+
 def random_rows(rng, n):
     from d4pg_tpu_torch.replay.uniform import TransitionBatch
 
@@ -285,121 +403,135 @@ def random_rows(rng, n):
     )
 
 
-def config():
+def config(projection: str):
     from d4pg_tpu_torch.learner.state import D4PGConfig
 
     return D4PGConfig(obs_dim=OBS, act_dim=ACT, v_min=V_MIN, v_max=V_MAX,
-                      n_atoms=ATOMS, hidden=HIDDEN, projection="pallas")
+                      n_atoms=ATOMS, hidden=HIDDEN, projection=projection)
+
+
+def _rel_err(got, want) -> float:
+    return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
 
 
 def phase_reference(dev) -> None:
     """The fused chunk with the kernels on the card against the same chunk
-    with the plain versions on the CPU: same weights, ring and uniforms.
-    Slots must agree exactly; losses and TD errors within rtol 1e-4
-    (float32 products summed in another order, over 3 Adam steps)."""
+    with the plain versions on the CPU, under each projection arm: same
+    weights, ring and uniforms. Slots must agree exactly; losses and TD
+    errors within rtol 1e-4 (float32 products summed in another order,
+    over 3 Adam steps). Then ``multi_update_step`` at K = 3 on stacked
+    batches with IS weights, card against CPU, at the same bar."""
     from d4pg_tpu_torch.learner.fused import make_fused_chunk
     from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.learner.update import multi_update_step
     from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+    from d4pg_tpu_torch.replay.uniform import TransitionBatch
 
     k, cap = 3, 2048
     rng = np.random.default_rng(3)
     rows = random_rows(rng, cap)
     u = torch.from_numpy(rng.random((k, BATCH)).astype(np.float32))
+    for arm in ("pallas", "pallas_ce"):
+        out = {}
+        for where in ("cpu", dev):
+            buf = FusedDeviceReplay(cap, OBS, ACT, device=where,
+                                    block_rows=512)
+            buf.add(rows)
+            buf.drain()
+            state = init_state(config(arm), seed=0, device=where)
+            fn = make_fused_chunk(config(arm), k=k, batch_size=BATCH)
+            trees, m = fn(state, buf.trees, buf.storage, buf.size,
+                          u=u.to(where))
+            out[str(where)] = {n: v.cpu() for n, v in m.items()}
+            out[str(where)]["root"] = trees.sum_tree[1].cpu()
+        cpu, gpu = out["cpu"], out[str(dev)]
+        check(torch.equal(cpu["idx"], gpu["idx"]),
+              f"chunk slots, card vs CPU ({arm})")
+        for name in ("critic_loss", "actor_loss", "td_error", "root"):
+            err = _rel_err(gpu[name], cpu[name])
+            print(f"chunk ({arm}) card vs CPU {name}: max rel err {err:.3e}")
+            check(err <= 1e-4, f"chunk ({arm}) {name} card vs CPU")
+
+    stacked = [random_rows(rng, BATCH) for _ in range(k)]
+    stacked = TransitionBatch(*[np.stack(f) for f in zip(*stacked)])
+    w = (0.5 + rng.random((k, BATCH))).astype(np.float32)
     out = {}
     for where in ("cpu", dev):
-        buf = FusedDeviceReplay(cap, OBS, ACT, device=where, block_rows=512)
-        buf.add(rows)
-        buf.drain()
-        state = init_state(config(), seed=0, device=where)
-        fn = make_fused_chunk(config(), k=k, batch_size=BATCH)
-        trees, m = fn(state, buf.trees, buf.storage, buf.size,
-                      u=u.to(where))
+        state = init_state(config("pallas_ce"), seed=0, device=where)
+        m = multi_update_step(
+            config("pallas_ce"), state,
+            TransitionBatch(*[torch.from_numpy(f).to(where)
+                              for f in stacked]),
+            torch.from_numpy(w).to(where))
         out[str(where)] = {n: v.cpu() for n, v in m.items()}
-        out[str(where)]["root"] = trees.sum_tree[1].cpu()
-    cpu, gpu = out["cpu"], out[str(dev)]
-    check(torch.equal(cpu["idx"], gpu["idx"]), "chunk slots, card vs CPU")
-    for name in ("critic_loss", "actor_loss", "td_error", "root"):
-        err = ((gpu[name] - cpu[name]).abs()
-               / cpu[name].abs().clamp_min(1e-30)).max().item()
-        print(f"chunk card vs CPU {name}: max rel err {err:.3e}")
-        check(err <= 1e-4, f"chunk {name} card vs CPU")
+    for name in ("critic_loss", "actor_loss", "td_error"):
+        check(out["cpu"][name].shape[0] == k, f"multi_update_step {name}")
+        err = _rel_err(out[str(dev)][name], out["cpu"][name])
+        print(f"multi_update_step K={k} card vs CPU {name}: max rel err "
+              f"{err:.3e}")
+        check(err <= 1e-4, f"multi_update_step {name} card vs CPU")
 
 
-def phase_slice(dev) -> dict:
-    from d4pg_tpu_torch.learner.fused import make_fused_chunk
-    from d4pg_tpu_torch.learner.state import init_state
+def launch_counts() -> dict:
     from d4pg_tpu_torch.ops.projection import projection
+    from d4pg_tpu_torch.ops.projection_ce import projection_ce
     from d4pg_tpu_torch.ops.sampler_descent import descend
+
+    return {"projection": projection.launches,
+            "projection_ce_fwd": projection_ce.fwd_launches,
+            "projection_ce_bwd": projection_ce.bwd_launches,
+            "descent": descend.launches}
+
+
+def zero_counts() -> None:
+    from d4pg_tpu_torch.ops.projection import projection
+    from d4pg_tpu_torch.ops.projection_ce import projection_ce
+    from d4pg_tpu_torch.ops.sampler_descent import descend
+
+    projection.launches = descend.launches = 0
+    projection_ce.fwd_launches = projection_ce.bwd_launches = 0
+
+
+def fill_buffers(dev):
+    """The slice's PER ring and its uniform twin, filled once with the
+    same rows."""
     from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
 
     t0 = time.perf_counter()
-    buf = FusedDeviceReplay(CAPACITY, OBS, ACT, alpha=0.6, device=dev)
+    per = FusedDeviceReplay(CAPACITY, OBS, ACT, alpha=0.6, device=dev)
+    uniform = FusedDeviceReplay(CAPACITY, OBS, ACT, prioritized=False,
+                                device=dev)
     rng = np.random.default_rng(0)
-    for _ in range(CAPACITY // FILL_BLOCK):
-        buf.add(random_rows(rng, FILL_BLOCK))
-        buf.drain()
+    for start in range(0, CAPACITY, FILL_BLOCK):
+        rows = random_rows(rng, min(FILL_BLOCK, CAPACITY - start))
+        for buf in (per, uniform):
+            buf.add(rows)
+            buf.drain()
     torch.cuda.synchronize()
-    print(f"ring filled: {buf.size} rows in {time.perf_counter() - t0:.2f} s")
-    leaves = buf.trees.sum_tree[CAP:].double().sum().item()
-    check(abs(buf.trees.sum_tree[1].item() - leaves) <= 1e-4 * leaves,
+    print(f"rings filled: {per.size} rows each in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(per.size == CAPACITY, f"ring full: {per.size} rows")
+    check(uniform.trees is None and uniform.size == per.size,
+          "uniform twin: no trees, same rows")
+    leaves = per.trees.sum_tree[CAP:].double().sum().item()
+    check(abs(per.trees.sum_tree[1].item() - leaves) <= 1e-4 * leaves,
           "tree root == sum of leaves after fill")
+    return per, uniform
 
-    state = init_state(config(), seed=0, device=dev)
-    fn = make_fused_chunk(config(), k=K, batch_size=BATCH,
-                          projection="pallas")
-    gen = torch.Generator(device=dev).manual_seed(0)
 
-    def chunk():
-        nonlocal metrics
-        buf.trees, metrics = fn(state, buf.trees, buf.storage, buf.size,
-                                generator=gen)
-
-    def run(chunks):
-        projection.launches = descend.launches = 0
-        for _ in range(chunks):
-            chunk()
-        torch.cuda.synchronize()
-        return {"projection": projection.launches,
-                "descent": descend.launches}
-
-    metrics = None
+def breakdown(run_chunks, wall_ms: float) -> dict:
+    """Where a grad step's time goes: the host's time to queue three
+    chunks, and the device's kernel time in one profiled chunk from the
+    profiler's device events, both against the unprofiled wall clock."""
     t0 = time.perf_counter()
-    warm = run(1)
-    print(f"warm-up chunk: {time.perf_counter() - t0:.3f} s, launches {warm}")
-    check(warm == {"projection": K, "descent": K}, "warm-up launches == K")
-    t0 = time.perf_counter()
-    launches = run(TIMED_CHUNKS)
-    dt = time.perf_counter() - t0
-    check(launches == {"projection": K * TIMED_CHUNKS,
-                       "descent": K * TIMED_CHUNKS},
-          f"launches == K per chunk: {launches}")
-    for name in ("critic_loss", "actor_loss", "td_error"):
-        check(bool(torch.isfinite(metrics[name]).all()), f"finite {name}")
-    check(tuple(metrics["td_error"].shape) == (K, BATCH), "td_error shape")
-    idx = metrics["idx"]
-    check(bool(((idx >= 0) & (idx < buf.size)).all()), "slots in range")
-    leaves = buf.trees.sum_tree[CAP:].double().sum().item()
-    check(abs(buf.trees.sum_tree[1].item() - leaves) <= 1e-4 * leaves,
-          "tree root == sum of leaves after chunks")
-    steps_per_s = K * TIMED_CHUNKS / dt
-    print(f"slice: {K * TIMED_CHUNKS} grad steps in {dt:.3f} s = "
-          f"{steps_per_s:.1f} grad-steps/s (K={K}, B={BATCH}, "
-          f"step {state.step}, critic_loss "
-          f"{metrics['critic_loss'][-1].item():.4f})")
-    # where a step's time goes: the host's time to queue one chunk, and
-    # the device's kernel time in one chunk from the profiler's device
-    # events, both against the unprofiled wall clock per step
-    wall_ms = 1e3 * dt / (K * TIMED_CHUNKS)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        chunk()
+    run_chunks(3)
     enqueue_ms = 1e3 * (time.perf_counter() - t0) / (3 * K)
     torch.cuda.synchronize()
     print(f"per grad step: wall {wall_ms:.3f} ms, host enqueue "
           f"{enqueue_ms:.3f} ms")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        chunk()
+        run_chunks(1)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if not e.is_user_annotation]
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -420,7 +552,114 @@ def phase_slice(dev) -> dict:
     for e in sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"  host {e.self_cpu_time_total / K:9.2f} us/step "
               f"{e.count / K:7.2f} calls/step  {e.key[:80]}")
-    return {"grad_steps_per_s": steps_per_s, "launches": launches}
+    return {"enqueue_ms": enqueue_ms,
+            "device_busy_ms": device_us / 1e3 / K if device_us else None}
+
+
+# the kernels each arm must launch K times per chunk; the rest 0 times
+ARM_KERNELS = {"pallas": ("projection", "descent"),
+               "pallas_ce": ("projection_ce_fwd", "projection_ce_bwd",
+                             "descent")}
+
+
+def slice_arm(dev, buf, arm: str):
+    """FusedLoop over the filled ring under one projection arm, from a
+    fresh state, warmed up by one chunk. Returns ``(timed, finish)``:
+    ``timed(chunks)`` runs one timed window with the launch counters set
+    to 0 just before and read just after, and checks it; ``finish()``
+    sums the windows, prints the breakdown and returns the arm's
+    result."""
+    from d4pg_tpu_torch.learner.loop import FusedLoop
+    from d4pg_tpu_torch.learner.state import init_state
+
+    state = init_state(config(arm), seed=0, device=dev)
+    loop = FusedLoop(config(arm), buf, k=K, batch_size=BATCH,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+
+    def run(chunks):
+        zero_counts()
+        metrics = loop.run(state, chunks * K)
+        torch.cuda.synchronize()
+        return metrics, launch_counts()
+
+    def expected(chunks):
+        return {name: K * chunks if name in ARM_KERNELS[arm] else 0
+                for name in launch_counts()}
+
+    t0 = time.perf_counter()
+    _, warm = run(1)
+    print(f"[{arm}] warm-up chunk: {time.perf_counter() - t0:.3f} s, "
+          f"launches {warm}")
+    check(warm == expected(1), f"[{arm}] warm-up launches: {warm}")
+    windows = []
+
+    def timed(chunks):
+        t0 = time.perf_counter()
+        metrics, launches = run(chunks)
+        dt = time.perf_counter() - t0
+        check(launches == expected(chunks),
+              f"[{arm}] launches == K per chunk: {launches}")
+        for name in ("critic_loss", "actor_loss", "td_error"):
+            check(bool(torch.isfinite(metrics[name]).all()),
+                  f"[{arm}] finite {name}")
+        check(tuple(metrics["td_error"].shape) == (K, BATCH),
+              "td_error shape")
+        idx = metrics["idx"]
+        check(bool(((idx >= 0) & (idx < buf.size)).all()), "slots in range")
+        leaves = buf.trees.sum_tree[CAP:].double().sum().item()
+        check(abs(buf.trees.sum_tree[1].item() - leaves) <= 1e-4 * leaves,
+              "tree root == sum of leaves after chunks")
+        windows.append((chunks * K, dt, launches, metrics))
+
+    def finish():
+        steps = sum(w[0] for w in windows)
+        dt = sum(w[1] for w in windows)
+        launches = {name: sum(w[2][name] for w in windows)
+                    for name in windows[0][2]}
+        check(loop.steps_done == K + steps, f"[{arm}] loop step count")
+        check(steps == K * TIMED_CHUNKS, f"[{arm}] timed steps")
+        steps_per_s = steps / dt
+        rates = [w[0] / w[1] for w in windows]
+        print(f"[{arm}] windows: {', '.join(f'{x:.1f}' for x in rates)} "
+              f"grad-steps/s, median {np.median(rates):.1f}")
+        print(f"[{arm}] slice: {steps} grad steps in {dt:.3f} s = "
+              f"{steps_per_s:.1f} grad-steps/s (K={K}, B={BATCH}, step "
+              f"{state.step}, critic_loss "
+              f"{windows[-1][3]['critic_loss'][-1].item():.4f})")
+        parts = breakdown(lambda chunks: loop.run(state, chunks * K),
+                          1e3 * dt / steps)
+        loop.close()
+        return {"grad_steps_per_s": steps_per_s,
+                "window_median": float(np.median(rates)),
+                "launches": launches, **parts}
+
+    return timed, finish
+
+
+def phase_uniform(dev, buf) -> None:
+    """One uniform chunk (no trees, no IS weights) on the twin ring."""
+    from d4pg_tpu_torch.learner.loop import FusedLoop
+    from d4pg_tpu_torch.learner.state import init_state
+
+    state = init_state(config("pallas_ce"), seed=0, device=dev)
+    loop = FusedLoop(config("pallas_ce"), buf, k=K, batch_size=BATCH,
+                     generator=torch.Generator(device=dev).manual_seed(1),
+                     prioritized=False)
+    zero_counts()
+    metrics = loop.run(state, K)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(launches == {"projection": 0, "projection_ce_fwd": K,
+                       "projection_ce_bwd": K, "descent": 0},
+          f"uniform chunk launches: {launches}")
+    for name in ("critic_loss", "actor_loss", "td_error"):
+        check(bool(torch.isfinite(metrics[name]).all()),
+              f"uniform chunk: finite {name}")
+    idx = metrics["idx"]
+    check(bool(((idx >= 0) & (idx < buf.size)).all()),
+          "uniform slots in range")
+    print(f"uniform chunk: launches {launches}, critic_loss "
+          f"{metrics['critic_loss'][-1].item():.4f}")
 
 
 def main() -> int:
@@ -444,12 +683,27 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    kernels = [phase_projection(dev), phase_descent(dev)]
+    kernels = [phase_projection(dev), phase_descent(dev),
+               *phase_projection_ce(dev)]
+    phase_autotune(dev)
     phase_reference(dev)
-    result = phase_slice(dev)
+    per, uniform = fill_buffers(dev)
+    # both arms warmed up, then timed in turns (A B B A A B B A A B) on
+    # the one ring, TIMED_CHUNKS chunks per arm in windows of 2
+    arm_runs = {arm: slice_arm(dev, per, arm)
+               for arm in ("pallas", "pallas_ce")}
+    for arm in ("pallas", "pallas_ce", "pallas_ce", "pallas") * 2 + (
+            "pallas", "pallas_ce"):
+        arm_runs[arm][0](WINDOW_CHUNKS)
+    arms = {arm: finish() for arm, (_, finish) in arm_runs.items()}
+    phase_uniform(dev, uniform)
+    # each kernel's launches from the run of the arm whose path it is on
     for kern in kernels:
-        kern["launches"] = result["launches"][kern["name"]]
-    print(f"grad_steps_per_s {result['grad_steps_per_s']:.1f} on {card}")
+        arm = "pallas" if kern["name"] == "projection" else "pallas_ce"
+        kern["launches"] = arms[arm]["launches"][kern["name"]]
+    for arm, result in arms.items():
+        print(f"[{arm}] grad_steps_per_s {result['grad_steps_per_s']:.1f} "
+              f"on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,14 @@
 The JAX package ``d4pg_tpu`` is the reference; this package mirrors its
 module paths (``core/distribution.py`` here is the counterpart of
 ``d4pg_tpu/core/distribution.py``) and imports nothing from it, nor JAX.
-What it covers so far is the fused PER replay+learn chunk
-(``learner/fused.py``) with hand-written CUDA kernels for the Bellman
-projection (``ops/projection.py``) and the PER sum-tree descent
-(``ops/sampler_descent.py``).
+What it covers so far is the fused replay+learn loop
+(``learner/loop.py`` over ``learner/fused.py``, PER or uniform) with
+hand-written CUDA kernels for every TPU kernel of the reference: the
+Bellman projection (``ops/projection.py``), the projection fused into
+the cross-entropy critic loss, forward and backward
+(``ops/projection_ce.py``), and the PER sum-tree descent
+(``ops/sampler_descent.py``); plus the projection autotuner
+(``ops/autotune.py``) and the exploration noise (``core/noise.py``).
 
 Device rule: every entry point takes an explicit ``device`` and defaults
 to ``"cuda"``. With no card present that default fails loudly; only an

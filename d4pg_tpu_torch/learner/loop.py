@@ -1,0 +1,100 @@
+"""The fused training loop.
+
+Counterpart of ``d4pg_tpu/learner/loop.py::FusedLoop`` against a buffer
+that is filled between runs (no ``ReplayService``): ``run`` cuts ``n``
+grad steps into chunks of K and calls the fused chunk
+(``learner/fused.py``) for each, the last chunk shorter when K does not
+divide ``n``. The chunk functions are cached per chunk length. The state
+is updated in place, and the random draws come from the loop's
+``generator``, where the reference threads a PRNG key through its state.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from d4pg_tpu_torch.learner.fused import make_fused_chunk
+from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
+
+
+class FusedLoop:
+    """Drives fused replay+learn chunks against a ``FusedDeviceReplay``
+    (its ``storage``, ``size`` and, when ``prioritized``, ``trees``)."""
+
+    def __init__(
+        self,
+        config: D4PGConfig,
+        buffer,
+        *,
+        k: int,
+        batch_size: int,
+        generator: torch.Generator,
+        prioritized: bool = True,
+        alpha: float = 0.6,
+        beta0: float = 0.4,
+        beta_steps: int = 100_000,
+        service=None,
+    ):
+        if service is not None:
+            raise NotImplementedError(
+                "FusedLoop with a ReplayService (rows streaming in between "
+                "chunks) waits for the port of the ReplayService slice; "
+                "pass service=None and fill the buffer between runs")
+        if prioritized and buffer.trees is None:
+            raise ValueError("prioritized=True needs a buffer with PER trees")
+        self._config = config
+        self._buffer = buffer
+        self.k = max(1, int(k))
+        self._batch_size = int(batch_size)
+        self._generator = generator
+        self._prioritized = bool(prioritized)
+        self._alpha = float(alpha)
+        self._beta0 = float(beta0)
+        self._beta_steps = int(beta_steps)
+        self._fns: dict[int, Callable] = {}
+        self.steps_done = 0
+        self.chunks = 0
+
+    def fused_for(self, k: int) -> Callable:
+        """The fused-chunk function for chunk length ``k`` (cached)."""
+        if k not in self._fns:
+            self._fns[k] = make_fused_chunk(
+                self._config, k=k, batch_size=self._batch_size,
+                prioritized=self._prioritized, alpha=self._alpha,
+                beta0=self._beta0, beta_steps=self._beta_steps)
+        return self._fns[k]
+
+    def run(
+        self,
+        state: D4PGState,
+        n: int,
+        on_chunk: Callable[[D4PGState, int], None] | None = None,
+    ) -> dict[str, torch.Tensor] | None:
+        """``n`` fused grad steps on ``state`` (in place). Returns the LAST
+        chunk's metrics stacked along its length (``None`` when
+        ``n <= 0``). ``on_chunk(state, k)`` runs after each chunk."""
+        buffer = self._buffer
+        metrics = None
+        done = 0
+        while done < n:
+            k = min(self.k, n - done)
+            fn = self.fused_for(k)
+            if self._prioritized:
+                buffer.trees, metrics = fn(state, buffer.trees,
+                                           buffer.storage, buffer.size,
+                                           generator=self._generator)
+            else:
+                metrics = fn(state, buffer.storage, buffer.size,
+                             generator=self._generator)
+            done += k
+            self.steps_done += k
+            self.chunks += 1
+            if on_chunk is not None:
+                on_chunk(state, k)
+        return metrics
+
+    def close(self) -> None:
+        """Nothing to release without a service (the reference frees the
+        service's ingest-dispatch slot here)."""

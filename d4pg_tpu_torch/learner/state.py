@@ -23,7 +23,7 @@ from d4pg_tpu_torch.core.distribution import CategoricalSupport
 from d4pg_tpu_torch.models.actor import Actor
 from d4pg_tpu_torch.models.critic import CategoricalCritic
 
-PROJECTIONS = ("einsum", "pallas")
+PROJECTIONS = ("einsum", "pallas", "pallas_ce")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,10 +31,14 @@ class D4PGConfig:
     """The categorical subset of the reference's ``D4PGConfig``.
 
     ``projection`` keeps the reference's arm names so a reference config
-    carries over, but the port has one projection path for both:
+    carries over. ``einsum`` and ``pallas`` are one path in the port:
     ``ops.projection.projection``, the CUDA kernel for tensors on the card
-    and its plain version for tensors on the CPU. ``pallas_ce`` (the fused
-    projection + cross-entropy) is not ported yet."""
+    and its plain version for tensors on the CPU, then the cross-entropy.
+    ``pallas_ce`` fuses the projection into the cross-entropy
+    (``ops.projection_ce.projection_ce``: forward and backward CUDA
+    kernels on the card, the plain version on the CPU). Like the
+    reference's field it must be concrete: ``auto`` is resolved first by
+    ``ops.autotune.select_projection``."""
 
     obs_dim: int
     act_dim: int
@@ -53,10 +57,6 @@ class D4PGConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "hidden", tuple(self.hidden))
-        if self.projection == "pallas_ce":
-            raise NotImplementedError(
-                "projection='pallas_ce' (fused projection + cross-entropy) "
-                "is not ported yet")
         if self.projection not in PROJECTIONS:
             raise ValueError(f"unknown projection {self.projection!r}")
 

@@ -27,9 +27,13 @@
 // Rounding: nvcc contracts r + d * z into one FMA and the accumulation
 // p_i * w + acc into FMAs; the plain torch einsum rounds each product and
 // sums in another order. The difference stays within the port's bar
-// (max abs error 1e-5 against the plain version).
+// (max abs error 1e-5 against the plain version). The per-row arithmetic
+// lives in projection_common.cuh, shared with the fused projection +
+// cross-entropy kernels of projection_ce.cu.
 
 #include <cuda_runtime.h>
+
+#include "projection_common.cuh"
 
 namespace {
 
@@ -52,25 +56,16 @@ projection_kernel(const float* __restrict__ p, const float* __restrict__ r,
     const int rr = t / atoms;
     const int i = t - rr * atoms;
     const int row = row0 + rr;
-    const float z = v_min + delta * static_cast<float>(i);
-    const float tz = fminf(fmaxf(r[row] + d[row] * z, v_min), v_max);
     sp[t] = p[static_cast<long>(row) * atoms + i];
-    sb[t] = (tz - v_min) / delta;
+    sb[t] = d4pg::bin_position(r[row], d[row], i, v_min, v_max, delta);
   }
   __syncthreads();
 
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
     const int rr = t / atoms;
     const int j = t - rr * atoms;
-    const float fj = static_cast<float>(j);
-    const float* bp = sb + rr * atoms;
-    const float* pp = sp + rr * atoms;
-    float acc = 0.0f;
-    for (int i = 0; i < atoms; ++i) {
-      const float w = fmaxf(0.0f, 1.0f - fabsf(bp[i] - fj));
-      acc += pp[i] * w;
-    }
-    out[static_cast<long>(row0 + rr) * atoms + j] = acc;
+    out[static_cast<long>(row0 + rr) * atoms + j] =
+        d4pg::projected_atom(sp + rr * atoms, sb + rr * atoms, atoms, j);
   }
 }
 

@@ -6,8 +6,9 @@ one shared library with a plain C interface, and the library is loaded
 with ``ctypes``. The build runs at the first CUDA use of a kernel, into
 ``_build/`` beside this file (listed in ``.gitignore``), from the sources
 in the checkout only; a library whose name carries the hash of the
-current sources and flags is reused. Nothing is built when the module is
-imported, and there is no fallback: a failed build raises.
+current sources (``*.cu`` and the ``*.cuh`` headers they include) and
+flags is reused. Nothing is built when the module is imported, and there
+is no fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p, so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
     "d4pg_projection": ([_P, _P, _P, _P, _I, _I, _F, _F, _F, _P], _I),
+    "d4pg_projection_ce_fwd": ([_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
+                               _I),
+    "d4pg_projection_ce_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                                _P], _I),
     "d4pg_descend": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "d4pg_error_string": ([_I], ctypes.c_char_p),
 }
@@ -73,11 +78,20 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path(csrc: Path = CSRC) -> Path:
+    """Where the library of ``csrc``'s current sources lives: its name
+    hashes every ``*.cu`` and every ``*.cuh`` header, so an edit to a
+    shared header rebuilds the library too."""
+    sources = sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")])
+    return BUILD_DIR / f"libd4pg_kernels_{_digest(sources)}.so"
+
+
 def build() -> tuple[Path, float, str]:
     """Compile and link the kernels if this source set has no library yet.
-    Returns ``(path, seconds spent building, nvcc output)``."""
+    Returns ``(path, seconds spent building, nvcc output)``. Only the
+    ``*.cu`` files are compiled; the headers reach nvcc through them."""
     sources = sorted(CSRC.glob("*.cu"))
-    lib = BUILD_DIR / f"libd4pg_kernels_{_digest(sources)}.so"
+    lib = library_path()
     if lib.exists():
         return lib, 0.0, ""
     nvcc = _nvcc()

@@ -26,14 +26,24 @@ from d4pg_tpu_torch.ops.kernels import library
 projection_plain = categorical_projection
 
 
-def _check(target_probs, rewards, discounts) -> tuple[int, int]:
+def check_operands(support: CategoricalSupport, target_probs, rewards,
+                   discounts, *, matrices=(), vectors=()) -> tuple[int, int]:
+    """Raise unless target_probs and each ``(name, tensor)`` of
+    ``matrices`` are [B, A] (A = the support's atoms), rewards, discounts
+    and each of ``vectors`` are [B], all contiguous float32 on one device.
+    Returns ``(B, A)``."""
     if target_probs.dim() != 2:
         raise ValueError(f"target_probs must be [B, A], got "
                          f"{tuple(target_probs.shape)}")
     b, a = target_probs.shape
-    for name, t, shape in (("target_probs", target_probs, (b, a)),
-                           ("rewards", rewards, (b,)),
-                           ("discounts", discounts, (b,))):
+    if a != support.n_atoms:
+        raise ValueError(f"{a} atoms in target_probs, support has "
+                         f"{support.n_atoms}")
+    expected = [("target_probs", target_probs, (b, a)),
+                *[(name, t, (b, a)) for name, t in matrices],
+                ("rewards", rewards, (b,)), ("discounts", discounts, (b,)),
+                *[(name, t, (b,)) for name, t in vectors]]
+    for name, t, shape in expected:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
@@ -59,10 +69,7 @@ def projection(
         return projection_plain(support, target_probs, rewards, discounts)
     if target_probs.device.type != "cuda":
         raise ValueError(f"no projection kernel for {target_probs.device}")
-    b, a = _check(target_probs, rewards, discounts)
-    if a != support.n_atoms:
-        raise ValueError(f"{a} atoms in target_probs, support has "
-                         f"{support.n_atoms}")
+    b, a = check_operands(support, target_probs, rewards, discounts)
     out = torch.empty_like(target_probs)
     if b == 0:
         return out

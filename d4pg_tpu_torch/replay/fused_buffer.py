@@ -4,9 +4,10 @@ Counterpart of ``d4pg_tpu/replay/fused_buffer.py``, single-shard and
 without generation tracking. ``add`` only copies host rows into a
 preallocated column-major staging ring; ``drain`` moves them to the
 device one fixed-size block at a time, each block being a ring write
-(``device_ring.block_write``) plus a PER tree insert at
-``max_priority ** alpha``. The learner calls ``drain`` between chunks, so
-the fused chunk never sees a half-landed block.
+(``device_ring.block_write``) plus, with ``prioritized=True``, a PER tree
+insert at ``max_priority ** alpha``; a uniform buffer has no trees. The
+learner calls ``drain`` between chunks, so the fused chunk never sees a
+half-landed block.
 """
 
 from __future__ import annotations
@@ -65,10 +66,11 @@ class HostStagingRing:
 
 
 class FusedDeviceReplay:
-    """Fixed-capacity device ring + device PER trees."""
+    """Fixed-capacity device ring + (``prioritized``) device PER trees;
+    ``trees`` is ``None`` for uniform replay."""
 
     def __init__(self, capacity: int, obs_dim: int, act_dim: int,
-                 alpha: float = 0.6,
+                 alpha: float = 0.6, prioritized: bool = True,
                  device: str | torch.device | None = None,
                  block_rows: int | None = None, staging_blocks: int = 8):
         self.device = resolve_device(device)
@@ -78,7 +80,9 @@ class FusedDeviceReplay:
                               else min(4096, self.capacity))
         self._store = DeviceStore(self.capacity, obs_dim, act_dim,
                                   self.device, self.block_rows)
-        self.trees = dper.init(self.capacity, self.device)
+        self.prioritized = bool(prioritized)
+        self.trees = (dper.init(self.capacity, self.device)
+                      if self.prioritized else None)
         self.size = 0
         self.head = 0
         n_blocks = min(int(staging_blocks),
@@ -103,8 +107,10 @@ class FusedDeviceReplay:
         dev = TransitionBatch(*[torch.from_numpy(v).to(self.device)
                                 for v in frame])
         self._store.write_block(self.head, dev, n)
-        idx = (self.head + torch.arange(n, device=self.device)) % self.capacity
-        self.trees = dper.insert(self.trees, idx, self.alpha)
+        if self.prioritized:
+            idx = (self.head + torch.arange(n, device=self.device)
+                   ) % self.capacity
+            self.trees = dper.insert(self.trees, idx, self.alpha)
         self.head = (self.head + n) % self.capacity
         self.size = min(self.size + n, self.capacity)
 

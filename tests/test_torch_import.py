@@ -59,6 +59,7 @@ def test_port_sources_import_no_jax_or_reference():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from d4pg_tpu_torch.core import noise
     from d4pg_tpu_torch.learner.state import D4PGConfig, init_state
     from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
 
@@ -68,20 +69,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         init_state(cfg, 0)
     with pytest.raises(RuntimeError, match="cuda"):
         FusedDeviceReplay(16, 4, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        noise.gaussian.init()
+    with pytest.raises(RuntimeError, match="cuda"):
+        noise.ou.init(2)
     # an explicit CPU request runs
     state = init_state(cfg, 0, device="cpu")
     assert state.device.type == "cpu"
     buf = FusedDeviceReplay(16, 4, 2, device="cpu")
     assert buf.trees.sum_tree.shape == (32,)
+    assert noise.ou.init(2, device="cpu").x.device.type == "cpu"
 
 
 def test_config_rejects_unported_projection():
+    """Every arm of the reference is ported (``pallas_ce`` last); an
+    unknown name, and an unresolved ``auto``, still raise."""
     from d4pg_tpu_torch.learner.state import D4PGConfig
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        D4PGConfig(obs_dim=4, act_dim=2, projection="pallas_ce")
-    with pytest.raises(ValueError):
-        D4PGConfig(obs_dim=4, act_dim=2, projection="nope")
+    for arm in ("einsum", "pallas", "pallas_ce"):
+        assert D4PGConfig(obs_dim=4, act_dim=2, projection=arm).projection \
+            == arm
+    for name in ("nope", "auto"):
+        with pytest.raises(ValueError, match="unknown projection"):
+            D4PGConfig(obs_dim=4, act_dim=2, projection=name)
 
 
 def test_tf32_is_off_once_the_port_is_imported():
@@ -93,7 +103,8 @@ def test_tf32_is_off_once_the_port_is_imported():
 
 def test_kernel_build_is_lazy_and_keyed_by_sources(tmp_path, monkeypatch):
     """Importing the ops builds nothing; the library name follows the
-    sources, so an edited kernel is rebuilt rather than reused."""
+    sources, headers included, so an edited kernel or shared header is
+    rebuilt rather than reused."""
     from d4pg_tpu_torch.ops import kernels
 
     assert kernels.library.cache_info().currsize == 0
@@ -103,4 +114,16 @@ def test_kernel_build_is_lazy_and_keyed_by_sources(tmp_path, monkeypatch):
     a.write_text("// two")
     assert kernels._digest([a]) != first
     assert {s.name for s in kernels.CSRC.glob("*.cu")} == {
-        "projection.cu", "sampler_descent.cu"}
+        "projection.cu", "projection_ce.cu", "sampler_descent.cu"}
+    assert {s.name for s in kernels.CSRC.glob("*.cuh")} == {
+        "projection_common.cuh"}
+    # a copy of the sources: editing the shared header renames the library
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in kernels.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    assert kernels.library_path(csrc) == kernels.library_path()
+    header = csrc / "projection_common.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert kernels.library_path(csrc) != kernels.library_path()
+    assert kernels.library.cache_info().currsize == 0

@@ -1,11 +1,13 @@
-"""Port vs reference: networks and one learner update.
+"""Port vs reference: networks, learner updates, exploration noise.
 
 A JAX ``init_state`` is carried into the port with ``io.from_jax`` (as
 plain numpy trees). Forwards then match at rtol 1e-5 / atol 1e-6, and so
-does one ``update_step`` on a shared batch with IS weights under
-``projection="pallas"`` on both sides (the JAX kernel in interpret mode,
-the port's plain version on the CPU): losses, TD errors, all four
-parameter sets and both Adam moments.
+does one ``update_step`` on a shared batch with IS weights under each
+projection arm on both sides (the JAX kernels in interpret mode, the
+port's plain versions on the CPU): losses, TD errors, all four parameter
+sets and both Adam moments; and so do K = 3 steps of
+``multi_update_step``. The noise processes and ``act_ou`` take the
+reference's own normal draws, injected.
 """
 
 import jax
@@ -15,11 +17,21 @@ import pytest
 import torch
 
 from d4pg_tpu.learner import state as jstate
+from d4pg_tpu.core import noise as jnoise
+from d4pg_tpu.learner.update import act_ou as jax_act_ou
+from d4pg_tpu.learner.update import multi_update_step as jax_multi_update_step
 from d4pg_tpu.learner.update import update_step as jax_update_step
 from d4pg_tpu.replay.uniform import TransitionBatch as JaxBatch
+from d4pg_tpu_torch.core import noise as tnoise
 from d4pg_tpu_torch.io.from_jax import state_from_jax, torch_layout
 from d4pg_tpu_torch.learner import state as tstate
-from d4pg_tpu_torch.learner.update import act, act_deterministic, update_step
+from d4pg_tpu_torch.learner.update import (
+    act,
+    act_deterministic,
+    act_ou,
+    multi_update_step,
+    update_step,
+)
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
 
 pytestmark = pytest.mark.torchport
@@ -126,7 +138,7 @@ def test_act_adds_clipped_noise(rng):
     assert torch.equal(a, want)
 
 
-@pytest.mark.parametrize("projection", ["pallas", "einsum"])
+@pytest.mark.parametrize("projection", ["pallas", "einsum", "pallas_ce"])
 def test_update_step_matches_reference(rng, projection):
     jcfg, js, tcfg, ts = _pair(seed=2, projection=projection)
     b = _batch(rng, 16)
@@ -172,6 +184,122 @@ def test_update_step_projects_through_the_kernel_wrapper(
     tupdate.update_step(cfg, ts, TransitionBatch(
         **{k: torch.from_numpy(v) for k, v in _batch(rng, 8).items()}))
     assert calls == [cfg.support]
+
+
+def test_update_step_pallas_ce_goes_through_the_fused_wrapper(
+        rng, monkeypatch):
+    """``pallas_ce`` reaches the fused wrapper (the CE kernels on the card)
+    once per step and never the standalone projection."""
+    from d4pg_tpu_torch.learner import update as tupdate
+    from d4pg_tpu_torch.ops import projection_ce as tpce
+
+    cfg = tstate.D4PGConfig(**{**DIMS, "projection": "pallas_ce"})
+    calls = []
+
+    def counted(*args):
+        calls.append(args[0])
+        return tpce.projection_ce(*args)
+
+    def refused(*args):
+        raise AssertionError("the standalone projection ran under pallas_ce")
+
+    monkeypatch.setattr(tupdate, "projection_ce", counted)
+    monkeypatch.setattr(tupdate, "projection", refused)
+    ts = tstate.init_state(cfg, seed=0, device="cpu")
+    m = tupdate.update_step(cfg, ts, TransitionBatch(
+        **{k: torch.from_numpy(v) for k, v in _batch(rng, 8).items()}))
+    assert calls == [cfg.support]
+    assert not m["td_error"].requires_grad
+
+
+@pytest.mark.parametrize("projection", ["pallas", "pallas_ce"])
+def test_multi_update_step_matches_reference(rng, projection):
+    """K = 3 stacked updates against the reference's lax.scan over the
+    same batches and IS weights (tests/test_learner.py's K-step case)."""
+    jcfg, js, tcfg, ts = _pair(seed=8, projection=projection)
+    k, b = 3, 16
+    batches = [_batch(rng, b) for _ in range(k)]
+    stacked = {name: np.stack([x[name] for x in batches])
+               for name in batches[0]}
+    w = (0.5 + rng.random((k, b))).astype(np.float32)
+    js2, jm = jax.jit(lambda s, bb, ww: jax_multi_update_step(
+        jcfg, s, bb, ww))(
+            js, JaxBatch(**{n: jnp.asarray(v) for n, v in stacked.items()}),
+            jnp.asarray(w))
+    tm = multi_update_step(tcfg, ts, TransitionBatch(
+        **{n: torch.from_numpy(v) for n, v in stacked.items()}),
+        torch.from_numpy(w))
+    for name in ("critic_loss", "actor_loss", "q_mean", "td_error"):
+        assert tm[name].shape[0] == k
+        np.testing.assert_allclose(tm[name].numpy(), np.asarray(jm[name]),
+                                   err_msg=name, **TOL)
+    _assert_params(js2.actor_params, ts.actor)
+    _assert_params(js2.critic_params, ts.critic)
+    _assert_params(js2.target_actor_params, ts.target_actor)
+    _assert_params(js2.target_critic_params, ts.target_critic)
+    _assert_adam(js2.critic_opt_state, ts.critic_opt, ts.critic)
+    assert ts.step == int(js2.step) == k
+
+
+def test_gaussian_noise_matches_reference():
+    """sample with the reference's own draw injected, then three resets
+    of the epsilon decay, on a batch of 4 environments."""
+    key = jax.random.key(3)
+    js = jnoise.gaussian.init(horizon=100, epsilon_0=0.3, batch_shape=(4,))
+    ts = tnoise.gaussian.init(horizon=100, epsilon_0=0.3, batch_shape=(4,),
+                              device="cpu")
+    for _ in range(3):
+        want = jnoise.gaussian.sample(js, key, (4, 2), mu=0.1, sigma=0.5)
+        normal = torch.tensor(np.asarray(jax.random.normal(key, (4, 2))))
+        got = tnoise.gaussian.sample(ts, None, (4, 2), mu=0.1, sigma=0.5,
+                                     normal=normal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+        js = jnoise.gaussian.reset(js, horizon=100, min_epsilon=0.05)
+        ts = tnoise.gaussian.reset(ts, horizon=100, min_epsilon=0.05)
+        np.testing.assert_allclose(ts.epsilon.numpy(), np.asarray(js.epsilon),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(ts.resets.numpy(), np.asarray(js.resets))
+        key = jax.random.split(key)[0]
+    gen = torch.Generator().manual_seed(0)
+    drawn = tnoise.gaussian.sample(ts, gen, (4, 2))
+    assert drawn.shape == (4, 2)
+    with pytest.raises(ValueError, match="generator"):
+        tnoise.gaussian.sample(ts, None, (4, 2))
+
+
+def test_ou_noise_and_act_ou_match_reference(rng):
+    """Five OU steps, a reset, and ``act_ou`` (greedy + OU advance +
+    clip), each with the reference's normal draw injected."""
+    jcfg, js, tcfg, ts = _pair(seed=9)
+    obs = _batch(rng, 4)["obs"]
+    jou = jnoise.ou.init(2, batch_shape=(4,), epsilon_0=0.8)
+    tou = tnoise.ou.init(2, batch_shape=(4,), epsilon_0=0.8, device="cpu")
+    key = jax.random.key(4)
+    for _ in range(5):
+        key, sub = jax.random.split(key)
+        normal = torch.tensor(np.asarray(jax.random.normal(sub, (4, 2))))
+        jou, want = jnoise.ou.sample(jou, sub, theta=0.3, sigma=0.2, dt=0.05)
+        tou, got = tnoise.ou.sample(tou, None, theta=0.3, sigma=0.2, dt=0.05,
+                                    normal=normal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-8)
+        np.testing.assert_allclose(tou.x.numpy(), np.asarray(jou.x),
+                                   rtol=1e-6, atol=1e-8)
+    jou = jnoise.ou.reset(jou, horizon=50)
+    tou = tnoise.ou.reset(tou, horizon=50)
+    assert not tou.x.any()
+    np.testing.assert_allclose(tou.epsilon.numpy(), np.asarray(jou.epsilon),
+                               rtol=1e-6)
+
+    key, sub = jax.random.split(key)
+    want_a, jou = jax_act_ou(jcfg, js.actor_params, jnp.asarray(obs), jou,
+                             sub, epsilon=2.0, sigma=3.0)
+    normal = torch.tensor(np.asarray(jax.random.normal(sub, (4, 2))))
+    got_a, tou = act_ou(ts.actor, torch.from_numpy(obs), tou, epsilon=2.0,
+                        sigma=3.0, normal=normal)
+    np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), **TOL)
+    np.testing.assert_allclose(tou.x.numpy(), np.asarray(jou.x), rtol=1e-6)
+    assert float(got_a.abs().max()) <= 1.0
 
 
 def test_actor_step_leaves_no_critic_grad(rng):
