@@ -15,17 +15,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      terminal-delta case;
   4. descent kernel vs its plain version, bitwise: cap = 262,144,
      Q = 256 and Q = 40 * 256, leaves with zero runs, masses equal to
-     left-subtree sums, and the all-zero tree;
+     left-subtree sums, and the all-zero tree; caps 1, 2, 32 and 2^13
+     (no level, fewer levels than one round, a ragged last round);
   5. the fused projection + cross-entropy kernels vs their plain
-     versions on the same inputs as phase 3 at B = 256, 100 and 1: the
-     forward's td at atol 1e-4 / rtol 1e-5, the backward's dq against
-     autograd of the plain loss mean(w * CE(stop_grad(proj), q)) with
-     random IS weights at atol 1e-5 / rtol 1e-5, and no gradient for
-     p, r or d;
+     versions at A = 2, 51 and 101 atoms on [0, 800] and B = 256, 100
+     and 1, and at 51 atoms on [-10, 0] (an inexact spacing) and
+     B = 256 and 1 (inputs as phase 3): the forward's td at atol 1e-4 /
+     rtol 1e-5, the backward's dq against autograd of the plain loss
+     mean(w * CE(stop_grad(proj), q)) with random IS weights at
+     atol 1e-5 / rtol 1e-5, no gradient for p, r or d; dq against
+     -g * projection kernel / (q + 1e-10) (printed, expected 0); and
+     the support's atoms from torch.linspace equal on the card and on
+     the CPU;
   6. device time of each kernel, its plain version and, where one torch
      call computes the same function, that call (CUDA events, warmed up);
-     each kernel's bound from bytes and operations, and the descent's
-     latency floor from a one-query descent (18 dependent L2 loads);
+     each kernel's bound from bytes and operations; one row (B = 1, one
+     query) beside the main path's shape, and for the descent a
+     zero-level launch and its dependent rounds per query;
   7. the projection autotuner: ``select_projection("auto")`` at batch 256,
      51 atoms on [0, 800], its selection and timings;
   8. the fused PER chunk on the card vs the same chunk on the CPU (plain
@@ -69,11 +75,14 @@ V_MIN, V_MAX = 0.0, 800.0
 BATCH, CAPACITY, K, FILL_BLOCK = 256, 200_000, 40, 4096
 TIMED_CHUNKS, WINDOW_CHUNKS = 10, 2  # per arm, per timed window
 CAP = 262_144  # next_pow2(CAPACITY): the sum tree's leaf count
-LEVELS = 18  # log2(CAP): dependent loads per descent
+LEVELS = 18  # log2(CAP): levels per descent
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# the port's CUDA kernels by their names in the profiler's device events
+PORTED_KERNELS = ("projection_kernel", "ce_forward_kernel",
+                  "ce_backward_kernel", "descent_kernel")
 
 
 def check(ok: bool, what: str) -> None:
@@ -192,17 +201,19 @@ def phase_projection(dev) -> dict:
             "enqueue_ms": enq}
 
 
-def _tree_with_zero_runs(dev, gen):
+def _tree_with_zero_runs(dev, gen, cap=CAP):
     from d4pg_tpu_torch.replay import device_per as dper
 
-    leaves = torch.rand(CAP, generator=gen, device=dev)
-    # zero runs: blocks of 64 leaves zeroed at random, plus single zeros
-    blocks = torch.rand(CAP // 64, generator=gen, device=dev) < 0.2
-    leaves = torch.where(blocks.repeat_interleave(64), 0.0, leaves)
-    leaves = torch.where(torch.rand(CAP, generator=gen, device=dev) < 0.1,
+    leaves = torch.rand(cap, generator=gen, device=dev)
+    # zero runs: blocks of up to 64 leaves zeroed at random, plus single
+    # zeros
+    run = min(64, cap)
+    blocks = torch.rand(cap // run, generator=gen, device=dev) < 0.2
+    leaves = torch.where(blocks.repeat_interleave(run), 0.0, leaves)
+    leaves = torch.where(torch.rand(cap, generator=gen, device=dev) < 0.1,
                          0.0, leaves)
-    trees = dper.set_leaves(dper.init(CAP, dev),
-                            torch.arange(CAP, device=dev), leaves)
+    trees = dper.set_leaves(dper.init(cap, dev),
+                            torch.arange(cap, device=dev), leaves)
     return trees.sum_tree, leaves
 
 
@@ -211,10 +222,9 @@ def _left_sum_masses(tree):
     (prefix 0) the mass tree[2^k] ties node 2^(k-1) exactly; the root's
     left sum plus each node on the path of its right child adds more."""
     levels = int(math.log2(tree.shape[0] // 2))
-    firsts = torch.stack([tree[2 ** k] for k in range(1, levels + 1)])
-    rights = torch.stack([tree[2] + tree[3 * 2 ** k]
-                          for k in range(1, levels)])
-    return torch.cat([firsts, rights]).contiguous()
+    firsts = [tree[2 ** k] for k in range(1, levels + 1)]
+    rights = [tree[2] + tree[3 * 2 ** k] for k in range(1, levels)]
+    return torch.stack([tree[1] * 0, *firsts, *rights]).contiguous()
 
 
 def phase_descent(dev) -> dict:
@@ -231,6 +241,13 @@ def phase_descent(dev) -> dict:
     cases = [(name, tree, mass) for name, mass in cases.items()]
     cases.append(("all-zero tree", torch.zeros(2 * CAP, device=dev),
                   torch.zeros(5, device=dev)))
+    # small capacities: no level (cap 1), fewer levels than a round
+    # resolves (2, 32), and a level count a round does not divide (2^13)
+    for cap in (1, 2, 32, 2 ** 13):
+        t, _ = _tree_with_zero_runs(dev, gen, cap)
+        mass = torch.cat([torch.rand(BATCH, generator=gen, device=dev) * t[1],
+                          _left_sum_masses(t), t[1:2]]).contiguous()
+        cases.append((f"cap={cap}", t, mass))
     worst = 0
     for name, t, mass in cases:
         got, want = desc.descend(t, mass), desc.descend_plain(t, mass)
@@ -260,53 +277,70 @@ def phase_descent(dev) -> dict:
     n_bytes = 4 * nodes + 4 * BATCH + 4 * BATCH
     n_ops = 2 * BATCH * LEVELS  # compare + subtract per level
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    # latency floor: every query is a chain of 18 dependent loads. Time a
-    # one-query descent of the warm tree (a fresh mass each call) and a
-    # zero-level launch (a 2-node tree); the difference is one chain of
-    # 18 dependent loads served from L2 (the whole 2 MB tree is read into
-    # the 50 MB L2 first), the launch cost cancelled.
+    # the dependent chain: time a one-query descent of the warm tree (a
+    # fresh mass each call) and a zero-level launch (a 2-node tree); the
+    # difference is one query's chain, the launch cost cancelled: the
+    # launch's first global access, then `rounds` dependent round trips
+    # to L2 (the whole 2 MB tree is read into the 50 MB L2 first).
+    rounds = desc.rounds(CAP)
     one = torch.rand(1000, 1, generator=gen, device=dev) * total
     tree.sum()
     pick = itertools.count()
-    chain_ms, _ = device_ms(
+    one_ms, _ = device_ms(
         lambda: desc.descend(tree, one[next(pick) % 1000]), calls=100)
     stub = torch.zeros(2, device=dev)
     stub_ms, _ = device_ms(lambda: desc.descend(stub, one[0]), calls=100)
-    latency_ms = chain_ms - stub_ms
-    print(f"descent chain: one query {chain_ms * 1e3:.3f} us, zero levels "
-          f"{stub_ms * 1e3:.3f} us -> {latency_ms * 1e6 / LEVELS:.1f} ns "
-          f"per dependent load")
+    chain_ms = one_ms - stub_ms
+    print(f"descent chain: one query {one_ms * 1e3:.3f} us, zero levels "
+          f"{stub_ms * 1e3:.3f} us -> {chain_ms * 1e3:.3f} us for "
+          f"{rounds} dependent rounds and the launch's first global access")
     return {"name": "descent", "route": "cuda",
             "source": "d4pg_tpu_torch/ops/csrc/sampler_descent.cu",
             "replaces": "d4pg_tpu/ops/sampler_descent.py:96",
             "max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "latency_bound_ms": latency_ms,
-            "load_latency_ns": latency_ms * 1e6 / LEVELS,
+            "one_row_ms": one_ms, "zero_level_ms": stub_ms,
+            "rounds": rounds, "chain_ms": chain_ms,
             "enqueue_ms": enq, "distinct_nodes": nodes}
 
 
 def phase_projection_ce(dev) -> list[dict]:
     from d4pg_tpu_torch.core.distribution import CategoricalSupport
+    from d4pg_tpu_torch.ops import projection as proj
     from d4pg_tpu_torch.ops import projection_ce as pce
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    sup = CategoricalSupport(V_MIN, V_MAX, ATOMS)
 
-    def pred(batch):
-        q = torch.rand(batch, ATOMS, generator=gen, device=dev)
+    def pred(batch, atoms=ATOMS):
+        q = torch.rand(batch, atoms, generator=gen, device=dev)
         return (q / q.sum(-1, keepdim=True)).contiguous()
 
-    worst_fwd = worst_bwd = 0.0
-    for batch in (BATCH, 100, 1):
-        p, r, d = projection_inputs(gen, batch, ATOMS, V_MIN, V_MAX, dev)
-        q = pred(batch)
+    # the slice's support at three atom counts, and the reference tests'
+    # [-10, 0] at 51 atoms, whose spacing 0.2 no float32 holds exactly
+    cases = [(V_MIN, V_MAX, atoms, batch) for atoms, batch in
+             itertools.product((2, ATOMS, 101), (BATCH, 100, 1))]
+    cases += [(-10.0, 0.0, ATOMS, batch) for batch in (BATCH, 1)]
+    worst_fwd = worst_bwd = worst_proj = 0.0
+    for v_min, v_max, atoms, batch in cases:
+        sup = CategoricalSupport(v_min, v_max, atoms)
+        case = f"[{v_min:g}, {v_max:g}] A={atoms} B={batch}"
+        # the kernels compute the support's atoms as torch.linspace
+        # rounds them on the CPU (tests/test_torch_projection.py); the
+        # plain version here takes them from torch.linspace on the card
+        atoms_cpu = sup.atoms()
+        check(torch.equal(sup.atoms(dev).cpu(), atoms_cpu),
+              f"support atoms on the card vs on the CPU {case}")
+        naive = torch.tensor(v_min) + torch.tensor(sup.delta) * torch.arange(
+            atoms, dtype=torch.float32)
+        off = int((naive != atoms_cpu).sum())
+        p, r, d = projection_inputs(gen, batch, atoms, v_min, v_max, dev)
+        q = pred(batch, atoms)
         got = pce.projection_ce(sup, p, r, d, q)
         want = pce.projection_ce_plain(sup, p, r, d, q)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(bool(((got - want).abs() <= 1e-4 + 1e-5 * want.abs()).all()),
-              f"projection_ce forward B={batch}")
+              f"projection_ce forward {case}")
         worst_fwd = max(worst_fwd, err)
 
         w = torch.rand(batch, generator=gen, device=dev)
@@ -318,13 +352,23 @@ def phase_projection_ce(dev) -> list[dict]:
         dq, dq_ref = leaves[3].grad, q_ref.grad
         err_bwd = (dq - dq_ref).abs().max().item()
         check(bool(((dq - dq_ref).abs() <= 1e-5 + 1e-5 * dq_ref.abs()).all()),
-              f"projection_ce backward B={batch}")
+              f"projection_ce backward {case}")
         check(all(t.grad is None or not t.grad.any() for t in leaves[:3]),
-              f"projection_ce: no gradient for p, r, d at B={batch}")
+              f"projection_ce: no gradient for p, r, d at {case}")
         worst_bwd = max(worst_bwd, err_bwd)
-        print(f"projection_ce B={batch}: forward max abs err {err:.3e}, "
-              f"backward max abs err {err_bwd:.3e}")
+        # dq from the projection kernel's proj and torch elementwise ops:
+        # both kernels sum proj_j by projection_common.cuh's routine
+        g = w / batch
+        via_proj = -g[:, None] * proj.projection(sup, p, r, d) / (q + 1e-10)
+        err_proj = (pce.backward_kernel(sup, p, r, d, q, g) - via_proj
+                    ).abs().max().item()
+        worst_proj = max(worst_proj, err_proj)
+        print(f"projection_ce {case}: forward max abs err {err:.3e}, "
+              f"backward max abs err {err_bwd:.3e}, backward vs "
+              f"-g * projection kernel / (q + 1e-10) {err_proj:.3e}; "
+              f"{off} support atoms off v_min + delta * i")
 
+    sup = CategoricalSupport(V_MIN, V_MAX, ATOMS)
     p, r, d = projection_inputs(gen, BATCH, ATOMS, V_MIN, V_MAX, dev)
     q = pred(BATCH)
     g = torch.rand(BATCH, generator=gen, device=dev) / BATCH
@@ -332,6 +376,13 @@ def phase_projection_ce(dev) -> list[dict]:
         lambda: pce.forward_kernel(sup, p, r, d, q), calls=100)
     bwd_ms, bwd_enq = device_ms(
         lambda: pce.backward_kernel(sup, p, r, d, q, g), calls=100)
+    # one row: the launch and one row's critical path
+    fwd_one_ms, _ = device_ms(
+        lambda: pce.forward_kernel(sup, p[:1], r[:1], d[:1], q[:1]),
+        calls=100)
+    bwd_one_ms, _ = device_ms(
+        lambda: pce.backward_kernel(sup, p[:1], r[:1], d[:1], q[:1], g[:1]),
+        calls=100)
     # the plain versions: the forward as the CPU path runs it, and dq as
     # autograd of the plain loss produces it (forward, then backward)
     fwd_plain_ms, _ = device_ms(
@@ -348,18 +399,20 @@ def phase_projection_ce(dev) -> list[dict]:
     no_library = ("no single torch call computes the projection fused "
                   "with the cross-entropy")
     out = []
-    for name, line, worst, ms, enq, plain_ms, n_bytes in (
-            ("projection_ce_fwd", 118, worst_fwd, fwd_ms, fwd_enq,
-             fwd_plain_ms, fwd_bytes),
-            ("projection_ce_bwd", 144, worst_bwd, bwd_ms, bwd_enq,
-             bwd_plain_ms, bwd_bytes)):
+    for name, line, worst, ms, one_ms, enq, plain_ms, n_bytes in (
+            ("projection_ce_fwd", 118, worst_fwd, fwd_ms, fwd_one_ms,
+             fwd_enq, fwd_plain_ms, fwd_bytes),
+            ("projection_ce_bwd", 144, worst_bwd, bwd_ms, bwd_one_ms,
+             bwd_enq, bwd_plain_ms, bwd_bytes)):
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         out.append({"name": name, "route": "cuda",
                     "source": "d4pg_tpu_torch/ops/csrc/projection_ce.cu",
                     "replaces": f"d4pg_tpu/ops/projection_ce.py:{line}",
                     "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                    "library_note": no_library, "enqueue_ms": enq})
+                    "library_note": no_library, "one_row_ms": one_ms,
+                    "enqueue_ms": enq})
+    out[1]["vs_projection_kernel_max_abs"] = worst_proj
     return out
 
 
@@ -522,7 +575,8 @@ def fill_buffers(dev):
 def breakdown(run_chunks, wall_ms: float) -> dict:
     """Where a grad step's time goes: the host's time to queue three
     chunks, and the device's kernel time in one profiled chunk from the
-    profiler's device events, both against the unprofiled wall clock."""
+    profiler's device events (the ten longest kernels, then the port's
+    own), both against the unprofiled wall clock."""
     t0 = time.perf_counter()
     run_chunks(3)
     enqueue_ms = 1e3 * (time.perf_counter() - t0) / (3 * K)
@@ -544,8 +598,10 @@ def breakdown(run_chunks, wall_ms: float) -> dict:
               f"{device_us / 1e3 / K:.3f} ms (share of unprofiled wall "
               f"{device_us / 1e3 / K / wall_ms:.3f}), "
               f"{sum(e.count for e in on_device) / K:.1f} kernels")
-        for e in sorted(on_device,
-                        key=lambda e: -e.self_device_time_total)[:10]:
+        ranked = sorted(on_device, key=lambda e: -e.self_device_time_total)
+        ported = [e for e in ranked if any(
+            k in e.key for k in PORTED_KERNELS)]
+        for e in ranked[:10] + [e for e in ported if e not in ranked[:10]]:
             print(f"  device {e.self_device_time_total / K:9.2f} us/step "
                   f"{e.count / K:7.2f} launches/step  {e.key[:80]}")
     on_host = [e for e in events if e.device_type == DeviceType.CPU]

@@ -24,12 +24,14 @@
 // sum collapses to a delta at clip(r) (two neighbouring bins when clip(r)
 // falls between atoms).
 //
-// Rounding: nvcc contracts r + d * z into one FMA and the accumulation
-// p_i * w + acc into FMAs; the plain torch einsum rounds each product and
-// sums in another order. The difference stays within the port's bar
-// (max abs error 1e-5 against the plain version). The per-row arithmetic
-// lives in projection_common.cuh, shared with the fused projection +
-// cross-entropy kernels of projection_ce.cu.
+// Rounding: b_i is rounded as in the plain version: the support's atoms as
+// torch.linspace rounds them, and the Bellman map r + d * z with its
+// product and sum rounded separately (projection_common.cuh). nvcc
+// contracts the accumulation p_i * w + acc into FMAs, and the plain torch
+// einsum rounds each product and sums in another order. The difference
+// stays within the port's bar (max abs error 1e-5 against the plain
+// version). The per-row arithmetic lives in projection_common.cuh, shared
+// with the fused projection + cross-entropy kernels of projection_ce.cu.
 
 #include <cuda_runtime.h>
 
@@ -44,7 +46,7 @@ __global__ void __launch_bounds__(kThreads)
 projection_kernel(const float* __restrict__ p, const float* __restrict__ r,
                   const float* __restrict__ d, float* __restrict__ out,
                   int batch, int atoms, float v_min, float v_max,
-                  float delta) {
+                  float step, float delta) {
   extern __shared__ float smem[];
   float* sp = smem;                 // [kRows][atoms] source probabilities
   float* sb = smem + kRows * atoms; // [kRows][atoms] source bin positions
@@ -57,7 +59,8 @@ projection_kernel(const float* __restrict__ p, const float* __restrict__ r,
     const int i = t - rr * atoms;
     const int row = row0 + rr;
     sp[t] = p[static_cast<long>(row) * atoms + i];
-    sb[t] = d4pg::bin_position(r[row], d[row], i, v_min, v_max, delta);
+    sb[t] = d4pg::bin_position(r[row], d[row], i, atoms, v_min, v_max,
+                                  step, delta);
   }
   __syncthreads();
 
@@ -84,7 +87,8 @@ extern "C" int d4pg_projection(const float* p, const float* r, const float* d,
   }
   const int blocks = (batch + kRows - 1) / kRows;
   projection_kernel<<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(
-      p, r, d, out, batch, atoms, v_min, v_max, delta);
+      p, r, d, out, batch, atoms, v_min, v_max,
+      d4pg::support_step(atoms, v_min, v_max), delta);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,7 @@
 // projection.cu and projection_ce.cu so the two kernels compute the same
 // projected target and cannot drift apart.
 //
-//   tz_i  = clip(r + d * z_i, v_min, v_max),  z_i = v_min + i * delta
+//   tz_i  = clip(r + d * z_i, v_min, v_max),  z_i the support's atom i
 //   b_i   = (tz_i - v_min) / delta
 //   out_j = sum_i p_i * max(0, 1 - |b_i - j|)
 //
@@ -16,12 +16,37 @@
 
 namespace d4pg {
 
-// b_i of source atom i in a row with reward r and discount d.
+// The support's float32 step as torch.linspace(v_min, v_max, atoms)
+// computes it, (v_max - v_min) / (atoms - 1). A launch computes it once on
+// the host (IEEE float32, as on the card) and passes it to its kernel.
+inline float support_step(int atoms, float v_min, float v_max) {
+  return (v_max - v_min) / static_cast<float>(atoms - 1);
+}
+
+// z_i of the support as torch.linspace gives it in float32: v_min +
+// step * i for the first half of the atoms and v_max - step * (atoms - 1
+// - i) for the rest, each with one rounding (an FMA). A spacing that
+// float32 does not hold exactly (0.2 on [-10, 0] at 51 atoms) gives other
+// bits than v_min + delta * i.
+__device__ __forceinline__ float support_atom(int i, int atoms, float v_min,
+                                              float v_max, float step) {
+  return i < atoms / 2
+             ? __fmaf_rn(step, static_cast<float>(i), v_min)
+             : __fmaf_rn(-step, static_cast<float>(atoms - 1 - i), v_max);
+}
+
+// b_i of source atom i in a row with reward r and discount d. The
+// Bellman map rounds its product and its sum on their own (__fmul_rn and
+// __fadd_rn are never contracted into an FMA), as the plain version's
+// separate tensor ops round them: an FMA's single rounding moves tz, and
+// so b, by an ulp, which at 101 atoms moved proj_j by up to ~2e-5 of
+// itself.
 __device__ __forceinline__ float bin_position(float r, float d, int i,
-                                              float v_min, float v_max,
+                                              int atoms, float v_min,
+                                              float v_max, float step,
                                               float delta) {
-  const float z = v_min + delta * static_cast<float>(i);
-  const float tz = fminf(fmaxf(r + d * z, v_min), v_max);
+  const float z = support_atom(i, atoms, v_min, v_max, step);
+  const float tz = fminf(fmaxf(__fadd_rn(r, __fmul_rn(d, z)), v_min), v_max);
   return (tz - v_min) / delta;
 }
 

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "d4pg_projection_ce_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                                 _P], _I),
     "d4pg_descend": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "d4pg_descent_levels_per_round": ([], _I),
     "d4pg_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -9,7 +9,9 @@ int32 leaf slots.
 
 ``descend`` runs the plain version for a tree on the CPU and the CUDA
 kernel (``csrc/sampler_descent.cu``) for a tree on the card, bitwise equal
-to each other. The port's fit rule: the tree stays in device memory (no
+to each other. The kernel resolves several levels per dependent round
+trip to memory (``rounds``), visiting the same nodes with the same
+arithmetic. The port's fit rule: the tree stays in device memory (no
 shared-memory bound such as the Pallas kernel's VMEM budget), so any
 capacity up to 2^30 leaves works.
 """
@@ -26,6 +28,13 @@ from d4pg_tpu_torch.ops.kernels import library
 def levels(sum_tree: torch.Tensor) -> int:
     cap = sum_tree.shape[0] // 2
     return int(math.log2(cap))
+
+
+def rounds(cap: int) -> int:
+    """Dependent round trips to memory of one query's descent in the
+    kernel at capacity ``cap`` (builds the kernel library)."""
+    per_round = library().cdll.d4pg_descent_levels_per_round()
+    return -(-int(math.log2(cap)) // per_round)
 
 
 def descend_plain(sum_tree: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:

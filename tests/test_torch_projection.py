@@ -87,3 +87,28 @@ def test_wrapper_rejects_unsupported_device():
     with pytest.raises(ValueError, match="no projection kernel"):
         tproj.projection(sup, p, torch.zeros(2, device="meta"),
                          torch.zeros(2, device="meta"))
+
+
+def _support_atoms(v_min, v_max, atoms):
+    """numpy statement of ``projection_common.cuh::support_atom``: the
+    float32 step, then one rounding (an FMA) per atom, from v_min for the
+    first half and from v_max for the rest. float64 holds each product
+    exactly, so the cast to float32 is the one rounding."""
+    lo, hi = np.float32(v_min), np.float32(v_max)
+    step = np.float64((hi - lo) / np.float32(atoms - 1))
+    i = np.arange(atoms, dtype=np.float64)
+    first = step * i + np.float64(lo)
+    rest = np.float64(hi) - step * (atoms - 1 - i)
+    return np.where(i < atoms // 2, first, rest).astype(np.float32)
+
+
+@pytest.mark.parametrize("v_min,v_max,atoms", [
+    (-10.0, 0.0, 51), (-1.0, 1.0, 51), (0.0, 1.0, 101), (-0.1, 0.3, 51),
+    (-3.7, 12.9, 77), (0.0, 800.0, 51), (0.0, 800.0, 101), (0.0, 800.0, 2),
+])
+def test_kernel_support_atoms_are_the_plain_versions(v_min, v_max, atoms):
+    """The kernels compute z_i in place of reading the plain version's
+    ``torch.linspace``; the formula gives its bits, also where the
+    spacing is inexact in float32 and v_min + delta * i would not."""
+    want = CategoricalSupport(v_min, v_max, atoms).atoms().numpy()
+    np.testing.assert_array_equal(_support_atoms(v_min, v_max, atoms), want)
