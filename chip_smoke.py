@@ -11,8 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build the CUDA kernels;
   3. projection kernel vs its plain version (max abs error <= 1e-5, rows
      sum to 1): B = 256 and ragged B = 100, A = 51 on [0, 800], rewards
-     past both ends of the support, ~30% terminal rows; plus the
-     terminal-delta case;
+     past both ends of the support, ~30% terminal rows; A = 1,100 (a
+     block's threads loop over its row); the terminal-delta case; its
+     device time at B = 256 and at one row;
   4. descent kernel vs its plain version, bitwise: cap = 262,144,
      Q = 256 and Q = 40 * 256, leaves with zero runs, masses equal to
      left-subtree sums, and the all-zero tree; caps 1, 2, 32 and 2^13
@@ -24,9 +25,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      rtol 1e-5, the backward's dq against autograd of the plain loss
      mean(w * CE(stop_grad(proj), q)) with random IS weights at
      atol 1e-5 / rtol 1e-5, no gradient for p, r or d; dq against
-     -g * projection kernel / (q + 1e-10) (printed, expected 0); and
-     the support's atoms from torch.linspace equal on the card and on
-     the CPU;
+     -g * projection kernel / (q + 1e-10) (printed, expected 0); two
+     forward calls on the same inputs give bitwise-equal td; and the
+     support's atoms from torch.linspace equal on the card and on the
+     CPU;
   6. device time of each kernel, its plain version and, where one torch
      call computes the same function, that call (CUDA events, warmed up);
      each kernel's bound from bytes and operations; one row (B = 1, one
@@ -172,6 +174,13 @@ def phase_projection(dev) -> dict:
               f"max |row sum - 1| {rows:.3e}")
         check(err <= 1e-5 and rows <= 1e-5, f"projection B={batch}")
         worst = max(worst, err)
+    # past 1,024 atoms a block's threads loop over its row
+    sup_wide = CategoricalSupport(V_MIN, V_MAX, 1100)
+    args = projection_inputs(gen, 4, 1100, V_MIN, V_MAX, dev)
+    err = (proj.projection(sup_wide, *args)
+           - proj.projection_plain(sup_wide, *args)).abs().max().item()
+    print(f"projection A=1100 B=4: max abs err {err:.3e}")
+    check(err <= 1e-5, "projection A=1100")
     # terminal rows collapse to a delta at clip(r)
     sup11 = CategoricalSupport(0.0, 10.0, 11)
     p = torch.rand(8, 11, generator=gen, device=dev)
@@ -184,6 +193,9 @@ def phase_projection(dev) -> dict:
 
     args = projection_inputs(gen, BATCH, ATOMS, V_MIN, V_MAX, dev)
     ms, enq = device_ms(lambda: proj.projection(sup, *args), calls=100)
+    # one row: the launch and one row's critical path
+    one_ms, _ = device_ms(
+        lambda: proj.projection(sup, *(t[:1] for t in args)), calls=100)
     # ~12 launches per call of the plain version
     plain_ms, _ = device_ms(lambda: proj.projection_plain(sup, *args),
                             calls=20)
@@ -198,7 +210,7 @@ def phase_projection(dev) -> dict:
             "replaces": "d4pg_tpu/ops/projection.py:87",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "enqueue_ms": enq}
+            "one_row_ms": one_ms, "enqueue_ms": enq}
 
 
 def _tree_with_zero_runs(dev, gen, cap=CAP):
@@ -342,6 +354,9 @@ def phase_projection_ce(dev) -> list[dict]:
         check(bool(((got - want).abs() <= 1e-4 + 1e-5 * want.abs()).all()),
               f"projection_ce forward {case}")
         worst_fwd = max(worst_fwd, err)
+        # td's row sums run in a fixed order: the same bits every call
+        check(torch.equal(pce.forward_kernel(sup, p, r, d, q), got),
+              f"projection_ce forward bitwise equal across calls {case}")
 
         w = torch.rand(batch, generator=gen, device=dev)
         leaves = [t.clone().requires_grad_(True) for t in (p, r, d, q)]
@@ -366,6 +381,7 @@ def phase_projection_ce(dev) -> list[dict]:
         print(f"projection_ce {case}: forward max abs err {err:.3e}, "
               f"backward max abs err {err_bwd:.3e}, backward vs "
               f"-g * projection kernel / (q + 1e-10) {err_proj:.3e}; "
+              f"forward bitwise equal across calls; "
               f"{off} support atoms off v_min + delta * i")
 
     sup = CategoricalSupport(V_MIN, V_MAX, ATOMS)

@@ -17,30 +17,35 @@
 // The backward reads the same 107,520 B (g in place of td) and writes dq
 // (52,224 B): 159,744 B, 0.048 us. The function needs ~13 operations per
 // atom (~170 k per call), 0.0025 us at 67 TFLOP/s float32, so bytes set
-// the bound. In practice each kernel is bound by its launch (~2 us) and
-// by its critical path: the global round trips a thread waits on one
-// after the other, then the 51-term serial sum of proj_j.
+// the bound. In practice each kernel is bound by its launch: on this card
+// a launch takes ~1.8 us and the first global access of a launch ~0.9 us
+// more (PERF.md), ~2.7 us before a body runs. Above that floor the time
+// is the kernel's critical path: the global round trips a thread waits on
+// one after the other, then the serial A-term sum of proj_j, then (the
+// forward) the row sum of td.
 //
-// Forward design: proj never reaches device memory, and no [A, A] weight
-// matrix exists (the Pallas kernel builds a [64, A, A] weight tile in
-// VMEM). One warp owns one row: its lanes stage the row's p_i and b_i in
-// shared memory, then each lane computes proj_j for the atoms j = lane,
-// lane + 32, ... by the shared fixed-order sum over i. The forward
-// reduces its lane partials of proj_j * log(q_j + 1e-10) with warp
-// shuffles in a fixed tree, so td is the same bits run to run (no
-// atomics, no cross-warp step). A warp whose row lies past the batch
-// returns at once, which masks a ragged last block; the batch is never
-// padded (the Pallas kernel pads it to a multiple of 64 with q = 1).
+// Both kernels give one row to one block, one thread per element (b, j)
+// (projection_common.cuh): B = 256 gives 256 blocks of 64 threads, about
+// two per SM. Every global operand a thread needs is loaded before the
+// block's first barrier, so the thread waits on one round trip to
+// memory; after the barrier it sums proj_bj from the row's (p_i, b_i)
+// pairs staged in shared memory. proj_j comes from projection_common.cuh,
+// so both kernels carry the bits of the projection kernel's proj.
 //
-// Backward design: one thread per output element dq_bj, in blocks of
-// kBwdRows whole rows laid out flat over (row, atom) (B = 256 at
-// kBwdRows = 2 gives 128 blocks, about one per SM; a warp per row would
-// fill 32 SMs and give a lane up to two serial sums). Every global
-// operand a thread needs (its p_bj to stage, r_b, d_b, q_bj and g_b) is
-// loaded before the block's one barrier, so the thread waits on one round
-// trip to memory; after the barrier it sums proj_j from shared memory and
-// divides. proj_j comes from projection_common.cuh, so dq carries the
-// bits that -g * projection_kernel(p, r, d) / (q + 1e-10) gives.
+// Forward design: the thread loads p_bj, r_b, d_b and q_bj and computes
+// log(q_bj + 1e-10) before the barrier, while the other threads' loads
+// are still in flight; after it, it writes proj_bj * log(q_bj + 1e-10) to
+// shared memory. After a second barrier the block's first warp reduces
+// the row in a fixed order: lane l sums the products l, l + 32, ..., then
+// a fixed xor-shuffle tree adds the lanes' sums. td is the same bits run
+// to run (no atomics, no step across blocks). proj never reaches device
+// memory, and no [A, A] weight matrix exists (the Pallas kernel builds a
+// [64, A, A] weight tile in VMEM); the batch is never padded (the Pallas
+// kernel pads it to a multiple of 64 with q = 1).
+//
+// Backward design: after the barrier the thread divides, dq_bj = -g_b *
+// proj_bj / (q_bj + 1e-10), so dq carries the bits that -g * projection
+// kernel(p, r, d) / (q + 1e-10) gives.
 //
 // Rounding: logf and the division are the IEEE-accurate versions (no
 // fast math); the row sum runs in another order than the plain torch
@@ -52,140 +57,101 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // forward: rows per block, one per warp
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBwdRows = 2;  // backward: rows per block (PERF.md)
-constexpr int kMaxThreads = 1024;
 constexpr float kLogEps = 1e-10f;  // the reference's log(q + 1e-10)
 
-// Stage row `row`'s p_i and b_i into this warp's slice of shared memory.
-__device__ __forceinline__ void stage_row(const float* __restrict__ p,
-                                          const float* __restrict__ r,
-                                          const float* __restrict__ d,
-                                          int row, int atoms, float v_min,
-                                          float v_max, float step, float delta,
-                                          float* sp, float* sb, int lane) {
-  const float rr = r[row], dd = d[row];
-  const float* prow = p + static_cast<long>(row) * atoms;
-  for (int i = lane; i < atoms; i += 32) {
-    sp[i] = prow[i];
-    sb[i] = d4pg::bin_position(rr, dd, i, atoms, v_min, v_max, step,
-                               delta);
-  }
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(kThreads)
+// Block b owns row b, thread j its atom j; shared memory holds the row's
+// (p_i, b_i) pairs, then (forward) its products.
+__global__ void __launch_bounds__(d4pg::kMaxThreads)
 ce_forward_kernel(const float* __restrict__ p, const float* __restrict__ r,
                   const float* __restrict__ d, const float* __restrict__ q,
-                  float* __restrict__ td, int batch, int atoms, float v_min,
+                  float* __restrict__ td, int atoms, float v_min,
                   float v_max, float step, float delta) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= batch) return;  // the whole warp: no block-wide barrier below
-  float* sp = smem + warp * 2 * atoms;
-  float* sb = sp + atoms;
-  stage_row(p, r, d, row, atoms, v_min, v_max, step, delta, sp, sb, lane);
-
-  const float* qrow = q + static_cast<long>(row) * atoms;
-  float acc = 0.0f;
-  for (int j = lane; j < atoms; j += 32) {
-    acc += d4pg::projected_atom(sp, sb, atoms, j) * logf(qrow[j] + kLogEps);
+  extern __shared__ float4 smem[];
+  float2* sv = reinterpret_cast<float2*>(smem);
+  float* sc = reinterpret_cast<float*>(sv + atoms);
+  const int j = threadIdx.x;
+  const bool live = j < atoms;
+  const long e = static_cast<long>(blockIdx.x) * atoms + j;
+  // every global load of the thread, issued before the barrier
+  const float rb = r[blockIdx.x], db = d[blockIdx.x];
+  float qj = 1.0f;
+  if (live) {
+    qj = q[e];
+    sv[j] = make_float2(p[e], d4pg::bin_position(rb, db, j, atoms, v_min,
+                                                 v_max, step, delta));
   }
+  const float logq = logf(qj + kLogEps);
+  __syncthreads();
+  if (live) sc[j] = d4pg::projected_atom(sv, atoms, j) * logq;
+  __syncthreads();
+  if (j >= 32) return;
+  // the first warp sums the row: lane sums, then a fixed tree
+  float acc = 0.0f;
+  for (int k = j; k < atoms; k += 32) acc += sc[k];
   for (int offset = 16; offset > 0; offset >>= 1) {
     acc += __shfl_xor_sync(0xffffffffu, acc, offset);
   }
-  if (lane == 0) td[row] = -acc;
+  if (j == 0) td[blockIdx.x] = -acc;
 }
 
-// Thread t of a block owns element (row0 + t / atoms, t % atoms) of dq;
-// the block's `rows` rows are staged in shared memory as [rows][atoms]
-// p_i, then [rows][atoms] b_i.
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(d4pg::kMaxThreads)
 ce_backward_kernel(const float* __restrict__ p, const float* __restrict__ r,
                    const float* __restrict__ d, const float* __restrict__ q,
                    const float* __restrict__ g, float* __restrict__ dq,
-                   int batch, int atoms, int rows, float v_min, float v_max,
-                   float step, float delta) {
-  extern __shared__ float smem[];
-  const int t = threadIdx.x;
-  const int local = t / atoms;
-  const int j = t - local * atoms;
-  const int row = blockIdx.x * rows + local;
-  const bool live = local < rows && row < batch;
-  const long e = static_cast<long>(row) * atoms + j;
+                   int atoms, float v_min, float v_max, float step,
+                   float delta) {
+  extern __shared__ float4 smem[];
+  float2* sv = reinterpret_cast<float2*>(smem);
+  const int j = threadIdx.x;
+  const bool live = j < atoms;
+  const long e = static_cast<long>(blockIdx.x) * atoms + j;
   // every global load of the thread, issued before the barrier
-  float pj = 0.0f, rb = 0.0f, db = 0.0f, qj = 1.0f, gb = 0.0f;
+  const float rb = r[blockIdx.x], db = d[blockIdx.x], gb = g[blockIdx.x];
+  float qj = 1.0f;
   if (live) {
-    pj = p[e];
-    rb = r[row];
-    db = d[row];
     qj = q[e];
-    gb = g[row];
-  }
-  float* sp = smem;
-  float* sb = smem + rows * atoms;
-  if (live) {
-    sp[t] = pj;
-    sb[t] = d4pg::bin_position(rb, db, j, atoms, v_min, v_max, step,
-                               delta);
+    sv[j] = make_float2(p[e], d4pg::bin_position(rb, db, j, atoms, v_min,
+                                                 v_max, step, delta));
   }
   __syncthreads();
   if (!live) return;
-  const int base = local * atoms;
-  dq[e] = -gb * d4pg::projected_atom(sp + base, sb + base, atoms, j) /
-          (qj + kLogEps);
-}
-
-// Dynamic shared memory of one forward block: p_i and b_i of kWarps
-// rows. Returns -1 when it exceeds the 48 KB a block gets without opting
-// in.
-long shared_bytes(int atoms) {
-  const long bytes = 2L * kWarps * atoms * static_cast<long>(sizeof(float));
-  return (atoms <= 0 || bytes > 48 * 1024) ? -1 : bytes;
+  dq[e] = -gb * d4pg::projected_atom(sv, atoms, j) / (qj + kLogEps);
 }
 
 }  // namespace
 
 // p, q: [batch, atoms] float32, row-major; r, d: [batch] float32;
 // td: [batch] float32 out. Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue without launching when the
-// rows' staging does not fit a block's shared memory.
+// (0 on success), or cudaErrorInvalidValue without launching when a row
+// exceeds a block's 1,024 threads.
 extern "C" int d4pg_projection_ce_fwd(const float* p, const float* r,
                                       const float* d, const float* q,
                                       float* td, int batch, int atoms,
                                       float v_min, float v_max, float delta,
                                       cudaStream_t stream) {
-  const long smem = shared_bytes(atoms);
-  if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (batch + kWarps - 1) / kWarps;
-  ce_forward_kernel<<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(
-      p, r, d, q, td, batch, atoms, v_min, v_max,
+  if (atoms <= 0 || atoms > d4pg::kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = atoms * (sizeof(float2) + sizeof(float));  // <= 12 KB
+  ce_forward_kernel<<<batch, d4pg::row_threads(atoms), smem, stream>>>(
+      p, r, d, q, td, atoms, v_min, v_max,
       d4pg::support_step(atoms, v_min, v_max), delta);
   return static_cast<int>(cudaGetLastError());
 }
 
 // As d4pg_projection_ce_fwd, with g: [batch] float32 (the cotangent of
-// td) in and dq: [batch, atoms] float32 out. A block holds kBwdRows rows,
-// fewer when their elements exceed 1,024 threads; returns
-// cudaErrorInvalidValue without launching when one row does.
+// td) in and dq: [batch, atoms] float32 out.
 extern "C" int d4pg_projection_ce_bwd(const float* p, const float* r,
                                       const float* d, const float* q,
                                       const float* g, float* dq, int batch,
                                       int atoms, float v_min, float v_max,
                                       float delta, cudaStream_t stream) {
-  if (atoms <= 0 || atoms > kMaxThreads) {
+  if (atoms <= 0 || atoms > d4pg::kMaxThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int rows = kBwdRows * atoms <= kMaxThreads ? kBwdRows
-                                                   : kMaxThreads / atoms;
-  const int threads = (rows * atoms + 31) / 32 * 32;
-  const size_t smem = 2 * sizeof(float) * rows * atoms;  // <= 8 KB
-  const int blocks = (batch + rows - 1) / rows;
-  ce_backward_kernel<<<blocks, threads, smem, stream>>>(
-      p, r, d, q, g, dq, batch, atoms, rows, v_min, v_max,
+  const size_t smem = atoms * sizeof(float2);  // <= 8 KB
+  ce_backward_kernel<<<batch, d4pg::row_threads(atoms), smem, stream>>>(
+      p, r, d, q, g, dq, atoms, v_min, v_max,
       d4pg::support_step(atoms, v_min, v_max), delta);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,15 +6,28 @@
 //   b_i   = (tz_i - v_min) / delta
 //   out_j = sum_i p_i * max(0, 1 - |b_i - j|)
 //
-// A kernel stages a row's p_i and b_i in shared memory (bin_position),
-// then one thread per output atom j sums over the source atoms i in a
-// fixed order (projected_atom): no atomics, the same bits every run.
+// All three kernels give one row of the batch to one block, one thread
+// per atom (row_threads). The block stages its row's (p_i, b_i) pairs in
+// shared memory (bin_position), then one thread per output atom j sums
+// over the source atoms i in a fixed order (projected_atom): no atomics,
+// the same bits every run. One row per block keeps the index arithmetic
+// to blockIdx.x and threadIdx.x, needs no mask for rows past the batch
+// (the grid is the batch), and measured fastest at the learner's shape
+// (PERF.md).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace d4pg {
+
+constexpr int kMaxThreads = 1024;  // threads per block on the card
+
+// Threads of a block that owns one row of `atoms`: one per atom in whole
+// warps, at most kMaxThreads (past that a thread loops over the row).
+inline int row_threads(int atoms) {
+  return atoms < kMaxThreads ? (atoms + 31) / 32 * 32 : kMaxThreads;
+}
 
 // The support's float32 step as torch.linspace(v_min, v_max, atoms)
 // computes it, (v_max - v_min) / (atoms - 1). A launch computes it once on
@@ -50,15 +63,24 @@ __device__ __forceinline__ float bin_position(float r, float d, int i,
   return (tz - v_min) / delta;
 }
 
-// Projected mass on atom j of one row from its staged sp[i] = p_i and
-// sb[i] = b_i.
-__device__ __forceinline__ float projected_atom(const float* sp,
-                                                const float* sb, int atoms,
-                                                int j) {
+// Projected mass on atom j of one row from its staged pairs row[i] =
+// (p_i, b_i), row 16-byte aligned: the terms in increasing i, each one
+// multiply-add into acc. One 16-byte shared load brings two atoms, where
+// separate p and b arrays take two loads per atom; the sum is issued once
+// per warp, so its instructions are what a block's warps queue on.
+__device__ __forceinline__ float projected_atom(const float2* row,
+                                                int atoms, int j) {
   const float fj = static_cast<float>(j);
+  const float4* two = reinterpret_cast<const float4*>(row);
   float acc = 0.0f;
-  for (int i = 0; i < atoms; ++i) {
-    acc += sp[i] * fmaxf(0.0f, 1.0f - fabsf(sb[i] - fj));
+  for (int k = 0; k < atoms / 2; ++k) {
+    const float4 v = two[k];  // (p_2k, b_2k, p_2k+1, b_2k+1)
+    acc += v.x * fmaxf(0.0f, 1.0f - fabsf(v.y - fj));
+    acc += v.z * fmaxf(0.0f, 1.0f - fabsf(v.w - fj));
+  }
+  if (atoms % 2) {
+    const float2 v = row[atoms - 1];
+    acc += v.x * fmaxf(0.0f, 1.0f - fabsf(v.y - fj));
   }
   return acc;
 }

@@ -6,6 +6,14 @@ in interpret mode, forward and gradient, on the same numpy inputs. Bars:
 the reference's own (tests/test_ops.py), td at atol 1e-4 / rtol 1e-5,
 the gradient at 1e-5. ``ProjectionCE``'s autograd wiring is checked on
 the CPU with its two kernel launches swapped for the plain arithmetic.
+
+``forward_rows`` states in numpy what the CUDA forward kernel
+(``d4pg_tpu_torch/ops/csrc/projection_ce.cu::ce_forward_kernel``)
+computes, in its order: b_i as ``projection_common.cuh::bin_position``
+rounds it, proj_j as the fixed-order sum over i, the products
+proj_j * log(q_j + 1e-10), then each row's fixed reduction (lane l of a
+warp sums the products l, l + 32, ..., then an xor-shuffle tree adds the
+32 lanes). It is held against the JAX kernel at the reference's bar.
 """
 
 import jax
@@ -139,3 +147,70 @@ def test_operand_check_names_the_bad_tensor(bad, error):
     with pytest.raises(error):
         check_operands(sup, p, r, d, matrices=[("pred_probs", q)],
                        vectors=[("grad_td", g)])
+
+
+def _bin_positions(sup, r, d):
+    """b [B, A] in float32 as ``bin_position`` rounds it: the support's
+    atoms as torch.linspace gives them (the kernels' ``support_atom``,
+    pinned by test_torch_projection.py), r + d * z with its product and
+    sum rounded apart, clipped, then divided by delta."""
+    z = sup.atoms().numpy()
+    lo, hi = np.float32(sup.v_min), np.float32(sup.v_max)
+    tz = np.clip(r[:, None] + d[:, None] * z, lo, hi)
+    return (tz - lo) / np.float32(sup.delta)
+
+
+def _projected(p, b):
+    """proj [B, A] as ``projected_atom`` sums it: over source atoms i in
+    increasing order, one FMA per term (float64 holds p_i * w exactly;
+    the one rounding to float32 per step stands for the FMA's)."""
+    atoms = p.shape[1]
+    j = np.arange(atoms, dtype=np.float32)
+    w = np.maximum(np.float32(0.0),
+                   np.float32(1.0) - np.abs(b[:, :, None] - j))
+    acc = np.zeros(p.shape, np.float32)
+    for i in range(atoms):
+        acc = (p[:, i, None].astype(np.float64) * w[:, i]
+               + acc).astype(np.float32)
+    return acc
+
+
+def _row_sums(c):
+    """Each row of c [B, A] summed as the kernel's reducing warp does:
+    lane l adds c_l, c_(l + 32), ... to 0 in order, then five xor-shuffle
+    steps (offsets 16 to 1) add lane pairs; lane 0 holds the sum."""
+    lanes = np.zeros((c.shape[0], 32), np.float32)
+    for j0 in range(0, c.shape[1], 32):
+        part = c[:, j0:j0 + 32]
+        lanes[:, :part.shape[1]] += part
+    for offset in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, np.arange(32) ^ offset]
+    # float32 addition commutes: every lane ends with the same sum
+    assert (lanes == lanes[:, :1]).all()
+    return lanes[:, 0]
+
+
+def forward_rows(sup, p, r, d, q):
+    """td [B] in the CUDA forward kernel's arithmetic and order."""
+    proj = _projected(p, _bin_positions(sup, r, d))
+    return -_row_sums(proj * np.log(q + np.float32(1e-10)))
+
+
+@pytest.mark.parametrize("atoms,v_min,v_max,batch", [
+    (2, 0.0, 800.0, 64), (51, 0.0, 800.0, 256), (51, 0.0, 800.0, 1),
+    (101, 0.0, 800.0, 100), (51, -10.0, 0.0, 100), (51, -10.0, 0.0, 1),
+    (77, -3.7, 12.9, 33),
+])
+def test_forward_reduction_order_matches_reference_kernel(
+        rng, atoms, v_min, v_max, batch):
+    """The forward kernel's fixed-order row sum, stated in numpy, against
+    the JAX kernel (interpret mode) at the reference's bar; rows of 2
+    atoms (one lane live), of 51 (two products on lanes 0-18) and of 101
+    (four on lanes 0-4)."""
+    p, r, d, q = _inputs(rng, batch, atoms, v_min, v_max)
+    want = np.asarray(projection_ce_pallas(
+        JaxSupport(v_min, v_max, atoms), *map(jnp.asarray, (p, r, d, q)),
+        True))
+    got = forward_rows(CategoricalSupport(v_min, v_max, atoms), p, r, d, q)
+    assert got.dtype == np.float32 and got.shape == (batch,)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
