@@ -10,18 +10,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi) and torch's CUDA version;
   2. build the CUDA kernels;
   3. projection kernel vs its plain version (max abs error <= 1e-5, rows
-     sum to 1): B = 256 and ragged B = 100, A = 51 on [0, 800], rewards
-     past both ends of the support, ~30% terminal rows; A = 1,100 (a
-     block's threads loop over its row); the terminal-delta case; its
-     device time at B = 256 and at one row;
+     sum to 1): B = 256 and ragged B = 100, A = 51 on [0, 800], and the
+     driver's B = 64, A = 51 on the ``point`` preset's support (from
+     ``ExperimentConfig(env="point").resolve()``), rewards past both
+     ends of the support, ~30% terminal rows; A = 1,100 (a block's
+     threads loop over its row); the terminal-delta case; its device
+     time at B = 256 and at one row;
   4. descent kernel vs its plain version, bitwise: cap = 262,144,
      Q = 256 and Q = 40 * 256, leaves with zero runs, masses equal to
      left-subtree sums, and the all-zero tree; caps 1, 2, 32 and 2^13
-     (no level, fewer levels than one round, a ragged last round);
+     (no level, fewer levels than one round, a ragged last round); the
+     driver's cap 1,048,576 (20 levels) at Q = 64 and its left sums, and
+     the descent's time at that shape;
   5. the fused projection + cross-entropy kernels vs their plain
      versions at A = 2, 51 and 101 atoms on [0, 800] and B = 256, 100
-     and 1, and at 51 atoms on [-10, 0] (an inexact spacing) and
-     B = 256 and 1 (inputs as phase 3): the forward's td at atol 1e-4 /
+     and 1, at 51 atoms on [-10, 0] (an inexact spacing) and B = 256
+     and 1, and at the driver's B = 64, A = 51 on the ``point`` preset's
+     support (inputs as phase 3): the forward's td at atol 1e-4 /
      rtol 1e-5, the backward's dq against autograd of the plain loss
      mean(w * CE(stop_grad(proj), q)) with random IS weights at
      atol 1e-5 / rtol 1e-5, no gradient for p, r or d; dq against
@@ -51,7 +56,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      each arm's breakdown: host queueing time, and device time by kernel
      from one profiled chunk; then one uniform chunk on the twin (no
      descent);
- 10. a ``kernels`` JSON line, then the result line.
+ 10. the block ingest path on the card against the CPU, bitwise: the same
+     adds, blocks staged by hand with rows pushed while one is in flight;
+ 11. the driver: ``d4pg_tpu_torch.train.main(argv)`` in-process on the
+     ``point`` env at the default widths (hidden 256x3, 51 atoms, batch
+     64, K = 40, a 1,000,000-row ring, PER; logs under ``runs/``): the
+     autotuner's choice for ``auto`` at that shape first, then three
+     default cycles (3 cycle rows in ``returns.csv`` and a final-eval
+     row, a checkpoint at step 120, the descent and the chosen arm's
+     kernels launched once per grad step), ``--resume 1`` for one more
+     cycle (it goes on from step 120), then two cycles with
+     ``--projection pallas`` and two with ``pallas_ce``, the second
+     cycle of each profiled for device events (the device-busy share of
+     one iteration of the driver's cycle loop); each arm's kernels
+     launched once per grad step, the other arm's never; then two
+     default cycles with ``--concurrent_eval 0`` (the learner's rate
+     without the background eval beside it); per cycle the driver's
+     ``grad_steps_per_sec`` (the reference's EWMA, alpha 0.9), the
+     cycle's own grad-step rate (40 over its timed span), env steps/s
+     and the eval return; a one-cycle Pendulum-v1 run where gymnasium
+     is installed;
+ 12. a ``kernels`` JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -78,6 +103,8 @@ BATCH, CAPACITY, K, FILL_BLOCK = 256, 200_000, 40, 4096
 TIMED_CHUNKS, WINDOW_CHUNKS = 10, 2  # per arm, per timed window
 CAP = 262_144  # next_pow2(CAPACITY): the sum tree's leaf count
 LEVELS = 18  # log2(CAP): levels per descent
+# the driver's defaults: a 1,000,000-row ring (2^20 leaves), batch 64, K 40
+DRIVER_CAP, DRIVER_LEVELS, DRIVER_BATCH = 1 << 20, 20, 64
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -145,6 +172,15 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def driver_shape() -> tuple[float, float, int, int]:
+    """(v_min, v_max, atoms, batch) of the driver's default run on the
+    ``point`` env, from its config as the driver resolves it."""
+    from d4pg_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig(env="point").resolve()
+    return cfg.v_min, cfg.v_max, cfg.n_atoms, cfg.batch_size
+
+
 def projection_inputs(gen, batch, atoms, v_min, v_max, dev):
     p = torch.rand(batch, atoms, generator=gen, device=dev)
     p = (p / p.sum(-1, keepdim=True)).contiguous()
@@ -163,16 +199,21 @@ def phase_projection(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     sup = CategoricalSupport(V_MIN, V_MAX, ATOMS)
     worst = 0.0
-    for batch in (BATCH, 100):
-        args = projection_inputs(gen, batch, ATOMS, V_MIN, V_MAX, dev)
-        got = proj.projection(sup, *args)
-        want = proj.projection_plain(sup, *args)
+    v_lo, v_hi, d_atoms, d_batch = driver_shape()
+    for v_min, v_max, atoms, batch in ((V_MIN, V_MAX, ATOMS, BATCH),
+                                       (V_MIN, V_MAX, ATOMS, 100),
+                                       (v_lo, v_hi, d_atoms, d_batch)):
+        case = f"[{v_min:g}, {v_max:g}] A={atoms} B={batch}"
+        case_sup = CategoricalSupport(v_min, v_max, atoms)
+        args = projection_inputs(gen, batch, atoms, v_min, v_max, dev)
+        got = proj.projection(case_sup, *args)
+        want = proj.projection_plain(case_sup, *args)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         rows = (got.sum(-1) - 1.0).abs().max().item()
-        print(f"projection B={batch}: max abs err {err:.3e}, "
+        print(f"projection {case}: max abs err {err:.3e}, "
               f"max |row sum - 1| {rows:.3e}")
-        check(err <= 1e-5 and rows <= 1e-5, f"projection B={batch}")
+        check(err <= 1e-5 and rows <= 1e-5, f"projection {case}")
         worst = max(worst, err)
     # past 1,024 atoms a block's threads loop over its row
     sup_wide = CategoricalSupport(V_MIN, V_MAX, 1100)
@@ -260,6 +301,14 @@ def phase_descent(dev) -> dict:
         mass = torch.cat([torch.rand(BATCH, generator=gen, device=dev) * t[1],
                           _left_sum_masses(t), t[1:2]]).contiguous()
         cases.append((f"cap={cap}", t, mass))
+    # the driver's tree: next_pow2(1,000,000) leaves (20 levels), Q = 64
+    # queries per grad step, beside left sums and the total
+    tree20, _ = _tree_with_zero_runs(dev, gen, DRIVER_CAP)
+    mass20 = torch.rand(DRIVER_BATCH, generator=gen, device=dev) * tree20[1]
+    cases.append((f"cap={DRIVER_CAP} Q={DRIVER_BATCH}", tree20, mass20))
+    cases.append((f"cap={DRIVER_CAP} left sums", tree20,
+                  torch.cat([_left_sum_masses(tree20),
+                             tree20[1:2]]).contiguous()))
     worst = 0
     for name, t, mass in cases:
         got, want = desc.descend(t, mass), desc.descend_plain(t, mass)
@@ -306,6 +355,22 @@ def phase_descent(dev) -> dict:
     print(f"descent chain: one query {one_ms * 1e3:.3f} us, zero levels "
           f"{stub_ms * 1e3:.3f} us -> {chain_ms * 1e3:.3f} us for "
           f"{rounds} dependent rounds and the launch's first global access")
+    # the driver's shape: 20 levels, Q = 64
+    driver_ms, _ = device_ms(lambda: desc.descend(tree20, mass20), calls=100)
+    node = torch.ones(DRIVER_BATCH, dtype=torch.int64, device=dev)
+    p, seen = mass20.clone(), []
+    for _ in range(DRIVER_LEVELS):
+        left = node << 1
+        seen.append(left)
+        go = p >= tree20[left]
+        p = torch.where(go, p - tree20[left], p)
+        node = torch.where(go, left | 1, left)
+    driver_nodes = torch.unique(torch.cat(seen)).numel()
+    driver_bound, _ = bound_ms(4 * driver_nodes + 8 * DRIVER_BATCH,
+                               2 * DRIVER_BATCH * DRIVER_LEVELS)
+    print(f"descent at the driver's shape (cap {DRIVER_CAP}, Q "
+          f"{DRIVER_BATCH}, {desc.rounds(DRIVER_CAP)} rounds): "
+          f"{driver_ms * 1e3:.3f} us, bound {driver_bound * 1e3:.4f} us")
     return {"name": "descent", "route": "cuda",
             "source": "d4pg_tpu_torch/ops/csrc/sampler_descent.cu",
             "replaces": "d4pg_tpu/ops/sampler_descent.py:96",
@@ -313,6 +378,8 @@ def phase_descent(dev) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "one_row_ms": one_ms, "zero_level_ms": stub_ms,
             "rounds": rounds, "chain_ms": chain_ms,
+            "driver_ms": driver_ms, "driver_bound_ms": driver_bound,
+            "driver_rounds": desc.rounds(DRIVER_CAP),
             "enqueue_ms": enq, "distinct_nodes": nodes}
 
 
@@ -332,6 +399,8 @@ def phase_projection_ce(dev) -> list[dict]:
     cases = [(V_MIN, V_MAX, atoms, batch) for atoms, batch in
              itertools.product((2, ATOMS, 101), (BATCH, 100, 1))]
     cases += [(-10.0, 0.0, ATOMS, batch) for batch in (BATCH, 1)]
+    # the driver's shape on the point preset's support
+    cases.append(driver_shape())
     worst_fwd = worst_bwd = worst_proj = 0.0
     for v_min, v_max, atoms, batch in cases:
         sup = CategoricalSupport(v_min, v_max, atoms)
@@ -629,7 +698,9 @@ def breakdown(run_chunks, wall_ms: float) -> dict:
 
 
 # the kernels each arm must launch K times per chunk; the rest 0 times
-ARM_KERNELS = {"pallas": ("projection", "descent"),
+# ("einsum" and "pallas" are one path in the port: ops/projection.py)
+ARM_KERNELS = {"einsum": ("projection", "descent"),
+               "pallas": ("projection", "descent"),
                "pallas_ce": ("projection_ce_fwd", "projection_ce_bwd",
                              "descent")}
 
@@ -734,6 +805,261 @@ def phase_uniform(dev, buf) -> None:
           f"{metrics['critic_loss'][-1].item():.4f}")
 
 
+def phase_ingest(dev) -> None:
+    """The block ingest path on the card against the CPU: the same adds,
+    blocks staged by hand with more rows pushed while one is in flight
+    (they lap the 2-block staging ring), then drains. Ring, trees, size
+    and head must be bitwise equal."""
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+
+    rng = np.random.default_rng(11)
+    batches = [random_rows(rng, n) for n in (300, 700, 64, 1500, 9, 2000)]
+    bufs = {}
+    for where in ("cpu", dev):
+        buf = FusedDeviceReplay(4096, OBS, ACT, device=where, block_rows=512,
+                                staging_blocks=2)
+        for i, rows in enumerate(batches):
+            buf.add(rows)
+            buf.stage_block()
+            if i % 2:
+                buf.add(batches[i - 1])  # pushed while a block is in flight
+            buf.commit_staged()
+            buf.drain()
+        bufs[str(where)] = buf
+    torch.cuda.synchronize()
+    cpu, card = bufs["cpu"], bufs[str(dev)]
+    check((cpu.size, cpu.head) == (card.size, card.head),
+          "ingest: size and head, card vs CPU")
+    for name, a, b in zip(("obs", "action", "reward", "next_obs", "done",
+                           "discount"), cpu.storage, card.storage):
+        check(torch.equal(a[:cpu.capacity], b[:cpu.capacity].cpu()),
+              f"ingest: ring {name} bitwise, card vs CPU")
+    for a, b in zip(cpu.trees, card.trees):
+        check(torch.equal(a, b.cpu()), "ingest: trees bitwise, card vs CPU")
+    print(f"ingest on the card: {card.size} rows (head {card.head}) bitwise "
+          "equal to the CPU's, pushes while a block was in flight included")
+
+
+class DriverHooks:
+    """What the driver logs and times, recorded through its own classes
+    as a run goes: each ``MetricsBus.log`` call as (step, metrics), and
+    each ``StepTimer`` span's wall time (the driver's
+    ``grad_steps_per_sec`` is the reference's EWMA of the spans' rates,
+    alpha 0.9, so a cycle's own rate is its steps over its span). A run
+    driven with ``profiled=True`` holds a profiler, warming up from the
+    run's start, that records device events from the end of the first
+    cycle's log call to the end of the second's: one whole iteration of
+    the driver's cycle loop (checkpoint, collect, grad steps, publish,
+    eval and metrics), whose wall time is ``window_s``."""
+
+    def __init__(self):
+        from d4pg_tpu_torch.io.metrics import MetricsBus
+        from d4pg_tpu_torch.io.profiling import StepTimer
+
+        self.reset(False)
+        log, stop = MetricsBus.log, StepTimer.stop
+        hooks = self
+
+        def logged(bus, step, metrics):
+            hooks.records.append((step, dict(metrics)))
+            out = log(bus, step, metrics)
+            hooks._logged()
+            return out
+
+        def stopped(timer, n_steps):
+            t0 = timer._t0  # set after the start's device sync
+            out = stop(timer, n_steps)  # ends in a device sync
+            if t0 is not None:
+                hooks.spans.append(time.perf_counter() - t0)
+            return out
+
+        MetricsBus.log, StepTimer.stop = logged, stopped
+
+    def reset(self, profiled: bool) -> None:
+        self.records, self.spans = [], []
+        self.device_events, self.window_s = None, None
+        self._logs = 0
+        self.prof = None if not profiled else profile(
+            activities=[ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                             repeat=1),
+            on_trace_ready=self._trace_ready)
+
+    def _trace_ready(self, prof) -> None:
+        self.device_events = [e for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA
+                              and not e.is_user_annotation]
+
+    def _logged(self) -> None:
+        self._logs += 1
+        if self.prof is None or self._logs > 2:
+            return
+        if self._logs == 1:
+            self.prof.step()  # warm-up -> recording
+            self._w0 = time.perf_counter()
+        else:
+            torch.cuda.synchronize()
+            self.window_s = time.perf_counter() - self._w0
+            self.prof.step()  # recording -> done: the trace is ready
+
+
+def phase_driver(card: str) -> dict:
+    """``d4pg_tpu_torch.train.main`` in-process on the ``point`` env at the
+    default widths (actor and critic 256x3, 51 atoms, batch 64, K = 40, a
+    1,000,000-row ring, PER): three default cycles, a resume for one more,
+    then two cycles under each explicit projection arm, the second
+    profiled for the device-busy share, then two default cycles with the
+    eval between cycles instead of beside them. Each run has its launch
+    counters set to 0 just before and read just after."""
+    import contextlib
+    import importlib.util
+    import shutil
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.io.checkpoint import CheckpointManager
+    from d4pg_tpu_torch.ops.autotune import select_projection
+
+    runs = ROOT / "runs" / "chip_smoke"
+    shutil.rmtree(runs, ignore_errors=True)
+    hooks = DriverHooks()
+    cfg = ExperimentConfig(env="point").resolve()
+    per_cycle = cfg.train_steps_per_cycle
+
+    def drive(tag, *argv, profiled=False):
+        log_dir = runs / tag
+        hooks.reset(profiled)
+        zero_counts()
+        t0 = time.perf_counter()
+        with hooks.prof if profiled else contextlib.nullcontext():
+            result = driver.main(["--env", "point", "--n_eps", "1",
+                                  "--log_dir", str(log_dir), *argv])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        wall = time.perf_counter() - t0
+        # a row per cycle; with the background eval the last step is
+        # logged once more when the final eval lands
+        cycles, seen = [], set()
+        for step, m in hooks.records:
+            if step not in seen:
+                seen.add(step)
+                cycles.append(m)
+        own = [per_cycle / span for span in hooks.spans]
+        check(len(own) == len(cycles), f"driver {tag}: a timed span per "
+              f"cycle ({len(own)} spans, {len(cycles)} cycles)")
+        for i, (step, m) in enumerate(hooks.records):
+            rate = f"{own[i]:.2f}" if i < len(own) else "- (final eval)"
+            print(f"[driver {tag}] step {step}: grad_steps_per_sec "
+                  f"{m.get('grad_steps_per_sec')} (EWMA), own {rate}, "
+                  f"env_steps_per_sec {m.get('env_steps_per_sec')}, "
+                  f"avg_test_reward {m.get('avg_test_reward')}, "
+                  f"critic_loss {m.get('critic_loss')} ({card})")
+        print(f"[driver {tag}] {wall:.2f} s, launches {counts}")
+        check(math.isfinite(result["critic_loss"]),
+              f"driver {tag}: finite critic_loss")
+        run_dir = log_dir / ExperimentConfig(env="point").run_name()
+        return (counts, run_dir, [s for s, _ in hooks.records], cycles,
+                own)
+
+    def expect(counts, arm, steps, tag):
+        want = {name: steps if name in ARM_KERNELS[arm] else 0
+                for name in counts}
+        check(counts == want, f"driver {tag}: launches {counts}, "
+              f"expected {want}")
+
+    # the autotuner's choice at the driver's shape, made (and its race's
+    # launches counted) before the runs; main() reuses the cached choice
+    zero_counts()
+    choice = select_projection("auto", batch_size=cfg.batch_size,
+                               v_min=cfg.v_min, v_max=cfg.v_max,
+                               n_atoms=cfg.n_atoms,
+                               device=driver.learner_device(cfg))
+    print(f"driver: auto picks {choice.selected!r} at batch "
+          f"{cfg.batch_size}, {cfg.n_atoms} atoms on [{cfg.v_min}, "
+          f"{cfg.v_max}] (timings_ms {choice.timings_ms}); the race "
+          f"launched {launch_counts()}")
+
+    steps = 3 * per_cycle
+    counts, run_dir, logged, cycles, own_default = drive(
+        "default", "--n_cycles", "3")
+    check(len(cycles) == 3, f"driver: 3 cycle rows, got {len(cycles)}")
+    rows = (run_dir / "returns.csv").read_text().splitlines()
+    check([int(r.split(",")[0]) for r in rows] == logged,
+          "driver: returns.csv holds the logged rows")
+    check(sorted(set(logged)) == [40, 80, 120],
+          f"driver: rows at steps 40, 80, 120 (got {logged})")
+    ckpt = CheckpointManager(str(run_dir / "ckpt"))
+    check(ckpt.latest_step == steps, f"driver: checkpoint at step {steps}")
+    expect(counts, choice.selected, steps, "default")
+    default_rates = [m["grad_steps_per_sec"] for m in cycles]
+    env_rates = [m["env_steps_per_sec"] for m in cycles]
+
+    counts, _, logged, _, _ = drive("default", "--n_cycles", "1",
+                                    "--resume", "1")
+    check(sorted(set(logged)) == [steps + per_cycle],
+          f"driver resume: goes on from step {steps} (rows {logged})")
+    check(ckpt.latest_step == steps + per_cycle, "driver resume: checkpoint")
+    expect(counts, choice.selected, per_cycle, "resume")
+
+    # each arm's two cycles, the second profiled for device events only
+    # (the profiler's host cost would lengthen the cycle it measures)
+    arms, shares = {}, {}
+    for arm in ("pallas", "pallas_ce"):
+        counts, _, _, _, own = drive(arm, "--n_cycles", "2",
+                                     "--projection", arm, profiled=True)
+        expect(counts, arm, 2 * per_cycle, arm)
+        arms[arm] = counts
+        events, window = hooks.device_events, hooks.window_s
+        check(events is not None and window is not None,
+              f"driver ({arm}): the profiled cycle was recorded")
+        device_s = sum(e.self_device_time_total for e in events) / 1e6
+        shares[arm] = device_s / window if device_s else None
+        if device_s:
+            span = per_cycle / own[1]
+            print(f"driver ({arm}, second cycle profiled): device busy "
+                  f"{device_s * 1e3:.3f} ms in the {window:.3f} s from "
+                  f"the end of cycle 1's log to the end of cycle 2's, "
+                  f"share {device_s / window:.4f}; its grad-step span "
+                  f"{span * 1e3:.1f} ms ({device_s / span:.4f} of it); "
+                  f"{sum(e.count for e in events) / per_cycle:.1f} device "
+                  f"events per grad step ({card})")
+            for e in sorted(events,
+                            key=lambda e: -e.self_device_time_total)[:5]:
+                print(f"  device {e.self_device_time_total / per_cycle:9.2f}"
+                      f" us/step {e.count / per_cycle:7.2f} /step  "
+                      f"{e.key[:70]}")
+        else:
+            print(f"driver ({arm}): device busy share not measured (the "
+                  "profiler recorded no device events)")
+
+    # the learner's own rate with the eval between cycles instead of on a
+    # thread beside the grad steps
+    counts, _, _, _, own_sync = drive("sync_eval", "--n_cycles", "2",
+                                      "--concurrent_eval", "0")
+    expect(counts, choice.selected, 2 * per_cycle, "sync_eval")
+    print(f"driver: own grad-steps/s per cycle with the eval beside the "
+          f"grad steps {[round(x, 2) for x in own_default]}, with it "
+          f"between cycles {[round(x, 2) for x in own_sync]} ({card})")
+    if importlib.util.find_spec("gymnasium") is None:
+        print("driver: gymnasium is not installed here (Pendulum-v1 is run "
+              "on the CPU only)")
+    else:
+        *_, own = drive("pendulum", "--env", "Pendulum-v1",
+                        "--n_cycles", "1")
+        print(f"driver: Pendulum-v1, one cycle at {own} grad-steps/s")
+    return {"grad_steps_per_sec": default_rates,
+            "own_grad_steps_per_sec": own_default,
+            "own_grad_steps_per_sec_sync_eval": own_sync,
+            "env_steps_per_sec": env_rates, "auto": choice.selected,
+            "device_busy_share": shares,
+            "launches": {"projection": arms["pallas"]["projection"],
+                         "projection_ce_fwd":
+                             arms["pallas_ce"]["projection_ce_fwd"],
+                         "projection_ce_bwd":
+                             arms["pallas_ce"]["projection_ce_bwd"],
+                         "descent": arms["pallas_ce"]["descent"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -769,13 +1095,25 @@ def main() -> int:
         arm_runs[arm][0](WINDOW_CHUNKS)
     arms = {arm: finish() for arm, (_, finish) in arm_runs.items()}
     phase_uniform(dev, uniform)
-    # each kernel's launches from the run of the arm whose path it is on
+    del per, uniform
+    phase_ingest(dev)
+    drv = phase_driver(card)
+    # each kernel's launches from the run of the arm whose path it is on;
+    # the driver's from its explicit-arm run (2 cycles, 80 grad steps)
     for kern in kernels:
         arm = "pallas" if kern["name"] == "projection" else "pallas_ce"
         kern["launches"] = arms[arm]["launches"][kern["name"]]
+        kern["driver_launches"] = drv["launches"][kern["name"]]
     for arm, result in arms.items():
         print(f"[{arm}] grad_steps_per_s {result['grad_steps_per_s']:.1f} "
               f"on {card}")
+    print(f"[driver] grad_steps_per_sec per cycle "
+          f"{drv['grad_steps_per_sec']} (EWMA), own "
+          f"{drv['own_grad_steps_per_sec']} (eval in the background), "
+          f"{drv['own_grad_steps_per_sec_sync_eval']} (eval between "
+          f"cycles), env_steps_per_sec "
+          f"{drv['env_steps_per_sec']}, auto {drv['auto']!r}, device busy "
+          f"share {drv['device_busy_share']} on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,19 +3,25 @@
 The JAX package ``d4pg_tpu`` is the reference; this package mirrors its
 module paths (``core/distribution.py`` here is the counterpart of
 ``d4pg_tpu/core/distribution.py``) and imports nothing from it, nor JAX.
-What it covers so far is the fused replay+learn loop
-(``learner/loop.py`` over ``learner/fused.py``, PER or uniform) with
-hand-written CUDA kernels for every TPU kernel of the reference: the
-Bellman projection (``ops/projection.py``), the projection fused into
-the cross-entropy critic loss, forward and backward
-(``ops/projection_ce.py``), and the PER sum-tree descent
-(``ops/sampler_descent.py``); plus the projection autotuner
-(``ops/autotune.py``) and the exploration noise (``core/noise.py``).
+It runs the reference's main path: the training driver
+(``python -m d4pg_tpu_torch.train``, ``train.py`` and ``config.py``),
+its actors, evaluator and weight store (``distributed/``, ``serving/``,
+``envs/``), the in-process replay service feeding the fused
+replay+learn loop (``learner/loop.py`` over ``learner/fused.py``, PER or
+uniform), metrics and checkpoints (``io/``), with hand-written CUDA
+kernels for every TPU kernel of the reference: the Bellman projection
+(``ops/projection.py``), the projection fused into the cross-entropy
+critic loss, forward and backward (``ops/projection_ce.py``), and the PER
+sum-tree descent (``ops/sampler_descent.py``); plus the projection
+autotuner (``ops/autotune.py``) and the exploration noise
+(``core/noise.py``).
 
 Device rule: every entry point takes an explicit ``device`` and defaults
 to ``"cuda"``. With no card present that default fails loudly; only an
-explicit ``device="cpu"`` runs on the CPU (the tests pass it). No code
-carries on on the CPU when it finds no GPU.
+explicit ``device="cpu"`` (``--platform cpu`` for the driver) runs on the
+CPU (the tests pass it). No code carries on on the CPU when it finds no
+GPU. Acting and eval run on the host CPU by the driver's
+``--actor_device cpu`` default, the reference's own choice.
 
 Precision: the port runs in float32, like ``D4PGConfig``'s default
 ``compute_dtype``. TF32 is switched off for matmuls and cuDNN so a float32

@@ -42,7 +42,14 @@ def projection_weights(support: CategoricalSupport,
 
     ``target_atoms`` [..., A] is already Bellman-mapped and clipped;
     returns [..., A, A] whose rows sum to 1."""
-    b = (target_atoms - support.v_min) / support.delta
+    # the divisor as a tensor on the operand's device: torch on CUDA turns
+    # a division by a Python scalar into a product with its float32
+    # reciprocal, which moves b by an ulp from the IEEE quotient that the
+    # CPU and the kernels compute (at b ~ 1,100 an ulp is 1.2e-4). A fill,
+    # not a copy from the host, so the card's queue does not wait on it.
+    delta = torch.full((), support.delta, dtype=target_atoms.dtype,
+                       device=target_atoms.device)
+    b = (target_atoms - support.v_min) / delta
     j = torch.arange(support.n_atoms, dtype=b.dtype, device=b.device)
     return torch.clamp(1.0 - torch.abs(b[..., :, None] - j), 0.0, 1.0)
 

@@ -1,0 +1,1 @@
+"""distributed of the PyTorch port (counterpart of ``d4pg_tpu/distributed``)."""

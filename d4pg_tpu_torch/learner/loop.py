@@ -1,12 +1,25 @@
 """The fused training loop.
 
-Counterpart of ``d4pg_tpu/learner/loop.py::FusedLoop`` against a buffer
-that is filled between runs (no ``ReplayService``): ``run`` cuts ``n``
-grad steps into chunks of K and calls the fused chunk
+Counterpart of ``d4pg_tpu/learner/loop.py::FusedLoop``: ``run`` cuts
+``n`` grad steps into chunks of K and calls the fused chunk
 (``learner/fused.py``) for each, the last chunk shorter when K does not
 divide ``n``. The chunk functions are cached per chunk length. The state
 is updated in place, and the random draws come from the loop's
 ``generator``, where the reference threads a PRNG key through its state.
+
+With a ``service`` (the ``ReplayService`` actors stream into) the loop
+claims the service's single ingest-dispatch slot
+(``learner/pipeline.IngestOverlap``) and follows the reference's
+schedule: a full ``flush`` at the start of ``run`` (every row staged by
+the collect phase lands before training), then per chunk
+
+    ingest.commit()   # the staged block lands in the ring and trees
+    queue chunk t     # K fused grad steps
+    ingest.stage()    # the next block's copy rides under chunk t
+
+Without one (``service=None``) it runs against a buffer filled between
+runs. The reference's ``mark_grad`` trace hook after each chunk waits for
+the port of ``obs/trace``.
 """
 
 from __future__ import annotations
@@ -16,12 +29,14 @@ from typing import Callable
 import torch
 
 from d4pg_tpu_torch.learner.fused import make_fused_chunk
+from d4pg_tpu_torch.learner.pipeline import IngestOverlap
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
 
 
 class FusedLoop:
     """Drives fused replay+learn chunks against a ``FusedDeviceReplay``
-    (its ``storage``, ``size`` and, when ``prioritized``, ``trees``)."""
+    (its ``storage``, ``size`` and, when ``prioritized``, ``trees``),
+    fed by ``service`` when one is given."""
 
     def __init__(
         self,
@@ -37,11 +52,12 @@ class FusedLoop:
         beta_steps: int = 100_000,
         service=None,
     ):
-        if service is not None:
-            raise NotImplementedError(
-                "FusedLoop with a ReplayService (rows streaming in between "
-                "chunks) waits for the port of the ReplayService slice; "
-                "pass service=None and fill the buffer between runs")
+        if service is not None and not all(
+                hasattr(service, op) for op in
+                ("ingest_commit", "ingest_stage", "drain_device")):
+            raise TypeError(
+                f"service must be a ReplayService (ingest_commit, "
+                f"ingest_stage, drain_device), got {type(service).__name__}")
         if prioritized and buffer.trees is None:
             raise ValueError("prioritized=True needs a buffer with PER trees")
         self._config = config
@@ -54,6 +70,7 @@ class FusedLoop:
         self._beta0 = float(beta0)
         self._beta_steps = int(beta_steps)
         self._fns: dict[int, Callable] = {}
+        self.ingest = IngestOverlap(service) if service is not None else None
         self.steps_done = 0
         self.chunks = 0
 
@@ -78,9 +95,13 @@ class FusedLoop:
         buffer = self._buffer
         metrics = None
         done = 0
+        if self.ingest is not None:
+            self.ingest.flush()
         while done < n:
             k = min(self.k, n - done)
             fn = self.fused_for(k)
+            if self.ingest is not None:
+                self.ingest.commit()
             if self._prioritized:
                 buffer.trees, metrics = fn(state, buffer.trees,
                                            buffer.storage, buffer.size,
@@ -88,6 +109,8 @@ class FusedLoop:
             else:
                 metrics = fn(state, buffer.storage, buffer.size,
                              generator=self._generator)
+            if self.ingest is not None:
+                self.ingest.stage()
             done += k
             self.steps_done += k
             self.chunks += 1
@@ -96,5 +119,7 @@ class FusedLoop:
         return metrics
 
     def close(self) -> None:
-        """Nothing to release without a service (the reference frees the
-        service's ingest-dispatch slot here)."""
+        """Release the service's ingest-dispatch slot so a successor
+        consumer can claim it."""
+        if self.ingest is not None:
+            self.ingest.release()

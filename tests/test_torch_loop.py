@@ -6,7 +6,8 @@ with ``jax.random`` inside its scan, so the test injects the same slots
 into both and runs the reference step by step (ring gather ->
 ``update_step`` without IS weights), at rtol 1e-5 / atol 1e-6.
 ``FusedLoop.run`` over an ``n`` that K does not divide equals the same
-chunks called by hand, bitwise on the CPU.
+chunks called by hand, bitwise on the CPU (the loop fed by a
+``ReplayService`` is in ``test_torch_ingest.py``).
 """
 
 import jax
@@ -168,10 +169,12 @@ def test_loop_run_equals_chunks_by_hand(rng, prioritized):
 
 
 def test_loop_refuses_a_service_and_a_treeless_per_buffer(rng):
+    """A service must be a ReplayService (the loop drives its ingest
+    calls); anything else is refused, as is a PER loop without trees."""
     cfg = tstate.D4PGConfig(**DIMS)
     buf, _ = _filled(rng, prioritized=False)
     gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="ReplayService"):
+    with pytest.raises(TypeError, match="ReplayService"):
         FusedLoop(cfg, buf, k=K, batch_size=BATCH, generator=gen,
                   prioritized=False, service=object())
     with pytest.raises(ValueError, match="PER trees"):
