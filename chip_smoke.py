@@ -76,7 +76,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      cycle's own grad-step rate (40 over its timed span), env steps/s
      and the eval return; a one-cycle Pendulum-v1 run where gymnasium
      is installed;
- 12. a ``kernels`` JSON line, then the result line.
+ 12. the host-sampled path (``--fused_replay off``, ``--replay_storage
+     host``): first adds through a ``ReplayService``'s commit thread into
+     a non-fused device ring, with the learner thread gathering chunks
+     from it meanwhile, bitwise equal to the same adds on the CPU; then,
+     at the slice's shape (Humanoid width, batch 256, a 200,000-row ring
+     from ``random_rows(np.random.default_rng(0), ...)``, K = 40),
+     ``ChunkPipeline`` over ``PrioritizedReplayBuffer`` with its ring on
+     the card (``storage='device'``) and in host RAM (``'host'``), the
+     native tree backend loaded: per storage the first 3 chunks of a
+     fresh buffer against a CPU run of the same pipeline (slots and IS
+     weights bitwise, losses and TD errors within rtol 1e-4; ``pallas``
+     on the device ring, ``pallas_ce`` on host RAM), then both arms timed
+     in turns in windows of 2 chunks (the arm's kernels once per grad
+     step, the descent never), and one ``einsum`` chunk launching no
+     kernel; grad-steps/s, host ms per chunk for the tree walks and the
+     gather, host-to-device bytes per chunk (checked against the rows,
+     or the int64 slots, and the float32 IS weights) and the waits per
+     chunk; the ``pallas_ce`` arm's breakdown (host queueing time, device
+     time by kernel in one profiled chunk) on each storage;
+ 13. the driver on the host-sampled path: ``train.main`` on ``point`` at
+     the default widths, two cycles with ``--fused_replay off`` (the
+     non-fused device ring) and two with ``--replay_storage host``
+     ``--trace_sample 1.0 --profile_dir`` (one profiler trace written,
+     ``mark_grad`` once per chunk, no wire-to-grad span in process), then
+     a resume for one more cycle; in each run the registry's
+     ``ingest.rows_committed`` equals the rows in the buffer and the
+     ``ingest`` provider's count; the arm ``auto`` chose launches once
+     per grad step, the descent never; own grad-steps/s per cycle, env
+     steps/s, launches per grad step;
+ 14. a ``kernels`` JSON line (each kernel's launches on every path that
+     runs it), then the result line.
 """
 
 from __future__ import annotations
@@ -697,12 +727,16 @@ def breakdown(run_chunks, wall_ms: float) -> dict:
             "device_busy_ms": device_us / 1e3 / K if device_us else None}
 
 
-# the kernels each arm must launch K times per chunk; the rest 0 times
-# ("einsum" and "pallas" are one path in the port: ops/projection.py)
-ARM_KERNELS = {"einsum": ("projection", "descent"),
-               "pallas": ("projection", "descent"),
-               "pallas_ce": ("projection_ce_fwd", "projection_ce_bwd",
-                             "descent")}
+# the kernels each arm launches once per grad step, the rest never
+# (``einsum`` projects with the plain version); the fused path adds the
+# descent, the host-sampled path walks host trees instead
+ARM_KERNELS = {"einsum": (),
+               "pallas": ("projection",),
+               "pallas_ce": ("projection_ce_fwd", "projection_ce_bwd")}
+
+
+def fused_kernels(arm: str) -> tuple[str, ...]:
+    return ARM_KERNELS[arm] + ("descent",)
 
 
 def slice_arm(dev, buf, arm: str):
@@ -726,7 +760,7 @@ def slice_arm(dev, buf, arm: str):
         return metrics, launch_counts()
 
     def expected(chunks):
-        return {name: K * chunks if name in ARM_KERNELS[arm] else 0
+        return {name: K * chunks if name in fused_kernels(arm) else 0
                 for name in launch_counts()}
 
     t0 = time.perf_counter()
@@ -903,7 +937,7 @@ class DriverHooks:
             self.prof.step()  # recording -> done: the trace is ready
 
 
-def phase_driver(card: str) -> dict:
+def phase_driver(card: str, hooks: DriverHooks) -> dict:
     """``d4pg_tpu_torch.train.main`` in-process on the ``point`` env at the
     default widths (actor and critic 256x3, 51 atoms, batch 64, K = 40, a
     1,000,000-row ring, PER): three default cycles, a resume for one more,
@@ -922,7 +956,6 @@ def phase_driver(card: str) -> dict:
 
     runs = ROOT / "runs" / "chip_smoke"
     shutil.rmtree(runs, ignore_errors=True)
-    hooks = DriverHooks()
     cfg = ExperimentConfig(env="point").resolve()
     per_cycle = cfg.train_steps_per_cycle
 
@@ -962,7 +995,7 @@ def phase_driver(card: str) -> dict:
                 own)
 
     def expect(counts, arm, steps, tag):
-        want = {name: steps if name in ARM_KERNELS[arm] else 0
+        want = {name: steps if name in fused_kernels(arm) else 0
                 for name in counts}
         check(counts == want, f"driver {tag}: launches {counts}, "
               f"expected {want}")
@@ -1060,6 +1093,369 @@ def phase_driver(card: str) -> dict:
                          "descent": arms["pallas_ce"]["descent"]}}
 
 
+# (storage, arm) of the host-sampled chunks held against the CPU: both
+# storages and both arms, two CPU runs at full width
+HOST_PARITY = {"device": "pallas", "host": "pallas_ce"}
+HOST_PARITY_CHUNKS = 3
+
+
+def host_pipeline(buf, arm: str, where, record: dict | None = None):
+    """A fresh state (seed 0) and a ``ChunkPipeline`` over the
+    host-sampled PER buffer ``buf`` (K = 40, batch 256, beta 0.4) under
+    ``arm`` on ``where``. ``record`` keeps each chunk's slots, IS weights
+    and metrics while ``record["on"]``; ``host`` adds up the sample
+    calls' host time (tree walks, IS weights, the gather or, for a device
+    ring, the queueing of it)."""
+    from d4pg_tpu_torch.learner.pipeline import ChunkPipeline
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.learner.update import multi_update_step
+
+    cfg = config(arm)
+    state = init_state(cfg, seed=0, device=where)
+    host = {"sample_s": 0.0, "samples": 0}
+
+    def sample():
+        t0 = time.perf_counter()
+        batches, w, idx = buf.sample_chunk(K, BATCH, beta=0.4)
+        gen = buf.generation[idx].copy()
+        host["sample_s"] += time.perf_counter() - t0
+        host["samples"] += 1
+        if record is not None and record["on"]:
+            record["slots"].append((idx, w))
+        return (batches, w), (idx, gen)
+
+    def write_back(aux, prio):
+        idx, gen = aux
+        for i in range(len(idx)):
+            buf.update_priorities(idx[i], prio[i], generation=gen[i])
+
+    def update(s, batches, w):
+        m = multi_update_step(cfg, s, batches, w)
+        if record is not None and record["on"]:
+            record["metrics"].append(m)
+        return s, m
+
+    return state, ChunkPipeline(update, sample, write_back,
+                                device=where), host
+
+
+def host_buffer(storage: str, where, blocks):
+    """A 200,000-row host-sampled PER buffer (seed 0) filled with
+    ``blocks``; a device ring lives on ``where``."""
+    from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+
+    buf = PrioritizedReplayBuffer(CAPACITY, OBS, ACT, alpha=0.6, seed=0,
+                                  storage=storage, device=where)
+    for rows in blocks:
+        buf.add(rows)
+    return buf
+
+
+def phase_device_ring_commits(dev) -> None:
+    """Adds through a ``ReplayService``'s commit thread into a non-fused
+    device ring, with the learner thread gathering chunks from it
+    meanwhile, against the same adds into a ring on the CPU: rings,
+    generations and tree leaves bitwise equal."""
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+
+    rng = np.random.default_rng(12)
+    batches = [random_rows(rng, n)
+               for n in (300, 700, 64, 1500, 9, 2000, 900, 1)]
+    out = {}
+    for where in ("cpu", dev):
+        buf = PrioritizedReplayBuffer(4096, OBS, ACT, seed=0,
+                                      storage="device", device=where)
+        service = ReplayService(buf)
+        for rows in batches:
+            check(service.add(rows), "device ring: add admitted")
+            if len(service):
+                batch, _, _, _ = service.sample_chunk(2, 64)
+                check(tuple(batch.obs.shape) == (2, 64, OBS),
+                      "device ring: gathered chunk shape")
+        service.flush()
+        service.close()
+        if where != "cpu":
+            torch.cuda.synchronize()
+        out[str(where)] = buf
+    cpu, card = out["cpu"], out[str(dev)]
+    check((cpu.size, cpu.head) == (card.size, card.head),
+          "device ring: size and head, card vs CPU")
+    for name, a, b in zip(("obs", "action", "reward", "next_obs", "done",
+                           "discount"), cpu._store.arrays,
+                          card._store.arrays):
+        check(torch.equal(a, b.cpu()),
+              f"device ring: {name} bitwise, card vs CPU")
+    check(np.array_equal(cpu.generation, card.generation),
+          "device ring: generations")
+    live = np.arange(cpu.size)
+    check(np.array_equal(cpu._trees.get(live), card._trees.get(live)),
+          "device ring: tree leaves")
+    print(f"device ring on the card: {card.size} rows committed by the "
+          f"service's commit thread (head {card.head}, the ring wrapped), "
+          "bitwise equal to the CPU's")
+
+
+def phase_host_chunks(dev, card: str) -> dict:
+    """The host-sampled path at the slice's shape (Humanoid width, batch
+    256, a 200,000-row ring, K = 40): ``ChunkPipeline`` over
+    ``PrioritizedReplayBuffer`` with its ring on the card
+    (``storage='device'``) and in host RAM (``'host'``). For each storage
+    the first chunks of a fresh buffer against a CPU run of the same
+    pipeline (slots and IS weights bitwise, losses and TD errors within
+    rtol 1e-4), then both arms timed in turns in windows of 2 chunks with
+    the launch counters set to 0 just before and read just after (the
+    arm's kernels once per grad step, the descent never), and one
+    ``einsum`` chunk (no kernel at all)."""
+    from d4pg_tpu_torch.replay import native
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    blocks = [random_rows(rng, min(FILL_BLOCK, CAPACITY - start))
+              for start in range(0, CAPACITY, FILL_BLOCK)]
+    print(f"host path: {CAPACITY} rows made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    result = {}
+    for storage, parity_arm in HOST_PARITY.items():
+        t0 = time.perf_counter()
+        buf = host_buffer(storage, dev, blocks)
+        torch.cuda.synchronize()
+        print(f"[host {storage}] ring filled in "
+              f"{time.perf_counter() - t0:.2f} s; trees: {buf.tree_backend} "
+              f"({Path(native.library()._name).name})")
+        check(buf.tree_backend == "native",
+              f"[host {storage}] the native tree backend is loaded")
+        check(len(buf) == CAPACITY, f"[host {storage}] ring full")
+
+        # the first chunks of the fresh buffer, card against CPU
+        record = {"on": True, "slots": [], "metrics": []}
+        state, pipe, host = host_pipeline(buf, parity_arm, dev, record)
+        zero_counts()
+        pipe.run(state, HOST_PARITY_CHUNKS, final_prefetch=False)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        steps = K * HOST_PARITY_CHUNKS
+        check(counts == {name: steps if name in ARM_KERNELS[parity_arm]
+                         else 0 for name in counts},
+              f"[host {storage}] parity chunks' launches {counts}")
+        t0 = time.perf_counter()
+        cpu_buf = host_buffer(storage, "cpu", blocks)
+        cpu_record = {"on": True, "slots": [], "metrics": []}
+        cpu_state, cpu_pipe, _ = host_pipeline(cpu_buf, parity_arm, "cpu",
+                                               cpu_record)
+        cpu_pipe.run(cpu_state, HOST_PARITY_CHUNKS, final_prefetch=False)
+        print(f"[host {storage}] CPU run of {HOST_PARITY_CHUNKS} chunks: "
+              f"{time.perf_counter() - t0:.2f} s")
+        del cpu_buf
+        # samples past the ones run (the stager's prefetch) are unchecked
+        for i in range(HOST_PARITY_CHUNKS):
+            (ti, tw), (ci, cw) = record["slots"][i], cpu_record["slots"][i]
+            check(np.array_equal(ti, ci) and np.array_equal(tw, cw),
+                  f"[host {storage}] chunk {i}: slots and IS weights "
+                  "bitwise, card vs CPU")
+        worst = {}
+        for got, want in zip(record["metrics"], cpu_record["metrics"]):
+            for name in ("critic_loss", "actor_loss", "td_error"):
+                err = _rel_err(got[name].cpu(), want[name])
+                worst[name] = max(worst.get(name, 0.0), err)
+        for name, err in worst.items():
+            print(f"[host {storage}] {parity_arm}, first "
+                  f"{HOST_PARITY_CHUNKS} chunks card vs CPU {name}: max rel "
+                  f"err {err:.3e}")
+            check(err <= 1e-4, f"[host {storage}] {name} card vs CPU")
+        record["on"] = False
+
+        # both arms in turns, each warmed up by one chunk
+        arms = {parity_arm: (state, pipe, host)}
+        for arm in ("pallas", "pallas_ce"):
+            if arm not in arms:
+                arms[arm] = host_pipeline(buf, arm, dev)
+            arms[arm][1].run(arms[arm][0], 1)
+        torch.cuda.synchronize()
+        stats = {arm: {"steps": 0, "s": 0.0, "launches": None, "rates": []}
+                 for arm in arms}
+        for arm in ("pallas", "pallas_ce", "pallas_ce", "pallas") * 2 + (
+                "pallas", "pallas_ce"):
+            st, pl, _ = arms[arm]
+            h2d0 = pl.stager.h2d_bytes + getattr(buf._store, "index_bytes",
+                                                 0)
+            zero_counts()
+            t0 = time.perf_counter()
+            pl.run(st, WINDOW_CHUNKS)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            steps = K * WINDOW_CHUNKS
+            check(counts == {name: steps if name in ARM_KERNELS[arm] else 0
+                             for name in counts},
+                  f"[host {storage}] [{arm}] window launches {counts}")
+            acc = stats[arm]
+            acc["steps"] += steps
+            acc["s"] += dt
+            acc["rates"].append(steps / dt)
+            acc["launches"] = (counts if acc["launches"] is None else
+                               {n: acc["launches"][n] + counts[n]
+                                for n in counts})
+            acc.setdefault("h2d", []).append(
+                pl.stager.h2d_bytes + getattr(buf._store, "index_bytes", 0)
+                - h2d0)
+        for arm, (st, pl, host) in arms.items():
+            acc = stats[arm]
+            check(acc["steps"] == K * TIMED_CHUNKS,
+                  f"[host {storage}] [{arm}] timed steps")
+            # pinned blocks whose copy was still in flight at refill: the
+            # stager's, and for a device ring its index blocks
+            pinned = pl.stager.waits + getattr(buf._store, "read_waits", 0)
+            h2d = float(np.median(acc.pop("h2d"))) / WINDOW_CHUNKS
+            sampled = host["samples"]
+            acc.update(
+                grad_steps_per_s=acc["steps"] / acc["s"],
+                h2d_bytes_per_chunk=h2d, td_waits=pl.waits,
+                pinned_waits=pinned,
+                host_ms_per_chunk=1e3 * host["sample_s"] / sampled,
+                waits_per_chunk=(pl.waits + pinned) / sampled)
+            print(f"[host {storage}] [{arm}] windows "
+                  f"{', '.join(f'{x:.1f}' for x in acc['rates'])} "
+                  f"grad-steps/s; {acc['grad_steps_per_s']:.1f} over "
+                  f"{acc['steps']} steps; host "
+                  f"{acc['host_ms_per_chunk']:.2f} ms/chunk (tree walks + "
+                  f"gather); H2D {h2d:.0f} B/chunk; waits: td {pl.waits}, "
+                  f"pinned {pinned} in {sampled} chunks; launches "
+                  f"{acc['launches']} ({card})")
+        # where a grad step's time goes on this path (auto's arm)
+        st, pl, _ = arms["pallas_ce"]
+        acc = stats["pallas_ce"]
+        print(f"[host {storage}] [pallas_ce] breakdown:")
+        acc.update(breakdown(lambda chunks: pl.run(st, chunks),
+                             1e3 * acc["s"] / acc["steps"]))
+        # the einsum arm: no kernel at all (the plain projection)
+        est, epl, _ = host_pipeline(buf, "einsum", dev)
+        zero_counts()
+        epl.run(est, 1, final_prefetch=False)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(not any(counts.values()),
+              f"[host {storage}] einsum launches {counts}")
+        print(f"[host {storage}] [einsum] one chunk, launches {counts}")
+        if storage == "host":
+            want = K * BATCH * (2 * OBS + ACT + 3) * 4 + K * BATCH * 4
+        else:
+            want = K * BATCH * (8 + 4)
+        check(all(abs(st["h2d_bytes_per_chunk"] - want) < 1
+                  for st in stats.values()),
+              f"[host {storage}] H2D bytes per chunk == {want}")
+        result[storage] = stats
+        del buf, arms, state, pipe
+    return result
+
+
+def phase_driver_host(card: str, hooks: DriverHooks, arm: str) -> dict:
+    """``train.main`` on the ``point`` env at the default widths through
+    the host-sampled path: two cycles with ``--fused_replay off`` (the
+    non-fused device ring), two with ``--replay_storage host`` plus
+    ``--trace_sample 1.0 --profile_dir`` (a profiler trace written,
+    ``mark_grad`` once per chunk, the registry's
+    ``ingest.rows_committed`` equal to the rows in the buffer), then a
+    resume for one more cycle. Launches: the arm's kernels once per grad
+    step, the descent never."""
+    import shutil
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.learner import pipeline as pipeline_mod
+    from d4pg_tpu_torch.obs.registry import REGISTRY
+
+    runs = ROOT / "runs" / "chip_smoke_host"
+    shutil.rmtree(runs, ignore_errors=True)
+    per_cycle = ExperimentConfig(env="point").resolve().train_steps_per_cycle
+    recorder = pipeline_mod.trace_recorder
+    marks = []
+    closed = []
+    close = ReplayService.close
+
+    def closing(service):
+        closed.append((REGISTRY.counter("ingest.rows_committed").value,
+                       REGISTRY.export().get("ingest", {}).get(
+                           "rows_committed"),
+                       len(service.buffer)))
+        close(service)
+
+    ReplayService.close = closing
+    recorder.mark_grad = lambda ts=None: marks.append(ts) or 0
+    out = {}
+    try:
+        for tag, argv in (
+                ("fused_off", ["--fused_replay", "off", "--n_cycles", "2"]),
+                ("host", ["--replay_storage", "host", "--n_cycles", "2",
+                          "--trace_sample", "1.0", "--profile_dir",
+                          str(runs / "profile")]),
+                ("host_resume", ["--replay_storage", "host", "--n_cycles",
+                                 "1", "--resume", "1"])):
+            hooks.reset(False)
+            marks.clear()
+            closed.clear()
+            REGISTRY.counter("ingest.rows_committed").reset()
+            zero_counts()
+            t0 = time.perf_counter()
+            log_tag = "host" if tag == "host_resume" else tag
+            result = driver.main(["--env", "point", "--n_eps", "1",
+                                  "--log_dir", str(runs / log_tag), *argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            cycles, seen = [], set()
+            for step, m in hooks.records:
+                if step not in seen:
+                    seen.add(step)
+                    cycles.append((step, m))
+            n_cycles = len(cycles)
+            steps = per_cycle * n_cycles
+            own = [per_cycle / span for span in hooks.spans]
+            check(len(own) == n_cycles, f"driver {tag}: a span per cycle")
+            check(math.isfinite(result["critic_loss"]),
+                  f"driver {tag}: finite critic_loss")
+            check(counts == {n: steps if n in ARM_KERNELS[arm] else 0
+                             for n in counts},
+                  f"driver {tag}: launches {counts} ({arm})")
+            for (step, m), rate in zip(cycles, own):
+                print(f"[driver {tag}] step {step}: own {rate:.2f} "
+                      f"grad-steps/s (EWMA {m.get('grad_steps_per_sec')}), "
+                      f"env_steps_per_sec {m.get('env_steps_per_sec')}, "
+                      f"critic_loss {m.get('critic_loss')} ({card})")
+            per_step = {n: c / steps for n, c in counts.items()}
+            print(f"[driver {tag}] {wall:.2f} s, launches per grad step "
+                  f"{per_step}")
+            (counter, provided, rows), = closed
+            check(counter == rows,
+                  f"driver {tag}: ingest.rows_committed {counter} == "
+                  f"{rows} rows in the buffer")
+            check(provided == counter,
+                  f"driver {tag}: the ingest provider's rows_committed")
+            if tag == "host":
+                traces = list((runs / "profile").glob("trace_*.json"))
+                check(len(traces) == 1, "driver host: one profiler trace")
+                check(len(marks) == steps // K,
+                      f"driver host: mark_grad {len(marks)} times in "
+                      f"{steps // K} chunks")
+                check("wire_to_grad_p95_ms" not in result,
+                      "driver host: no wire-to-grad span in process")
+                print(f"[driver host] profiler trace {traces[0].name} "
+                      f"({traces[0].stat().st_size} B); mark_grad "
+                      f"{len(marks)} times in {steps // K} chunks")
+            if tag == "host_resume":
+                check([s for s, _ in cycles] == [3 * per_cycle],
+                      f"driver resume: goes on from step {2 * per_cycle}")
+            out[tag] = {"own_grad_steps_per_sec": own,
+                        "env_steps_per_sec": [m.get("env_steps_per_sec")
+                                              for _, m in cycles],
+                        "launches": counts}
+    finally:
+        ReplayService.close = close
+        del recorder.mark_grad
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1097,13 +1493,23 @@ def main() -> int:
     phase_uniform(dev, uniform)
     del per, uniform
     phase_ingest(dev)
-    drv = phase_driver(card)
+    hooks = DriverHooks()
+    drv = phase_driver(card, hooks)
+    phase_device_ring_commits(dev)
+    host = phase_host_chunks(dev, card)
+    drv_host = phase_driver_host(card, hooks, drv["auto"])
     # each kernel's launches from the run of the arm whose path it is on;
-    # the driver's from its explicit-arm run (2 cycles, 80 grad steps)
+    # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
+    # the host path's from its timed windows (both storages, 800 grad
+    # steps) and from its driver runs (``auto``'s arm, 200 grad steps)
     for kern in kernels:
         arm = "pallas" if kern["name"] == "projection" else "pallas_ce"
         kern["launches"] = arms[arm]["launches"][kern["name"]]
         kern["driver_launches"] = drv["launches"][kern["name"]]
+        kern["host_launches"] = sum(
+            host[storage][arm]["launches"][kern["name"]] for storage in host)
+        kern["host_driver_launches"] = sum(
+            run["launches"][kern["name"]] for run in drv_host.values())
     for arm, result in arms.items():
         print(f"[{arm}] grad_steps_per_s {result['grad_steps_per_s']:.1f} "
               f"on {card}")
@@ -1114,6 +1520,17 @@ def main() -> int:
           f"cycles), env_steps_per_sec "
           f"{drv['env_steps_per_sec']}, auto {drv['auto']!r}, device busy "
           f"share {drv['device_busy_share']} on {card}")
+    for storage, arms_ in host.items():
+        for arm, st in arms_.items():
+            print(f"[host {storage}] [{arm}] grad_steps_per_s "
+                  f"{st['grad_steps_per_s']:.1f}, host "
+                  f"{st['host_ms_per_chunk']:.2f} ms/chunk, H2D "
+                  f"{st['h2d_bytes_per_chunk']:.0f} B/chunk, waits "
+                  f"{st['waits_per_chunk']:.3f}/chunk on {card}")
+    for tag, run in drv_host.items():
+        print(f"[driver {tag}] own grad-steps/s "
+              f"{[round(x, 2) for x in run['own_grad_steps_per_sec']]}, "
+              f"env_steps_per_sec {run['env_steps_per_sec']} on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -272,8 +272,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=d.projection,
                    help="categorical Bellman-projection arm: 'auto' "
                         "(default) times the arms on the card at startup; "
-                        "'einsum' and 'pallas' run the projection kernel "
-                        "then the cross-entropy, 'pallas_ce' the "
+                        "'einsum' runs the plain projection and 'pallas' "
+                        "the projection kernel, each then the "
+                        "cross-entropy, 'pallas_ce' the "
                         "projection fused into the cross-entropy "
                         "(forward and backward kernels)")
     p.add_argument("--compute_dtype", choices=("float32", "bfloat16"),

@@ -8,18 +8,21 @@ every tier it already holds. Every acquisition checks descent (a
 thread-local list, cheap next to the lock itself) and raises
 ``LockHierarchyError`` on an inversion.
 
+Each violation is also recorded on the flight recorder
+(``obs.flight``, a ``lock_violation`` event) before it raises.
+
 Only the tiers of the ported components are declared. Left out: the
 reference's debug switch and contention counters (``enable_debug``,
-``lock_stats``), which its fleet harness reads, and its observability
-hooks (a flight-recorder event on each violation, the ``locks`` provider
-of the unified registry), because the port has neither that harness nor
-an ``obs`` package yet.
+``lock_stats``) and the ``locks`` registry provider built on them, which
+its fleet harness reads (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+
+from d4pg_tpu_torch.obs.flight import record_event
 
 # Outermost (largest tier) first; the tiers keep the reference's values.
 HIERARCHY: dict[str, int] = {
@@ -59,11 +62,12 @@ class _Tiered:
         held = _tls.held
         if held and self.tier >= min(t for t, _ in held):
             chain = " -> ".join(n for _, n in held)
-            raise LockHierarchyError(
-                f"hierarchy violation: acquiring '{self.tier_name}' (tier "
-                f"{self.tier}) while holding [{chain}]; declared order is "
-                f"monotone descent "
-                f"({', '.join(f'{k}={v}' for k, v in HIERARCHY.items())})")
+            msg = (f"hierarchy violation: acquiring '{self.tier_name}' "
+                   f"(tier {self.tier}) while holding [{chain}]; declared "
+                   f"order is monotone descent "
+                   f"({', '.join(f'{k}={v}' for k, v in HIERARCHY.items())})")
+            record_event("lock_violation", msg=msg)
+            raise LockHierarchyError(msg)
         held.append((self.tier, self.tier_name))
 
     def _pop(self) -> bool:

@@ -5,7 +5,9 @@ Counterpart of ``Evaluator`` and ``AsyncEvaluator`` in
 weights the ``WeightStore`` holds, report their mean return, the
 0.95/0.05 EWMA of it, the success rate and the learner step the weights
 were published at. ``AsyncEvaluator`` runs the rollouts on a background
-thread, so the learner never waits for them. Inference goes through the
+thread, so the learner never waits for them; a failed eval is printed
+and the thread goes on, and a crash of the thread's own loop is counted
+(``obs.containment.contained_crash``). Inference goes through the
 same policy client as the actors (``serving/client``), on the CPU by
 default. Goal-conditioned envs and observation normalization wait for the
 HER slice of the port.
@@ -23,6 +25,7 @@ import numpy as np
 
 from d4pg_tpu_torch.envs.wrappers import rescale_action
 from d4pg_tpu_torch.learner.state import D4PGConfig
+from d4pg_tpu_torch.obs.containment import contained_crash
 from d4pg_tpu_torch.serving.client import ActorConfig, LocalPolicyClient
 
 EWMA_OLD, EWMA_NEW = 0.95, 0.05
@@ -130,21 +133,24 @@ class AsyncEvaluator:
         return self.latest()
 
     def _loop(self) -> None:
-        while not self._stop.is_set():
-            try:
-                n_trials, seed = self._requests.get(timeout=0.1)
-            except queue.Empty:
-                continue
-            try:
-                result = self._ev.evaluate(n_trials, seed=seed)
-                with self._lock:
-                    self._latest = result
-            except Exception:  # noqa: BLE001 — an eval crash must not kill training
-                print(f"evaluator failed:\n{traceback.format_exc()}",
-                      flush=True)
-            finally:
-                with self._lock:
-                    self._outstanding -= 1
+        try:
+            while not self._stop.is_set():
+                try:
+                    n_trials, seed = self._requests.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+                try:
+                    result = self._ev.evaluate(n_trials, seed=seed)
+                    with self._lock:
+                        self._latest = result
+                except Exception:  # noqa: BLE001 — an eval crash must not kill training
+                    print(f"evaluator failed:\n{traceback.format_exc()}",
+                          flush=True)
+                finally:
+                    with self._lock:
+                        self._outstanding -= 1
+        except Exception as e:  # noqa: BLE001 — counted, not silent
+            contained_crash("evaluator.loop", e)
 
     def close(self) -> None:
         self._stop.set()

@@ -10,21 +10,35 @@ buffer-lock acquisition per group, and settles the env-step and pending
 counts. ``flush`` waits until every accepted batch has been
 committed. Heartbeats (every ``add`` is one) give ``dead_actors``.
 
-Ownership, as in the reference: the ingest threads only stage host rows
-(``FusedDeviceReplay.add``); every device operation (``drain_device``,
-``ingest_commit``, ``ingest_stage``) runs on the learner thread, the
-single owner of the ring and the trees, under the buffer lock. Locks are
+The buffer is a ``FusedDeviceReplay`` (the fused path) or a host-sampled
+``ReplayBuffer`` / ``PrioritizedReplayBuffer`` (``--fused_replay off``),
+whose ring is host RAM or a device ring. The learner samples the latter
+through ``sample`` / ``sample_chunk`` (with the slots' write generations,
+so ``update_priorities`` drops a write-back to a slot the commit thread
+overwrote since) and ``weight_base``.
+
+Ownership, as in the reference: for the fused buffer the ingest threads
+only stage host rows (``FusedDeviceReplay.add``), and every device
+operation (``drain_device``, ``ingest_commit``, ``ingest_stage``) runs on
+the learner thread, the single owner of the ring and the trees. A
+non-fused device ring is written by the commit thread and gathered by
+the learner; both run on the card's default stream under the buffer
+lock, so the card runs them in lock order. Every buffer access holds the
+buffer lock. Locks are
 ``core.locking`` tiered objects of the one declared hierarchy (service >
 buffer > commit > shard): the shard condition is a leaf, and the commit
 thread takes the buffer lock and the service lock one after the other,
-never nested.
+never nested. The unified registry (``obs.registry``) holds the
+``ingest`` provider (``ingest_stats``) and the ``ingest.rows_committed``
+counter; a crash of either ingest thread is counted
+(``obs.containment.contained_crash``), after which ``flush`` times out.
 
 Not ported yet (each raises when asked for): more than one ingest shard
 and shedding at a watermark (ROADMAP Queue 1 item 12, with the wire
 frames ``add_payload`` needs), observation normalization (item 11);
 snapshot and restore with their generation fencing, eviction and
-``kill`` wait for items 12 and 17, the host-sample methods for item 8,
-and ``wait_until`` (the spawned-actor warm-up) for item 12.
+``kill`` wait for items 12 and 17, and ``wait_until`` (the spawned-actor
+warm-up) for item 12.
 """
 
 from __future__ import annotations
@@ -35,7 +49,12 @@ import time
 import traceback
 from collections import deque
 
+import numpy as np
+
 from d4pg_tpu_torch.core.locking import TieredCondition, TieredLock
+from d4pg_tpu_torch.obs.containment import contained_crash
+from d4pg_tpu_torch.obs.registry import REGISTRY
+from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
 
 
@@ -96,6 +115,7 @@ class ReplayService:
             target=self._commit_loop, daemon=True, name="ingest-commit")
         self._worker_thread.start()
         self._commit_thread.start()
+        REGISTRY.register_provider("ingest", self.ingest_stats)
 
     # -- actor-facing ------------------------------------------------------
     def add(self, batch: TransitionBatch, actor_id: str = "local",
@@ -142,23 +162,73 @@ class ReplayService:
         with self._lock:
             self._heartbeats[actor_id] = now
 
-    # -- learner-facing (the learner thread owns every device call) -------
-    def drain_device(self) -> int:
-        """Flush every staged row onto the device (cycle boundaries)."""
+    # -- learner-facing ----------------------------------------------------
+    def sample(self, batch_size: int, beta: float = 0.4,
+               weight_base: float | None = None):
+        """PER: ``(batch, weights, idx, generation)``; uniform: the batch.
+        The generation snapshot guards the priority write-back."""
         with self._buffer_lock:
-            return self.buffer.drain()
+            if isinstance(self.buffer, PrioritizedReplayBuffer):
+                batch, w, idx = self.buffer.sample(
+                    batch_size, beta=beta, weight_base=weight_base)
+                return batch, w, idx, self.buffer.generation[idx].copy()
+            return self.buffer.sample(batch_size)
+
+    def sample_chunk(self, k: int, batch_size: int, beta: float = 0.4,
+                     weight_base: float | None = None):
+        """K stacked batches in one storage gather: ``(batches [K, B, ...],
+        weights or None, idx [K, B], generation or None [K, B])``, the
+        sample of ``learner/pipeline.ChunkPipeline``."""
+        with self._buffer_lock:
+            if isinstance(self.buffer, PrioritizedReplayBuffer):
+                batches, w, idx = self.buffer.sample_chunk(
+                    k, batch_size, beta=beta, weight_base=weight_base)
+                return batches, w, idx, self.buffer.generation[idx].copy()
+            batches, _, idx = self.buffer.sample_chunk(k, batch_size)
+            return batches, None, idx, None
+
+    def weight_base(self) -> float | None:
+        """The buffer's IS-weight base ``z``; None for uniform replay."""
+        with self._buffer_lock:
+            if isinstance(self.buffer, PrioritizedReplayBuffer):
+                return self.buffer.weight_base()
+            return None
+
+    def update_priorities(self, idx: np.ndarray, priorities: np.ndarray,
+                          generation: np.ndarray | None = None) -> None:
+        if isinstance(self.buffer, PrioritizedReplayBuffer):
+            with self._buffer_lock:
+                self.buffer.update_priorities(idx, priorities,
+                                              generation=generation)
+
+    def drain_device(self) -> int:
+        """Flush every staged row of a fused buffer onto the device (cycle
+        boundaries); 0 for a buffer without staging."""
+        drain = getattr(self.buffer, "drain", None)
+        if drain is None:
+            return 0
+        with self._buffer_lock:
+            return drain()
 
     def ingest_commit(self) -> int:
         """Land the in-flight staged block (ring write + tree insert);
-        called right before a fused chunk so it samples the newest rows."""
+        called right before a fused chunk so it samples the newest rows.
+        0 for a buffer without the block API."""
+        commit = getattr(self.buffer, "commit_staged", None)
+        if commit is None:
+            return 0
         with self._buffer_lock:
-            return self.buffer.commit_staged()
+            return commit()
 
     def ingest_stage(self) -> int:
         """Start the host-to-device copy of the next staged block; called
-        right after a fused chunk is queued so the copy overlaps it."""
+        right after a fused chunk is queued so the copy overlaps it. A
+        buffer without the block API drains instead."""
+        stage = getattr(self.buffer, "stage_block", None)
+        if stage is None:
+            return self.drain_device()
         with self._buffer_lock:
-            return self.buffer.stage_block()
+            return stage()
 
     @property
     def env_steps(self) -> int:
@@ -181,6 +251,27 @@ class ReplayService:
             return [a for a, t in self._heartbeats.items()
                     if now - t > self._heartbeat_timeout]
 
+    def ingest_stats(self) -> dict:
+        """The ``ingest`` registry provider. Every counter is read under
+        the lock that writes it: the shard's with its deque, the commit
+        inbox under the commit condition, the rest under the service
+        lock."""
+        s = self._shard
+        with s.cond:
+            queue_depth, admit_fails = len(s.q), s.admit_fails
+        with self._commit_cond:
+            commit_backlog = len(self._out)
+        with self._lock:
+            stats = {
+                "env_steps": self._env_steps,
+                "rows_committed": self._rows_committed,
+                "pending": self._pending,
+                "live_actors": len(self._heartbeats),
+            }
+        stats.update(queue_depth=queue_depth, admit_fails=admit_fails,
+                     commit_backlog=commit_backlog, num_ingest_shards=1)
+        return stats
+
     # -- ingest threads -----------------------------------------------------
     def _worker(self) -> None:
         """Pop coalesced groups from the deque and hand them to the
@@ -188,9 +279,10 @@ class ReplayService:
         slow commit backs pressure up into the deque."""
         try:
             self._worker_loop()
-        except Exception:  # noqa: BLE001 — logged; flush() then times out
-            print(f"ingest worker crashed:\n{traceback.format_exc()}",
+        except Exception as e:  # noqa: BLE001 — counted; flush() then times out
+            print(f"ingest.shard_worker crashed:\n{traceback.format_exc()}",
                   flush=True)
+            contained_crash("ingest.shard_worker", e)
 
     def _worker_loop(self) -> None:
         s = self._shard
@@ -215,9 +307,10 @@ class ReplayService:
     def _commit_loop(self) -> None:
         try:
             self._commit_run()
-        except Exception:  # noqa: BLE001 — logged; flush() then times out
-            print(f"ingest commit crashed:\n{traceback.format_exc()}",
+        except Exception as e:  # noqa: BLE001 — counted; flush() then times out
+            print(f"ingest.commit crashed:\n{traceback.format_exc()}",
                   flush=True)
+            contained_crash("ingest.commit", e)
 
     def _commit_run(self) -> None:
         """Insert the worker's groups in ticket order. With one shard the
@@ -250,6 +343,7 @@ class ReplayService:
                     committed += rows
                 self._rows_committed += committed
                 self._pending -= len(group)
+            REGISTRY.counter("ingest.rows_committed").inc(committed)
 
     def flush(self, timeout: float = 5.0) -> None:
         """Block until every accepted batch has been committed."""
@@ -263,6 +357,7 @@ class ReplayService:
     def close(self) -> None:
         """Flush, then stop the ingest threads."""
         self.flush()
+        REGISTRY.unregister_provider("ingest", self.ingest_stats)
         self._stop.set()
         with self._shard.cond:
             self._shard.cond.notify_all()

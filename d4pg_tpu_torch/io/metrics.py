@@ -4,9 +4,10 @@ Counterpart of ``d4pg_tpu/io/metrics.py``: one ``log(step, {...})`` call
 fans out to every sink: TensorBoard scalars (``torch.utils.tensorboard``,
 imported when the sink is built; the driver prints ``tensorboard
 disabled`` and carries on when it is missing), CSV rows of ``step`` and
-the named columns, and stdout. A sink that raises is reported once and
-dropped for the rest of the run, so a full disk under the CSV logger
-never kills the learner.
+the named columns, and stdout. A sink that raises is reported once,
+dropped for the rest of the run and counted in the unified registry
+(``metrics_bus.sink_failures``), so a full disk under the CSV logger
+never kills the learner and the lost telemetry is itself telemetered.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import csv
 import os
 from typing import Mapping, Protocol
+
+from d4pg_tpu_torch.obs.registry import REGISTRY
 
 
 class MetricsSink(Protocol):
@@ -75,7 +78,8 @@ class _StdoutSink:
 
 class MetricsBus:
     """Sink fan-out with crash containment (see the module docstring);
-    ``sink_failures`` counts the sinks dropped."""
+    ``sink_failures`` counts this bus's failures, the registry's
+    ``metrics_bus.sink_failures`` those of every bus."""
 
     def __init__(self, sinks: list | None = None, echo: bool = False):
         self._sinks: list = list(sinks or [])
@@ -92,6 +96,7 @@ class MetricsBus:
             self._sinks.remove(sink)
             self._dead.append(sink)
         self.sink_failures += 1
+        REGISTRY.counter("metrics_bus.sink_failures").inc()
         print(f"metrics sink {type(sink).__name__} disabled after "
               f"{op}() raised {type(err).__name__}: {err}", flush=True)
 

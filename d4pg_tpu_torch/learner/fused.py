@@ -108,8 +108,9 @@ def make_fused_chunk(
     generator=None, u=None) -> (trees, metrics)``; uniform
     (``prioritized=False``): ``fn(state, storage, size, generator=None,
     slots=None) -> metrics``. ``state`` is updated in place. ``projection``
-    overrides the config's projection arm name (``einsum`` and ``pallas``
-    run ``ops/projection.py``, ``pallas_ce`` ``ops/projection_ce.py``)."""
+    overrides the config's projection arm name (``einsum`` runs the plain
+    projection, ``pallas`` ``ops/projection.py``, ``pallas_ce``
+    ``ops/projection_ce.py``)."""
     if projection is not None:
         config = dataclasses.replace(config, projection=projection)
 

@@ -18,8 +18,9 @@ the collect phase lands before training), then per chunk
     ingest.stage()    # the next block's copy rides under chunk t
 
 Without one (``service=None``) it runs against a buffer filled between
-runs. The reference's ``mark_grad`` trace hook after each chunk waits for
-the port of ``obs/trace``.
+runs. After each chunk the trace recorder's ``mark_grad`` stamps the
+traces whose rows committed before it (``obs/trace``; a no-op when none
+is pending).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from d4pg_tpu_torch.learner.fused import make_fused_chunk
 from d4pg_tpu_torch.learner.pipeline import IngestOverlap
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
+from d4pg_tpu_torch.obs.trace import RECORDER as trace_recorder
 
 
 class FusedLoop:
@@ -111,6 +113,7 @@ class FusedLoop:
                              generator=self._generator)
             if self.ingest is not None:
                 self.ingest.stage()
+            trace_recorder.mark_grad()
             done += k
             self.steps_done += k
             self.chunks += 1

@@ -31,10 +31,10 @@ class D4PGConfig:
     """The categorical subset of the reference's ``D4PGConfig``.
 
     ``projection`` keeps the reference's arm names so a reference config
-    carries over. ``einsum`` and ``pallas`` are one path in the port:
-    ``ops.projection.projection``, the CUDA kernel for tensors on the card
-    and its plain version for tensors on the CPU, then the cross-entropy.
-    ``pallas_ce`` fuses the projection into the cross-entropy
+    carries over. ``einsum`` runs the plain ``categorical_projection`` on
+    every device and ``pallas`` ``ops.projection.projection`` (the CUDA
+    kernel for tensors on the card, its plain version for tensors on the
+    CPU), each then the cross-entropy. ``pallas_ce`` fuses the projection into the cross-entropy
     (``ops.projection_ce.projection_ce``: forward and backward CUDA
     kernels on the card, the plain version on the CPU). Like the
     reference's field it must be concrete: ``auto`` is resolved first by

@@ -5,10 +5,12 @@ Counterpart of ``d4pg_tpu/learner/update.py``. One ``update_step``:
   - target distribution Z'(s', pi'(s')) under ``no_grad`` (the reference
     stop-gradients the projected target, so nothing flows into it);
   - the per-sample cross-entropy against the projected Bellman target:
-    under ``einsum``/``pallas`` the projection goes through
-    ``ops.projection.projection`` and the cross-entropy is plain torch;
-    under ``pallas_ce`` both are fused in ``ops.projection_ce`` (forward
-    and backward kernels; on the CPU each wrapper runs its plain version);
+    ``einsum`` projects with the plain ``categorical_projection`` on every
+    device, ``pallas`` with the projection kernel
+    (``ops.projection.projection``), each followed by the plain
+    cross-entropy; ``pallas_ce`` fuses both in ``ops.projection_ce``
+    (forward and backward kernels). On the CPU each kernel wrapper runs
+    its plain version;
   - IS-weighted mean critic loss, critic Adam step;
   - policy loss -E[Z(s, pi(s))] through the critic AFTER its Adam step
     (the reference's documented choice, ``learner/update.py:217-225``),
@@ -26,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from d4pg_tpu_torch.core import noise
+from d4pg_tpu_torch.core.distribution import categorical_projection
 from d4pg_tpu_torch.core.losses import (
     cross_entropy_per_sample,
     expected_q,
@@ -56,9 +59,11 @@ def update_step(
         td_error = projection_ce(config.support, target_probs, batch.reward,
                                  batch.discount, pred_probs)
     else:
+        project = (projection if config.projection == "pallas"
+                   else categorical_projection)
         with torch.no_grad():
-            proj = projection(config.support, target_probs, batch.reward,
-                              batch.discount)
+            proj = project(config.support, target_probs, batch.reward,
+                           batch.discount)
         td_error = cross_entropy_per_sample(proj, pred_probs)
     critic_loss = weighted_mean(td_error, is_weights)
     state.critic_opt.zero_grad(set_to_none=True)

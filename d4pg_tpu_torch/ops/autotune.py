@@ -8,12 +8,12 @@ on the real shape and picks the winner; an explicit ``einsum``,
 
 What gets timed: the critic-loss core each arm changes, one forward and
 backward of the projected-Bellman cross-entropy at [B, A] with respect
-to the predicted distribution (the projection then the cross-entropy
-for ``einsum``/``pallas``, the fused forward and backward kernels for
+to the predicted distribution (the plain ``categorical_projection`` then
+the cross-entropy for ``einsum``, the projection kernel then the
+cross-entropy for ``pallas``, the fused forward and backward kernels for
 ``pallas_ce``), warmed up, best of ``repeats`` windows of ``iters``
-calls, each window ended by a synchronize on the card. ``einsum`` and
-``pallas`` are one path in the port (both run ``ops/projection.py``), so
-that path is timed once and recorded under both names.
+calls, each window ended by a synchronize on the card. Each of the three
+arms is timed on its own.
 
 Static policy (no timing, reason recorded), as the reference's off its
 accelerator: ``auto`` on the CPU, where each wrapper runs its plain
@@ -22,7 +22,9 @@ to ``einsum``.
 
 A candidate that fails to build or to launch raises: it does not
 quietly lose the race. Results are cached per (batch, support, mesh,
-device).
+card): the card is the device type and its index, with ``cuda``
+resolved to the current index, so ``cuda`` and ``cuda:0`` share one
+race, as the reference keys by backend.
 """
 
 from __future__ import annotations
@@ -34,7 +36,10 @@ import numpy as np
 import torch
 
 from d4pg_tpu_torch import resolve_device
-from d4pg_tpu_torch.core.distribution import CategoricalSupport
+from d4pg_tpu_torch.core.distribution import (
+    CategoricalSupport,
+    categorical_projection,
+)
 from d4pg_tpu_torch.core.losses import categorical_td_loss, weighted_mean
 from d4pg_tpu_torch.ops.projection import projection
 from d4pg_tpu_torch.ops.projection_ce import projection_ce
@@ -86,9 +91,11 @@ def _loss_fn(variant: str, support: CategoricalSupport):
 
         return loss
 
+    project = projection if variant == "pallas" else categorical_projection
+
     def loss(pred, tp, r, d):
         with torch.no_grad():
-            proj = projection(support, tp, r, d)
+            proj = project(support, tp, r, d)
         return categorical_td_loss(proj, pred)[0]
 
     return loss
@@ -134,25 +141,27 @@ def autotune_projection(batch_size: int, v_min: float, v_max: float,
                         n_atoms: int, repeats: int = 3, iters: int = 20,
                         device: str | torch.device | None = None,
                         ) -> AutotuneResult:
-    """Time the candidates at the given shape on ``device`` (default
-    ``cuda``) and return the winner. ``einsum`` and ``pallas`` share one
-    timing. The caller gates by policy (see the module docstring); this
-    function times whatever device it is given."""
+    """Time each candidate at the given shape on ``device`` (default
+    ``cuda``) and return the winner. The caller gates by policy (see the
+    module docstring); this function times whatever device it is
+    given."""
     dev = resolve_device(device)
     support = CategoricalSupport(float(v_min), float(v_max), int(n_atoms))
-    shared = _time_variant("pallas", support, batch_size, repeats, iters,
-                           dev)
-    timings = {
-        "einsum": round(shared, 4),
-        "pallas": round(shared, 4),
-        "pallas_ce": round(_time_variant("pallas_ce", support, batch_size,
-                                         repeats, iters, dev), 4),
-    }
+    timings = {variant: round(_time_variant(variant, support, batch_size,
+                                            repeats, iters, dev), 4)
+               for variant in CANDIDATES}
     best = min(timings, key=timings.get)
     return AutotuneResult(
         best, f"measured fastest grad step at shape [{batch_size}, "
-        f"{n_atoms}] on {dev.type} (einsum and pallas are one path in the "
-        "port, timed once)", timings)
+        f"{n_atoms}] on {dev.type}", timings)
+
+
+def card_key(dev: torch.device) -> tuple[str, int | None]:
+    """``(type, index)`` of the card ``dev`` names; ``cuda`` without an
+    index is the current CUDA device."""
+    if dev.type == "cuda" and dev.index is None:
+        return dev.type, torch.cuda.current_device()
+    return dev.type, dev.index
 
 
 def select_projection(flag: str, *, batch_size: int, v_min: float,
@@ -170,7 +179,7 @@ def select_projection(flag: str, *, batch_size: int, v_min: float,
         return _record("projection",
                        AutotuneResult(flag, "explicit projection override"))
     key = ("sel", int(batch_size), float(v_min), float(v_max), int(n_atoms),
-           bool(mesh), str(dev))
+           bool(mesh), card_key(dev))
     if key not in _CACHE:
         if mesh:
             result = AutotuneResult(

@@ -28,6 +28,8 @@ per-chunk schedule (``learner/pipeline.IngestOverlap``) interleaves the
 two calls with the chunks so the copy rides under a chunk's compute.
 The ring and trees a sequence of adds leaves are bitwise those of the
 synchronous drain, whatever ``add`` does while a block is in flight.
+The unified registry counts ``fused.rows_staged``,
+``fused.rows_committed`` and ``fused.blocks_committed``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from d4pg_tpu_torch import resolve_device
+from d4pg_tpu_torch.obs.registry import REGISTRY
 from d4pg_tpu_torch.replay import device_per as dper
 from d4pg_tpu_torch.replay.device_ring import DeviceStore
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
@@ -184,6 +187,7 @@ class FusedDeviceReplay:
                 self._copied = torch.cuda.Event()
                 self._copied.record(self._copy_stream)
         self._inflight = n
+        REGISTRY.counter("fused.rows_staged").inc(n)
         return n
 
     def commit_staged(self) -> int:
@@ -206,6 +210,8 @@ class FusedDeviceReplay:
         self.head = (self.head + n) % self.capacity
         self.size = min(self.size + n, self.capacity)
         self._inflight = 0
+        REGISTRY.counter("fused.rows_committed").inc(n)
+        REGISTRY.counter("fused.blocks_committed").inc()
         return n
 
     def drain(self) -> int:

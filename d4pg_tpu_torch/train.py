@@ -1,17 +1,39 @@
 """Training driver: ``python -m d4pg_tpu_torch.train --env point ...``
 
-Counterpart of the single-learner fused branch of ``d4pg_tpu/train.py``
-and its ``main()``. The loop is the reference's: epochs x cycles, each
-cycle collecting episodes into the central ``ReplayService`` (vectorized
-actor pools, n-step folding), then ``train_steps_per_cycle`` fused grad
-steps (``learner/loop.FusedLoop`` over the device ring and PER trees of
-``replay/fused_buffer.FusedDeviceReplay``, rows streaming in between
-chunks), then a weight publish, a greedy eval (on a background thread by
-default), metrics, and a checkpoint every ``checkpoint_every`` cycles;
-``--resume 1`` goes on from the latest checkpoint. ``--async_actors 1``
-runs the actors on threads the whole time instead (publishing after each
-chunk), with a supervisor that restarts a dead actor thread once per
-cycle.
+Counterpart of the single-learner branches of ``d4pg_tpu/train.py`` and
+its ``main()``. The loop is the reference's: epochs x cycles, each cycle
+collecting episodes into the central ``ReplayService`` (vectorized actor
+pools, n-step folding), then ``train_steps_per_cycle`` grad steps, then a
+weight publish, a greedy eval (on a background thread by default),
+metrics, and a checkpoint every ``checkpoint_every`` cycles; ``--resume
+1`` goes on from the latest checkpoint. ``--async_actors 1`` runs the
+actors on threads the whole time instead (publishing after each chunk),
+with a supervisor that restarts a dead actor thread once per cycle.
+
+The grad steps take one of two replay paths, resolved from
+``--replay_storage`` and ``--fused_replay`` as the reference resolves
+them (``resolve_storage``):
+
+  - fused (``device`` storage, fused replay not ``off``): the ring and
+    PER trees live on the card (``replay/fused_buffer``) and
+    ``learner/loop.FusedLoop`` samples, learns and writes priorities back
+    inside each chunk, rows streaming in between chunks;
+  - host-sampled (``host`` storage, or ``--fused_replay off``): a
+    ``PrioritizedReplayBuffer`` (or a uniform ``ReplayBuffer``) whose PER
+    trees are on the host and whose ring is host RAM or a non-fused
+    device ring; ``learner/pipeline.ChunkPipeline`` stages K-step chunks
+    and writes the priorities back two chunks late, and the ``n % K``
+    remainder runs one step at a time with its write-back at once.
+
+``--platform cpu`` with the default flags resolves to the host-sampled
+path (``auto`` storage on the CPU is ``host``).
+
+Observability: ``--trace_sample f`` enables the wire-to-grad trace
+recorder (``obs/trace``); in-process adds carry no trace id, so no trace
+opens until the wire codec is ported and ``wire_to_grad_p95_ms`` stays
+absent, as in the reference's in-process run. ``--profile_dir d`` writes
+a ``torch.profiler`` trace (Chrome trace JSON) of the first cycle's grad
+steps into ``d``, where the reference writes an XLA trace.
 
 Devices. The learner runs on the CUDA card for ``--platform auto`` and
 ``accel``, and raises when there is none: unlike the reference's
@@ -20,8 +42,8 @@ runs the learner on the CPU (the tests do). Acting and eval run where
 ``--actor_device`` says (the host CPU by default).
 
 Every flag value that selects a path the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item (``check_ported`` and
-``resolve_storage``); none is skipped quietly. gymnasium is imported only
+``NotImplementedError`` naming its ROADMAP item (``check_ported``); none
+is skipped quietly. gymnasium is imported only
 inside ``make_env_fn``, for gymnasium ids.
 """
 
@@ -47,14 +69,15 @@ from d4pg_tpu_torch.io.checkpoint import CheckpointManager
 from d4pg_tpu_torch.io.metrics import CsvLogger, MetricsBus, TensorBoardSink
 from d4pg_tpu_torch.io.profiling import StepTimer
 from d4pg_tpu_torch.learner.loop import FusedLoop
+from d4pg_tpu_torch.learner.pipeline import ChunkPipeline
 from d4pg_tpu_torch.learner.state import init_state
+from d4pg_tpu_torch.learner.update import multi_update_step, update_step
+from d4pg_tpu_torch.obs.trace import RECORDER as trace_recorder
 from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+from d4pg_tpu_torch.replay.schedule import LinearSchedule
+from d4pg_tpu_torch.replay.uniform import ReplayBuffer, TransitionBatch
 from d4pg_tpu_torch.serving.client import ActorConfig
-
-HOST_REPLAY = ("the host replay path (--fused_replay off, --replay_storage "
-               "host, or --replay_storage auto with the learner on the "
-               "CPU) is not ported yet (ROADMAP Queue 1 item 8); run the "
-               "fused path with --replay_storage device --fused_replay on")
 
 
 def _unported(cfg: ExperimentConfig) -> list[tuple[bool, str, str]]:
@@ -85,9 +108,6 @@ def _unported(cfg: ExperimentConfig) -> list[tuple[bool, str, str]]:
         (cfg.ingest_shards > 1, f"--ingest_shards {cfg.ingest_shards}",
          "Queue 1 item 12"),
         (cfg.checkpoint_replay, "--checkpoint_replay 1", "Queue 1 item 17"),
-        (cfg.trace_sample > 0, f"--trace_sample {cfg.trace_sample}",
-         "'Next': obs/trace"),
-        (bool(cfg.profile_dir), "--profile_dir", "'Next': obs/trace"),
     ]
 
 
@@ -176,19 +196,28 @@ def infer_dims(cfg: ExperimentConfig) -> tuple[int, int]:
 
 
 def resolve_storage(cfg: ExperimentConfig, obs_dim: int, act_dim: int,
-                    device: torch.device) -> str:
-    """``replay_storage`` as the reference resolves it
+                    device: torch.device) -> tuple[str, bool]:
+    """``(storage, fused)`` as the reference resolves ``replay_storage``
+    and ``fused_replay`` for one single-host learner
     (``d4pg_tpu/train.py``), with ``device != cpu`` where the reference
-    asks ``jax.default_backend() != 'cpu'``. Only the fused device path is
-    ported: the host path raises."""
+    asks ``jax.default_backend() != 'cpu'``: ``auto`` storage is the
+    device ring on the card when it fits (under 8e9 bytes) and host RAM
+    otherwise; the path is fused when the storage is ``device`` and fused
+    replay is not ``off``. ``--fused_replay on`` with host storage raises
+    ``ValueError``."""
     storage = cfg.replay_storage
     if storage == "auto":
         ring_bytes = cfg.memory_size * (2 * obs_dim * 4 + (act_dim + 3) * 4)
-        storage = ("device" if device.type != "cpu" and ring_bytes < 8e9
-                   and cfg.fused_replay != "off" else "host")
-    if storage == "host" or cfg.fused_replay == "off":
-        raise NotImplementedError(HOST_REPLAY)
-    return storage
+        # a single-host learner without a mesh keeps the device ring even
+        # with fused replay off (the non-fused device ring)
+        storage = "device" if device.type != "cpu" and ring_bytes < 8e9 \
+            else "host"
+    fused = cfg.fused_replay != "off" and storage == "device"
+    if cfg.fused_replay == "on" and not fused:
+        raise ValueError(
+            "--fused_replay on requires device replay storage "
+            f"(storage resolved to {storage!r})")
+    return storage, fused
 
 
 def train(cfg: ExperimentConfig) -> dict:
@@ -199,19 +228,30 @@ def train(cfg: ExperimentConfig) -> dict:
     os.makedirs(run_dir, exist_ok=True)
 
     obs_dim, act_dim = infer_dims(cfg)
-    storage = resolve_storage(cfg, obs_dim, act_dim, device)
+    storage, fused = resolve_storage(cfg, obs_dim, act_dim, device)
     config = cfg.learner_config(obs_dim, act_dim, device=device)
     state = init_state(config, cfg.seed, device)
 
-    # --- replay: the fused device ring, fed through the service ----------
-    buffer = FusedDeviceReplay(cfg.memory_size, obs_dim, act_dim,
-                               alpha=cfg.per_alpha,
-                               prioritized=cfg.prioritized_replay,
-                               device=device)
+    # --- replay, fed through the service ------------------------------------
+    if fused:
+        buffer = FusedDeviceReplay(cfg.memory_size, obs_dim, act_dim,
+                                   alpha=cfg.per_alpha,
+                                   prioritized=cfg.prioritized_replay,
+                                   device=device)
+    elif cfg.prioritized_replay:
+        buffer = PrioritizedReplayBuffer(cfg.memory_size, obs_dim, act_dim,
+                                         alpha=cfg.per_alpha, seed=cfg.seed,
+                                         storage=storage, device=device)
+    else:
+        buffer = ReplayBuffer(cfg.memory_size, obs_dim, act_dim,
+                              seed=cfg.seed, storage=storage, device=device)
     if cfg.debug:
-        print(f"replay storage: {storage} (fused=True) on {device}",
+        print(f"replay storage: {storage} (fused={fused}) on {device}",
               flush=True)
+    beta = LinearSchedule(cfg.per_beta_steps, 1.0, cfg.per_beta0)
     service = ReplayService(buffer)
+    if cfg.trace_sample > 0:
+        trace_recorder.enable(cfg.trace_sample)
 
     # --- io ----------------------------------------------------------------
     bus = MetricsBus(echo=True)
@@ -264,15 +304,16 @@ def train(cfg: ExperimentConfig) -> dict:
     # many updates they ran), so nothing waits on the card for it
     lstep = state.step
     K = max(1, cfg.updates_per_dispatch)
-    fused_loop = FusedLoop(
+    fused_loop = (FusedLoop(
         config, buffer, k=K, batch_size=cfg.batch_size, generator=generator,
         prioritized=cfg.prioritized_replay, alpha=cfg.per_alpha,
         beta0=cfg.per_beta0, beta_steps=cfg.per_beta_steps, service=service)
+        if fused else None)
 
     def publish():
         weights.publish(state.actor, step=lstep)
 
-    def train_steps(n: int):
+    def train_steps_fused(n: int):
         """n fused grad steps (commit -> chunk -> stage per chunk; the
         cycle's staged rows land first)."""
 
@@ -284,11 +325,85 @@ def train(cfg: ExperimentConfig) -> dict:
                 # weights of this step without the learner waiting
                 weights.publish(chunk_state.actor, step=lstep, to_host=False)
 
-        metrics = fused_loop.run(state, n, on_chunk=on_chunk)
+        return fused_loop.run(state, n, on_chunk=on_chunk)
+
+    # --- the host-sampled path: K-chunks staged two deep ------------------
+    def sample_chunk():
+        """One K-chunk: the host tree walks pick [K, B] slots, one storage
+        gather fetches the rows (a device ring keeps them on the card)."""
+        if cfg.prioritized_replay:
+            batches, w, idx, gen = service.sample_chunk(
+                K, cfg.batch_size, beta=beta.value(lstep))
+            return (batches, w), (idx, gen)
+        batches, _, _, _ = service.sample_chunk(K, cfg.batch_size)
+        return (batches, None), None
+
+    def per_write_back(aux, td):
+        idx, gen = aux
+        for i in range(len(idx)):
+            service.update_priorities(idx[i], td[i], generation=gen[i])
+
+    def chunk_update(chunk_state, batches, w=None):
+        return chunk_state, multi_update_step(config, chunk_state, batches,
+                                              w)
+
+    pipeline = (ChunkPipeline(
+        chunk_update, sample_chunk,
+        write_back=per_write_back if cfg.prioritized_replay else None,
+        device=device, use_weights=cfg.prioritized_replay)
+        if K > 1 and not fused else None)
+
+    def on_pipeline_chunk(chunk_state):
+        nonlocal lstep
+        lstep += K
+        if cfg.async_actors:
+            weights.publish(chunk_state.actor, step=lstep, to_host=False)
+
+    def to_device(batch):
+        return TransitionBatch(*[torch.as_tensor(f, device=device)
+                                 for f in batch])
+
+    def train_single():
+        """One grad step with its priority write-back at once (the
+        ``n % K`` remainder, and every step at K = 1)."""
+        nonlocal lstep
+        if cfg.prioritized_replay:
+            batch, w, idx, gen = service.sample(cfg.batch_size,
+                                                beta=beta.value(lstep))
+            metrics = update_step(config, state, to_device(batch),
+                                  torch.as_tensor(w, device=device))
+            lstep += 1
+            td = metrics["td_error"].cpu().numpy()
+            service.update_priorities(idx, np.abs(td) + 1e-6,
+                                      generation=gen)
+        else:
+            metrics = update_step(config, state,
+                                  to_device(service.sample(cfg.batch_size)))
+            lstep += 1
+        return metrics
+
+    def train_steps(n: int):
+        """n grad steps on the resolved path; the last step's scalars."""
+        if fused:
+            metrics = train_steps_fused(n)
+        else:
+            metrics = None
+            n_chunks, remainder = (n // K, n % K) if K > 1 else (0, n)
+            if n_chunks:
+                if not cfg.async_actors:
+                    # sync mode just collected fresh episodes: drop the
+                    # chunk sampled before them
+                    pipeline.invalidate()
+                _, metrics = pipeline.run(state, n_chunks,
+                                          on_chunk=on_pipeline_chunk,
+                                          final_prefetch=cfg.async_actors)
+            for _ in range(remainder):
+                metrics = train_single()
         if metrics is None:
             return None
-        return {name: metrics[name][-1]
-                for name in ("critic_loss", "actor_loss", "q_mean")}
+        return {name: (v if v.dim() == 0 else v[-1])
+                for name, v in metrics.items()
+                if name in ("critic_loss", "actor_loss", "q_mean")}
 
     stop_actors = threading.Event()
     actor_threads: dict[int, threading.Thread] = {}
@@ -335,7 +450,11 @@ def train(cfg: ExperimentConfig) -> dict:
                 service.flush()
             collect_s = time.monotonic() - cycle_t0
             timer.start()
-            metrics = train_steps(cfg.train_steps_per_cycle)
+            if epoch == 0 and cycle == 0 and cfg.profile_dir:
+                metrics = profiled(cfg.profile_dir, device, train_steps,
+                                   cfg.train_steps_per_cycle)
+            else:
+                metrics = train_steps(cfg.train_steps_per_cycle)
             rate = timer.stop(cfg.train_steps_per_cycle)
             # staleness the actors saw this cycle, before the cycle-end
             # publish
@@ -364,6 +483,12 @@ def train(cfg: ExperimentConfig) -> dict:
                 })
             if rate is not None:
                 last_metrics["grad_steps_per_sec"] = round(rate, 2)
+            if cfg.trace_sample > 0:
+                # the wire-to-grad p95 over the recent trace window
+                lat = trace_recorder.latency_block()
+                if lat["wire_to_grad"]["n"]:
+                    last_metrics["wire_to_grad_p95_ms"] = \
+                        lat["wire_to_grad"]["p95"]
             cycle_s = time.monotonic() - cycle_t0
             # the collect rate: env steps this cycle over the collect phase
             # (async actors: over the whole cycle)
@@ -402,11 +527,34 @@ def train(cfg: ExperimentConfig) -> dict:
             bus.log(lstep, last_metrics)
     ckpt.wait()
     bus.close()
-    fused_loop.close()
+    if fused_loop is not None:
+        fused_loop.close()
     service.close()
     for actor in actors:
         actor.pool.close()
     return last_metrics
+
+
+def profiled(profile_dir: str, device: torch.device, fn, *args):
+    """``fn(*args)`` under ``torch.profiler`` (host and, on the card,
+    device events); the trace goes to ``profile_dir`` as Chrome trace
+    JSON (``trace_<pid>_<ns>.json``, viewable in Perfetto or
+    chrome://tracing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        out = fn(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir,
+                        f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace of the first cycle: {path}", flush=True)
+    return out
 
 
 def main(argv=None) -> dict:

@@ -3,9 +3,11 @@
 
 An explicit flag passes through; ``auto`` on the CPU or for a mesh
 learner resolves to ``einsum`` without timing; the measured path, forced
-on the CPU, returns float timings with ``einsum`` and ``pallas`` timed
-once as the one path they are in the port; a candidate that fails
-raises instead of losing the race.
+on the CPU, times each of the three arms on its own (``einsum`` is the
+plain projection, ``pallas`` the projection kernel), as the reference
+does; a candidate that fails raises instead of losing the race; one card
+named ``cuda`` or ``cuda:0`` keys one cache entry, as the reference keys
+by backend.
 """
 
 import pytest
@@ -44,15 +46,47 @@ def test_select_defaults_to_cuda_and_raises_without_it(monkeypatch):
         autotune.select_projection("auto", **SHAPE)
 
 
-def test_measured_path_returns_float_timings():
-    """Forced on the CPU for coverage (the policy never times there)."""
+def test_measured_path_returns_float_timings(monkeypatch):
+    """Forced on the CPU for coverage (the policy never times there):
+    three arms, three separate timings."""
+    timed = []
+    time_variant = autotune._time_variant
+
+    def recording(variant, *args):
+        ms = time_variant(variant, *args)
+        timed.append((variant, round(ms, 4)))
+        return ms
+
+    monkeypatch.setattr(autotune, "_time_variant", recording)
     r = autotune.autotune_projection(8, 0, 1, 11, repeats=1, iters=1,
                                      device="cpu")
     assert r.selected in autotune.CANDIDATES
     assert set(r.timings_ms) == set(autotune.CANDIDATES)
     assert all(isinstance(t, float) for t in r.timings_ms.values())
-    assert r.timings_ms["einsum"] == r.timings_ms["pallas"]
-    assert "one path" in r.reason
+    assert sorted(timed) == sorted(r.timings_ms.items())
+    assert [v for v, _ in timed] == list(autotune.CANDIDATES)
+
+
+def test_cuda_and_cuda0_share_one_entry(monkeypatch):
+    """One card under two names races once: the cache keys the resolved
+    card (type and index), not the spelling."""
+    races = []
+
+    def race(batch_size, v_min, v_max, n_atoms, device=None, **kw):
+        races.append(device)
+        return autotune.AutotuneResult("pallas_ce", "raced", {})
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(autotune, "autotune_projection", race)
+    monkeypatch.setattr(autotune, "_CACHE", {})
+    for device in ("cuda", "cuda:0", torch.device("cuda", 0), "cuda"):
+        r = autotune.select_projection("auto", **SHAPE, device=device)
+        assert r.selected == "pallas_ce"
+    assert len(races) == 1
+    # another card races on its own
+    autotune.select_projection("auto", **SHAPE, device="cuda:1")
+    assert len(races) == 2
 
 
 def test_failing_candidate_raises(monkeypatch):

@@ -29,9 +29,21 @@ for m in mods:
     importlib.import_module(m)
 leaked = sorted(k for k in sys.modules
                 if k == "d4pg_tpu" or k.startswith("d4pg_tpu."))
-print(len(mods), leaked)
+print(len(mods), leaked, " ".join(mods))
 assert not leaked, leaked
 """
+
+# modules the host replay path and the obs plane added; each must be
+# among those imported with JAX blocked
+HOST_PATH_AND_OBS = {
+    "d4pg_tpu_torch.obs", "d4pg_tpu_torch.obs.registry",
+    "d4pg_tpu_torch.obs.flight", "d4pg_tpu_torch.obs.containment",
+    "d4pg_tpu_torch.obs.trace", "d4pg_tpu_torch.obs.draw_ledger",
+    "d4pg_tpu_torch.replay.segment_tree", "d4pg_tpu_torch.replay.native",
+    "d4pg_tpu_torch.replay.uniform", "d4pg_tpu_torch.replay.device_ring",
+    "d4pg_tpu_torch.replay.prioritized", "d4pg_tpu_torch.replay.staging",
+    "d4pg_tpu_torch.learner.pipeline",
+}
 
 
 def test_port_imports_with_jax_blocked():
@@ -41,7 +53,9 @@ def test_port_imports_with_jax_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 45  # every module of the package was imported
+    assert n_modules >= 59  # every module of the package was imported
+    imported = set(out.stdout.split("] ", 1)[1].split())
+    assert HOST_PATH_AND_OBS <= imported, HOST_PATH_AND_OBS - imported
 
 
 def test_port_sources_import_no_jax_or_reference():

@@ -163,8 +163,9 @@ def test_update_step_matches_reference(rng, projection):
 @pytest.mark.parametrize("projection", [None, "pallas", "einsum"])
 def test_update_step_projects_through_the_kernel_wrapper(
         rng, monkeypatch, projection):
-    """Every arm name, and the default, reaches the one projection wrapper
-    (the CUDA kernel on the card), never a plain version of its own."""
+    """``pallas``, and the default, reach the projection wrapper (the CUDA
+    kernel on the card); ``einsum`` never does: it projects with the plain
+    ``categorical_projection`` on every device, as the reference does."""
     from d4pg_tpu_torch.learner import update as tupdate
     from d4pg_tpu_torch.ops import projection as tproj
 
@@ -183,7 +184,36 @@ def test_update_step_projects_through_the_kernel_wrapper(
     ts = tstate.init_state(cfg, seed=0, device="cpu")
     tupdate.update_step(cfg, ts, TransitionBatch(
         **{k: torch.from_numpy(v) for k, v in _batch(rng, 8).items()}))
-    assert calls == [cfg.support]
+    assert calls == ([] if projection == "einsum" else [cfg.support])
+
+
+@pytest.mark.parametrize("projection,launches", [("einsum", 0),
+                                                 ("pallas", 4)])
+def test_einsum_launches_no_projection_kernel(rng, monkeypatch, projection,
+                                              launches):
+    """``--projection einsum`` leaves ``projection.launches`` at 0 in
+    ``update_step`` and ``multi_update_step``. The kernel entry is
+    stood in for by a wrapper that counts a launch on the CPU, as the
+    CUDA branch does on the card; ``pallas`` is the control (1 + K = 3
+    launches)."""
+    from d4pg_tpu_torch.learner import update as tupdate
+    from d4pg_tpu_torch.ops import projection as tproj
+
+    def launching(*args):
+        tproj.projection.launches += 1
+        return tproj.projection_plain(*args)
+
+    monkeypatch.setattr(tupdate, "projection", launching)
+    monkeypatch.setattr(tproj.projection, "launches", 0)
+    cfg = tstate.D4PGConfig(**{**DIMS, "projection": projection})
+    ts = tstate.init_state(cfg, seed=0, device="cpu")
+    tupdate.update_step(cfg, ts, TransitionBatch(
+        **{k: torch.from_numpy(v) for k, v in _batch(rng, 8).items()}))
+    batches = [_batch(rng, 8) for _ in range(3)]
+    tupdate.multi_update_step(cfg, ts, TransitionBatch(
+        **{n: torch.from_numpy(np.stack([b[n] for b in batches]))
+           for n in batches[0]}))
+    assert tproj.projection.launches == launches
 
 
 def test_update_step_pallas_ce_goes_through_the_fused_wrapper(

@@ -4,11 +4,15 @@ The config surface (same flags, fields and run names as the JAX
 parser), tiny end-to-end runs on ``--platform cpu --replay_storage device
 --fused_replay on`` (PER and uniform with async actors), bitwise
 determinism of two same-seed runs, checkpoint round trip and exact
-resume, the refusal of every flag value that selects an unported path,
-and whole-slice parity: with the same initial weights carried across and
-exploration off, the rows both drivers hold in replay when the first
-grad step starts match within atol 1e-5. Small sizes throughout: hidden
-(16, 16), 11 atoms, batch 16, K <= 8, the ``point`` env.
+resume, one cycle for each flag value the host replay path and the obs
+plane made trainable (and the default flags on the CPU, which take the
+host path), the refusal of every flag value that still selects an
+unported path, and whole-slice parity on both paths: with the same
+initial weights carried across and exploration off, the rows both
+drivers hold in replay when the first grad step starts match within atol
+1e-5 (and on the host path the first chunk's slots and IS weights are
+bitwise equal). Small sizes throughout: hidden (16, 16), 11 atoms,
+batch 16, K <= 8, the ``point`` env.
 """
 
 import dataclasses
@@ -209,10 +213,70 @@ def test_checkpoint_round_trip_and_exact_resume(tmp_path, rng):
     mgr.wait(), mgr.close()
 
 
+# flag values that raised until the host replay path and the obs plane
+# were ported: (config overrides, resolved storage, fused)
+RETIRED = [
+    (dict(fused_replay="off"), "device", False),
+    (dict(replay_storage="host", fused_replay="auto"), "host", False),
+    (dict(replay_storage="auto", fused_replay="auto"), "host", False),
+    (dict(trace_sample=0.5), "device", True),
+    (dict(profile_dir="prof"), "device", True),
+]
+
+
+@pytest.mark.parametrize("kw,storage,fused", RETIRED,
+                         ids=[",".join(k) + "=" + str(list(k.values())[0])
+                              for k, _, _ in RETIRED])
+def test_retired_flag_values_train(tmp_path, monkeypatch, kw, storage,
+                                   fused):
+    """One cycle with each value on the CPU, through the path it
+    resolves to."""
+    paths = []
+
+    class Pipeline(ttrain.ChunkPipeline):
+        def run(self, *args, **kwargs):
+            paths.append("pipeline")
+            return super().run(*args, **kwargs)
+
+    class Loop(ttrain.FusedLoop):
+        def run(self, *args, **kwargs):
+            paths.append("fused")
+            return super().run(*args, **kwargs)
+
+    monkeypatch.setattr(ttrain, "ChunkPipeline", Pipeline)
+    monkeypatch.setattr(ttrain, "FusedLoop", Loop)
+    if "profile_dir" in kw:
+        kw = dict(kw, profile_dir=str(tmp_path / kw["profile_dir"]))
+    cfg = _cfg(tmp_path, n_cycles=1, train_steps_per_cycle=8, **kw)
+    assert ttrain.resolve_storage(cfg, 4, 2, torch.device("cpu")) == (
+        storage, fused)
+    metrics = ttrain.train(cfg)
+    assert np.isfinite(metrics["critic_loss"])
+    assert paths == ["fused" if fused else "pipeline"]
+    assert CheckpointManager(str(Path(
+        tmp_path, cfg.run_name(), "ckpt"))).latest_step == 8
+    if "profile_dir" in kw:
+        assert len(list(Path(kw["profile_dir"]).glob("trace_*.json"))) == 1
+    if "trace_sample" in kw:
+        assert "wire_to_grad_p95_ms" not in metrics
+
+
+def test_default_flags_on_cpu_train_on_the_host_path(tmp_path, capsys):
+    """``--platform cpu`` with the default storage flags: ``auto`` storage
+    resolves to host RAM, PER over the native trees, and it trains."""
+    result = ttrain.main(TINY_ARGV[:-4] + ["--log_dir", str(tmp_path),
+                                           "--debug", "1"])
+    assert np.isfinite(result["critic_loss"])
+    assert "replay storage: host (fused=False) on cpu" in capsys.readouterr(
+        ).out
+
+
+def test_fused_on_with_host_storage_raises(tmp_path):
+    with pytest.raises(ValueError, match="requires device replay storage"):
+        ttrain.train(_cfg(tmp_path, replay_storage="host"))
+
+
 UNPORTED = [
-    (dict(fused_replay="off"), "item 8"),
-    (dict(replay_storage="host"), "item 8"),
-    (dict(replay_storage="auto"), "item 8"),
     (dict(her=True), "item 11"),
     (dict(env="fake-goal"), "item 11"),
     (dict(normalize_obs=True), "item 11"),
@@ -234,8 +298,6 @@ UNPORTED = [
     (dict(actor_procs=1), "item 12"),
     (dict(autoscale=True), "item 17"),
     (dict(ingest_shards=2), "item 12"),
-    (dict(trace_sample=0.5), "obs/trace"),
-    (dict(profile_dir="prof"), "obs/trace"),
     (dict(checkpoint_replay=True), "item 17"),
 ]
 
@@ -307,3 +369,50 @@ def test_whole_slice_replay_rows_match_reference(tmp_path, monkeypatch):
     for name, t, j in zip(TransitionBatch._fields, trows[0], jrows[0]):
         assert t.shape == j.shape and t.shape[0] > 100, name
         np.testing.assert_allclose(t, j, atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_host_path_replay_rows_and_first_chunk_match_reference(
+        tmp_path, monkeypatch):
+    """Both drivers on the CPU with the default storage flags (the
+    host-sampled path) from the same initial weights, exploration off:
+    the rows in replay when the first chunk is sampled match within atol
+    1e-5, and the chunk's slots and IS weights are bitwise equal."""
+    from d4pg_tpu.distributed import replay_service as jservice
+    from d4pg_tpu.train import train as jax_train
+    from d4pg_tpu_torch.distributed import replay_service as tservice
+
+    kw = dict(TINY, epsilon_0=0.0, min_epsilon=0.0, concurrent_eval=False,
+              n_cycles=1, train_steps_per_cycle=8, seed=5, platform="cpu")
+    jcfg = jconfig.ExperimentConfig(**kw, log_dir=str(tmp_path / "jax"))
+    js = jstate.init_state(jcfg.learner_config(4, 2), jax.random.key(5))
+    carried = jax.tree_util.tree_map(
+        np.asarray, js._replace(key=jax.random.key_data(js.key)))
+    monkeypatch.setattr(
+        ttrain, "init_state",
+        lambda config, seed, device: state_from_jax(config, carried, device))
+    seen = {}
+
+    def capture(module, side):
+        original = module.ReplayService.sample_chunk
+
+        def sample_chunk(self, *args, **kwargs):
+            out = original(self, *args, **kwargs)
+            if side not in seen:
+                buf = self.buffer
+                rows = buf.gather(np.arange(len(buf)))
+                seen[side] = ([np.asarray(f) for f in rows], out[1], out[2])
+            return out
+
+        monkeypatch.setattr(module.ReplayService, "sample_chunk",
+                            sample_chunk)
+
+    capture(jservice, "jax")
+    capture(tservice, "port")
+    jax_train(jcfg)
+    ttrain.train(ExperimentConfig(**kw, log_dir=str(tmp_path / "port")))
+    (trows, tw, tidx), (jrows, jw, jidx) = seen["port"], seen["jax"]
+    for name, t, j in zip(TransitionBatch._fields, trows, jrows):
+        assert t.shape == j.shape and t.shape[0] > 100, name
+        np.testing.assert_allclose(t, j, atol=1e-5, rtol=0, err_msg=name)
+    np.testing.assert_array_equal(tidx, jidx)
+    np.testing.assert_array_equal(tw, jw)
