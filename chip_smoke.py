@@ -18,8 +18,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      time at B = 256 and at one row;
   4. descent kernel vs its plain version, bitwise: cap = 262,144,
      Q = 256 and Q = 40 * 256, leaves with zero runs, masses equal to
-     left-subtree sums, and the all-zero tree; caps 1, 2, 32 and 2^13
-     (no level, fewer levels than one round, a ragged last round); the
+     left-subtree sums, and the all-zero tree; caps 1, 2, 32, 2^13 and
+     2^16 (no level, fewer levels than one round, a ragged last round;
+     2^16 is the pixel ring's tree, phase 15) at Q = 256; the
      driver's cap 1,048,576 (20 levels) at Q = 64 and its left sums, and
      the descent's time at that shape;
   5. the fused projection + cross-entropy kernels vs their plain
@@ -52,10 +53,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      then timed windows of 2 chunks in turns (A B B A A B B A A B, five
      per arm), each with the launch counters set to 0 just
      before and read just after (each kernel of the arm must launch
-     exactly K times per chunk, the other arm's kernel 0 times); then
-     each arm's breakdown: host queueing time, and device time by kernel
-     from one profiled chunk; then one uniform chunk on the twin (no
-     descent);
+     exactly K times per chunk, the other arm's kernel 0 times; the
+     tree's root the sum of its leaves after each window); then each
+     arm's breakdown: host queueing time, and device time by kernel
+     from one profiled chunk, which must hold no stream sync (as in
+     phases 15 and 16, which run the same ``slice_arm``); then one
+     uniform chunk on the twin (no descent);
  10. the block ingest path on the card against the CPU, bitwise: the same
      adds, blocks staged by hand with rows pushed while one is in flight;
  11. the driver: ``d4pg_tpu_torch.train.main(argv)`` in-process on the
@@ -105,7 +108,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``ingest`` provider's count; the arm ``auto`` chose launches once
      per grad step, the descent never; own grad-steps/s per cycle, env
      steps/s, launches per grad step;
- 14. a ``kernels`` JSON line (each kernel's launches on every path that
+ 14. the pixel model at full width (the ``cheetah-run-pixels`` preset:
+     84x84 frames stacked 3 deep as uint8 [84, 84, 9], encoder width 32,
+     latent 50, hidden 256x3, 51 atoms on [0, 1000], act 6, DrQ shift of
+     4 px, shared encoder, weights from seed 0): ``multi_update_step``
+     for K = 3 steps of batch 32 on the card against the CPU with the
+     same injected offsets, float32 losses and TD errors within rtol
+     1e-4, bfloat16 losses within rtol 2e-2, the actor's encoder
+     bitwise the critic's after every step;
+ 15. the pixel slice: ``FusedDeviceReplay(50_000, (84, 84, 9), 6)`` with
+     uint8 rows and PER (filled from two 4,096-row blocks made once; the
+     descent on its tree bitwise the plain version),
+     ``FusedLoop(k=40, batch_size=256)`` under ``pallas_ce``, float32
+     and bfloat16 arms in turns (A B B A A B) in windows of two chunks:
+     per arm grad-steps/s, launches per grad step (CE forward and
+     backward and the descent once, the projection never), peak device
+     memory (``torch.cuda.max_memory_allocated`` over the warm-up
+     chunk), the device-busy share and device time by kernel from one
+     profiled chunk (which must hold no stream sync: nothing in the
+     chunk waits for the card), and achieved FLOP/s against the FLOPs per
+     grad step reckoned from the code (``pixel_step_flops``);
+ 16. the MoG critic at phase 9's Humanoid width (5 components, 32
+     samples): its fused PER chunk's first 3 steps on the card against
+     the CPU with injected uniforms and draws (slots equal, losses and TD
+     errors within rtol 1e-4), then three timed windows over phase 9's
+     ring; the descent once per grad step, the projection kernels never;
+ 17. the driver on the families: ``pixel-point --frame_stack 3 --augment
+     shift --share_encoder 1`` for two cycles (uint8 [16, 16, 9] rows),
+     ``--resume 1`` for one, one ``--compute_dtype bfloat16`` cycle and
+     one ``--fused_replay off`` cycle; ``point --critic_family mog`` for
+     two cycles and a resume; own grad-steps/s, env steps/s and launches
+     per grad step of each;
+ 18. a ``kernels`` JSON line (each kernel's launches on every path that
      runs it), then the result line.
 """
 
@@ -325,8 +359,9 @@ def phase_descent(dev) -> dict:
     cases.append(("all-zero tree", torch.zeros(2 * CAP, device=dev),
                   torch.zeros(5, device=dev)))
     # small capacities: no level (cap 1), fewer levels than a round
-    # resolves (2, 32), and a level count a round does not divide (2^13)
-    for cap in (1, 2, 32, 2 ** 13):
+    # resolves (2, 32), and level counts a round does not divide (2^13;
+    # 2^16, the pixel ring's next_pow2(50,000) leaves: rounds 6 + 6 + 4)
+    for cap in (1, 2, 32, 2 ** 13, PIXEL_CAP):
         t, _ = _tree_with_zero_runs(dev, gen, cap)
         mass = torch.cat([torch.rand(BATCH, generator=gen, device=dev) * t[1],
                           _left_sum_masses(t), t[1:2]]).contiguous()
@@ -723,7 +758,11 @@ def breakdown(run_chunks, wall_ms: float) -> dict:
     for e in sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"  host {e.self_cpu_time_total / K:9.2f} us/step "
               f"{e.count / K:7.2f} calls/step  {e.key[:80]}")
-    return {"enqueue_ms": enqueue_ms,
+    # the host waiting on a stream inside the chunk (the closing
+    # torch.cuda.synchronize() is a device-wide sync, not counted here)
+    syncs = sum(e.count for e in on_host if e.key == "cudaStreamSynchronize")
+    print(f"per grad step: {syncs / K:.2f} stream syncs")
+    return {"enqueue_ms": enqueue_ms, "stream_syncs": syncs,
             "device_busy_ms": device_us / 1e3 / K if device_us else None}
 
 
@@ -739,18 +778,25 @@ def fused_kernels(arm: str) -> tuple[str, ...]:
     return ARM_KERNELS[arm] + ("descent",)
 
 
-def slice_arm(dev, buf, arm: str):
-    """FusedLoop over the filled ring under one projection arm, from a
-    fresh state, warmed up by one chunk. Returns ``(timed, finish)``:
-    ``timed(chunks)`` runs one timed window with the launch counters set
-    to 0 just before and read just after, and checks it; ``finish()``
-    sums the windows, prints the breakdown and returns the arm's
-    result."""
+def slice_arm(dev, buf, cfg, tag: str, kernels: tuple[str, ...],
+              timed_chunks: int, flops_per_step: float | None = None,
+              peak_ops: float | None = None):
+    """``FusedLoop(k=40, batch_size=256)`` over ``buf`` under ``cfg`` from a
+    fresh state, warmed up by one chunk (peak device memory measured over
+    it). Returns ``(timed, finish)``: ``timed(chunks)`` runs one timed
+    window with the launch counters set to 0 just before and read just
+    after, and checks it (``kernels`` launch once per grad step, the
+    others never; finite metrics; slots in range; the tree's root the sum
+    of its leaves; under ``share_encoder`` the encoders tied);
+    ``finish()`` checks that ``timed_chunks`` chunks were timed, sums the
+    windows, prints the breakdown (a chunk that syncs the host fails)
+    and returns the arm's result, with the achieved FLOP/s against
+    ``peak_ops`` where ``flops_per_step`` is given."""
     from d4pg_tpu_torch.learner.loop import FusedLoop
     from d4pg_tpu_torch.learner.state import init_state
 
-    state = init_state(config(arm), seed=0, device=dev)
-    loop = FusedLoop(config(arm), buf, k=K, batch_size=BATCH,
+    state = init_state(cfg, seed=0, device=dev)
+    loop = FusedLoop(cfg, buf, k=K, batch_size=BATCH,
                      generator=torch.Generator(device=dev).manual_seed(0))
 
     def run(chunks):
@@ -760,14 +806,17 @@ def slice_arm(dev, buf, arm: str):
         return metrics, launch_counts()
 
     def expected(chunks):
-        return {name: K * chunks if name in fused_kernels(arm) else 0
+        return {name: K * chunks if name in kernels else 0
                 for name in launch_counts()}
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     _, warm = run(1)
-    print(f"[{arm}] warm-up chunk: {time.perf_counter() - t0:.3f} s, "
-          f"launches {warm}")
-    check(warm == expected(1), f"[{arm}] warm-up launches: {warm}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[{tag}] warm-up chunk: {time.perf_counter() - t0:.3f} s, peak "
+          f"device memory {peak / 1e9:.3f} GB, launches {warm}")
+    check(warm == expected(1), f"[{tag}] warm-up launches: {warm}")
     windows = []
 
     def timed(chunks):
@@ -775,17 +824,21 @@ def slice_arm(dev, buf, arm: str):
         metrics, launches = run(chunks)
         dt = time.perf_counter() - t0
         check(launches == expected(chunks),
-              f"[{arm}] launches == K per chunk: {launches}")
+              f"[{tag}] launches == K per chunk: {launches}")
         for name in ("critic_loss", "actor_loss", "td_error"):
             check(bool(torch.isfinite(metrics[name]).all()),
-                  f"[{arm}] finite {name}")
+                  f"[{tag}] finite {name}")
         check(tuple(metrics["td_error"].shape) == (K, BATCH),
-              "td_error shape")
+              f"[{tag}] td_error shape")
         idx = metrics["idx"]
-        check(bool(((idx >= 0) & (idx < buf.size)).all()), "slots in range")
-        leaves = buf.trees.sum_tree[CAP:].double().sum().item()
-        check(abs(buf.trees.sum_tree[1].item() - leaves) <= 1e-4 * leaves,
-              "tree root == sum of leaves after chunks")
+        check(bool(((idx >= 0) & (idx < buf.size)).all()),
+              f"[{tag}] slots in range")
+        tree = buf.trees.sum_tree
+        leaves = tree[tree.shape[0] // 2:].double().sum().item()
+        check(abs(tree[1].item() - leaves) <= 1e-4 * leaves,
+              f"[{tag}] tree root == sum of leaves after chunks")
+        if cfg.share_encoder:
+            check(_encoders_tied(state), f"[{tag}] encoders tied")
         windows.append((chunks * K, dt, launches, metrics))
 
     def finish():
@@ -793,22 +846,39 @@ def slice_arm(dev, buf, arm: str):
         dt = sum(w[1] for w in windows)
         launches = {name: sum(w[2][name] for w in windows)
                     for name in windows[0][2]}
-        check(loop.steps_done == K + steps, f"[{arm}] loop step count")
-        check(steps == K * TIMED_CHUNKS, f"[{arm}] timed steps")
-        steps_per_s = steps / dt
+        check(loop.steps_done == K + steps, f"[{tag}] loop step count")
+        check(steps == K * timed_chunks, f"[{tag}] timed steps")
         rates = [w[0] / w[1] for w in windows]
-        print(f"[{arm}] windows: {', '.join(f'{x:.1f}' for x in rates)} "
-              f"grad-steps/s, median {np.median(rates):.1f}")
-        print(f"[{arm}] slice: {steps} grad steps in {dt:.3f} s = "
-              f"{steps_per_s:.1f} grad-steps/s (K={K}, B={BATCH}, step "
-              f"{state.step}, critic_loss "
+        rate = steps / dt
+        print(f"[{tag}] windows: {', '.join(f'{x:.2f}' for x in rates)} "
+              f"grad-steps/s, median {np.median(rates):.2f}; {steps} grad "
+              f"steps in {dt:.3f} s = {rate:.2f} grad-steps/s (K={K}, "
+              f"B={BATCH}, step {state.step}, critic_loss "
               f"{windows[-1][3]['critic_loss'][-1].item():.4f})")
+        print(f"[{tag}] launches per grad step "
+              f"{ {n: c / steps for n, c in launches.items()} }")
         parts = breakdown(lambda chunks: loop.run(state, chunks * K),
                           1e3 * dt / steps)
+        check(parts["stream_syncs"] == 0,
+              f"[{tag}] the chunk synced the host "
+              f"{parts['stream_syncs']} times")
+        busy = parts["device_busy_ms"]
+        share = None if busy is None else busy / (1e3 * dt / steps)
+        out = {"grad_steps_per_s": rate, "windows": rates,
+               "window_median": float(np.median(rates)),
+               "launches": launches, "peak_bytes": peak,
+               "device_busy_share": share, **parts}
+        if flops_per_step is not None:
+            achieved = flops_per_step * rate
+            out.update(flops_per_step=flops_per_step, flops_per_s=achieved,
+                       peak_share=achieved / peak_ops)
+            print(f"[{tag}] {flops_per_step / 1e9:.1f} GFLOP per grad step "
+                  f"(reckoned): achieved {achieved / 1e12:.2f} TFLOP/s, "
+                  f"{100 * achieved / peak_ops:.2f}% of the "
+                  f"{peak_ops / 1e12:.0f} TFLOP/s peak; device busy share "
+                  f"{share}")
         loop.close()
-        return {"grad_steps_per_s": steps_per_s,
-                "window_median": float(np.median(rates)),
-                "launches": launches, **parts}
+        return out
 
     return timed, finish
 
@@ -1456,6 +1526,379 @@ def phase_driver_host(card: str, hooks: DriverHooks, arm: str) -> dict:
     return out
 
 
+# --- the learner's model families (phases 14-17) -------------------------
+
+# the slice's pixel shape: the ``cheetah-run-pixels`` preset at full width
+# (84x84 frames stacked 3 deep, encoder width 32, latent 50, hidden 256x3,
+# 51 atoms on [0, 1000], act 6, DrQ shift of 4 px, shared encoder)
+PIXEL_SHAPE, PIXEL_ACT, PIXEL_CHANNELS, PIXEL_LATENT = (84, 84, 9), 6, \
+    (32, 32, 32, 32), 50
+PIXEL_V = (0.0, 1000.0)
+PIXEL_CAPACITY, PIXEL_BLOCKS = 50_000, 2  # ring rows; distinct fill blocks
+PIXEL_CAP = 1 << 16  # next_pow2(PIXEL_CAPACITY): the ring's leaf count
+PIXEL_WINDOWS, PIXEL_WINDOW_CHUNKS = 3, 2  # per arm, in turns
+# H100 SXM dense bfloat16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16_OPS_PER_S = 989e12
+MOG_COMPONENTS, MOG_SAMPLES = 5, 32
+
+
+def pixel_config(compute_dtype: str = "float32"):
+    from d4pg_tpu_torch.learner.state import D4PGConfig
+
+    return D4PGConfig(
+        obs_dim=int(np.prod(PIXEL_SHAPE)), act_dim=PIXEL_ACT,
+        v_min=PIXEL_V[0], v_max=PIXEL_V[1], n_atoms=ATOMS, hidden=HIDDEN,
+        projection="pallas_ce", pixels=True, obs_shape=PIXEL_SHAPE,
+        encoder_channels=PIXEL_CHANNELS, augment="shift", augment_pad=4,
+        share_encoder=True, compute_dtype=compute_dtype)
+
+
+def mog_config():
+    from d4pg_tpu_torch.learner.state import D4PGConfig
+
+    return D4PGConfig(obs_dim=OBS, act_dim=ACT, v_min=V_MIN, v_max=V_MAX,
+                      n_atoms=ATOMS, hidden=HIDDEN, projection="pallas_ce",
+                      critic_family="mog", n_components=MOG_COMPONENTS,
+                      mog_samples=MOG_SAMPLES)
+
+
+def pixel_rows(rng, n):
+    from d4pg_tpu_torch.replay.uniform import TransitionBatch
+
+    done = (rng.random(n) < 0.05).astype(np.float32)
+    return TransitionBatch(
+        obs=rng.integers(0, 256, (n, *PIXEL_SHAPE), dtype=np.uint8),
+        action=rng.uniform(-1, 1, (n, PIXEL_ACT)).astype(np.float32),
+        reward=rng.uniform(0, 10, n).astype(np.float32),
+        next_obs=rng.integers(0, 256, (n, *PIXEL_SHAPE), dtype=np.uint8),
+        done=done, discount=(0.99 ** 3 * (1 - done)).astype(np.float32))
+
+
+def encoder_flops() -> tuple[float, float]:
+    """(FLOPs of one frame's encoder forward, of its first conv): 2 per
+    multiply-add of each 3x3 conv at XLA's SAME output size, and of the
+    projection (LayerNorm and tanh are negligible)."""
+    h, w, c = PIXEL_SHAPE
+    total, first = 0.0, None
+    for i, ch in enumerate(PIXEL_CHANNELS):
+        s = 2 if i == 0 else 1
+        h, w = -(-h // s), -(-w // s)
+        f = 2.0 * h * w * ch * 9 * c
+        first = f if first is None else first
+        total, c = total + f, ch
+    return total + 2.0 * h * w * c * PIXEL_LATENT, first
+
+
+def pixel_step_flops(batch: int) -> float:
+    """FLOPs of one pixel grad step as ``learner/update.py`` computes it,
+    per sample times ``batch``. Encoder: the target actor's and target
+    critic's forwards on next_obs, the critic's forward on obs and its
+    backward (weight and input gradients, 2 forwards, less the first
+    conv's input gradient), the actor's forward on obs (detached: no
+    backward) and the critic's on obs in the actor loss (its encoder
+    outside the actor's gradient): 7 forwards less one first conv. MLPs:
+    the actor 4 forwards' worth (target, online, backward), the critic 6
+    (target, online and its backward, then the actor loss's forward and
+    its input-gradient backward)."""
+    enc, conv1 = encoder_flops()
+    h = HIDDEN
+    actor = 2.0 * (PIXEL_LATENT * h[0] + h[0] * h[1] + h[1] * h[2]
+                   + h[2] * PIXEL_ACT)
+    critic = 2.0 * (PIXEL_LATENT * h[0] + (h[0] + PIXEL_ACT) * h[1]
+                    + h[1] * h[2] + h[2] * ATOMS)
+    return batch * (7 * enc - conv1 + 4 * actor + 6 * critic)
+
+
+def _draws(rng, k, batch, pad=None, mog=None):
+    """Injected update draws shared by the card and the CPU: DrQ offsets
+    in [0, 2 pad] and/or MoG Gumbel and normal draws."""
+    from d4pg_tpu_torch.learner.update import UpdateDraws
+
+    fields = {}
+    if pad is not None:
+        for name in ("obs_shift", "next_shift"):
+            fields[name] = torch.from_numpy(
+                rng.integers(0, 2 * pad + 1, (k, batch, 2)))
+    if mog is not None:
+        u = rng.uniform(1e-7, 1.0, (k, batch, MOG_SAMPLES, mog))
+        fields["gumbel"] = torch.from_numpy(
+            (-np.log(-np.log(u))).astype(np.float32))
+        fields["normal"] = torch.from_numpy(rng.standard_normal(
+            (k, batch, MOG_SAMPLES)).astype(np.float32))
+    return UpdateDraws(**fields)
+
+
+def _encoders_tied(state) -> bool:
+    return all(torch.equal(a, c) for a, c in zip(
+        state.actor.encoder.parameters(), state.critic.encoder.parameters()))
+
+
+def phase_pixel_reference(dev) -> None:
+    """``multi_update_step`` of the pixel model at full width, K = 3 steps
+    of batch 32 (one step per call, so the tie is checked after each),
+    on the card against the CPU with the same weights, batches, IS
+    weights and injected DrQ offsets: float32 losses and TD errors within
+    rtol 1e-4, bfloat16 losses within rtol 2e-2; after every step the
+    actor's encoder equals the critic's, bitwise."""
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.learner.update import multi_update_step
+    from d4pg_tpu_torch.replay.uniform import TransitionBatch
+
+    k, batch = 3, 32
+    rng = np.random.default_rng(21)
+    rows = [pixel_rows(rng, batch) for _ in range(k)]
+    stacked = TransitionBatch(*[np.stack(f) for f in zip(*rows)])
+    w = torch.from_numpy((0.5 + rng.random((k, batch))).astype(np.float32))
+    draws = _draws(rng, k, batch, pad=4)
+    for dtype, rtol, names in (
+            ("float32", 1e-4, ("critic_loss", "actor_loss", "td_error")),
+            ("bfloat16", 2e-2, ("critic_loss", "actor_loss"))):
+        cfg = pixel_config(dtype)
+        out = {}
+        for where in ("cpu", dev):
+            state = init_state(cfg, seed=0, device=where)
+            steps = []
+            t0 = time.perf_counter()
+            for t in range(k):
+                one = TransitionBatch(*[torch.from_numpy(f[t:t + 1]).to(where)
+                                        for f in stacked])
+                steps.append(multi_update_step(
+                    cfg, state, one, w[t:t + 1].to(where),
+                    type(draws)(*[None if d is None else d[t:t + 1].to(where)
+                                  for d in draws])))
+                check(_encoders_tied(state),
+                      f"pixel {dtype} on {where}: encoders tied after "
+                      f"step {t}")
+            if str(where) != "cpu":
+                torch.cuda.synchronize()
+            out[str(where)] = {n: torch.cat([m[n] for m in steps]).cpu()
+                               for n in names}
+            print(f"pixel {dtype} K={k} on {where}: "
+                  f"{time.perf_counter() - t0:.2f} s")
+        for name in names:
+            err = _rel_err(out[str(dev)][name], out["cpu"][name])
+            print(f"pixel {dtype} multi_update_step card vs CPU {name}: max "
+                  f"rel err {err:.3e} (bar {rtol:g})")
+            check(err <= rtol, f"pixel {dtype} {name} card vs CPU")
+
+
+def fill_pixel_ring(dev):
+    """``FusedDeviceReplay(50_000, (84, 84, 9), 6)`` with uint8 rows and PER,
+    filled through ``add``/``drain`` from two distinct 4,096-row blocks
+    generated once and used in turns."""
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    blocks = [pixel_rows(rng, FILL_BLOCK) for _ in range(PIXEL_BLOCKS)]
+    made = time.perf_counter() - t0
+    buf = FusedDeviceReplay(PIXEL_CAPACITY, PIXEL_SHAPE, PIXEL_ACT,
+                            alpha=0.6, device=dev, staging_blocks=2)
+    check(buf.storage.obs.dtype == torch.uint8, "pixel ring stores uint8")
+    for i, start in enumerate(range(0, PIXEL_CAPACITY, FILL_BLOCK)):
+        n = min(FILL_BLOCK, PIXEL_CAPACITY - start)
+        block = blocks[i % PIXEL_BLOCKS]
+        buf.add(type(block)(*[f[:n] for f in block]))
+        buf.drain()
+    torch.cuda.synchronize()
+    ring_bytes = sum(t.numel() * t.element_size() for t in buf.storage)
+    print(f"pixel ring: {buf.size} rows of uint8 {PIXEL_SHAPE} "
+          f"({ring_bytes / 1e9:.3f} GB on the card) in "
+          f"{time.perf_counter() - t0:.2f} s ({made:.2f} s to make "
+          f"{PIXEL_BLOCKS} blocks)")
+    check(buf.size == PIXEL_CAPACITY, "pixel ring full")
+    check(torch.equal(buf.storage.obs[FILL_BLOCK].cpu(),
+                      torch.from_numpy(blocks[1].obs[0])),
+          "pixel ring: the second block's first row, bitwise")
+    # the descent on this ring's own tree (its last 15,536 leaves zero):
+    # Q = 256, the left sums and the total, bitwise the plain version
+    from d4pg_tpu_torch.ops import sampler_descent as desc
+
+    tree = buf.trees.sum_tree
+    check(tree.shape[0] == 2 * PIXEL_CAP, "pixel ring: 2^16 leaves")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    mass = torch.cat([torch.rand(BATCH, generator=gen, device=dev) * tree[1],
+                      _left_sum_masses(tree), tree[1:2]]).contiguous()
+    check(torch.equal(desc.descend(tree, mass),
+                      desc.descend_plain(tree, mass)),
+          "descent on the pixel ring's tree bitwise")
+    print(f"descent on the pixel ring's tree ({desc.rounds(PIXEL_CAP)} "
+          f"rounds): bitwise equal ({mass.numel()} queries)")
+    return buf, ring_bytes
+
+
+def phase_pixel_slice(dev) -> dict:
+    """The pixel slice: the 50,000-row uint8 ring, ``FusedLoop`` under
+    ``pallas_ce`` with the pixel model at full width, float32 and
+    bfloat16 arms warmed up and then timed in turns (A B B A A B) in
+    windows of two chunks."""
+    buf, ring_bytes = fill_pixel_ring(dev)
+    flops = pixel_step_flops(BATCH)
+    kernels = fused_kernels("pallas_ce")
+    chunks = PIXEL_WINDOWS * PIXEL_WINDOW_CHUNKS
+    arms = {"pixel_f32": slice_arm(dev, buf, pixel_config("float32"),
+                                   "pixel float32", kernels, chunks, flops,
+                                   FP32_OPS_PER_S),
+            "pixel_bf16": slice_arm(dev, buf, pixel_config("bfloat16"),
+                                    "pixel bfloat16", kernels, chunks, flops,
+                                    BF16_OPS_PER_S)}
+    for arm in ("pixel_f32", "pixel_bf16", "pixel_bf16", "pixel_f32",
+                "pixel_f32", "pixel_bf16"):
+        arms[arm][0](PIXEL_WINDOW_CHUNKS)
+    out = {arm: finish() for arm, (_, finish) in arms.items()}
+    for result in out.values():
+        result["ring_bytes"] = ring_bytes
+    del buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mog(dev, per) -> dict:
+    """The MoG critic at the Humanoid width of phase 9 (``n_components``
+    5, ``mog_samples`` 32): its fused PER chunk's first 3 steps on the
+    card against the CPU with injected uniforms and MoG draws (slots
+    equal; losses and TD errors within rtol 1e-4), then timed windows
+    over phase 9's ring. Launches: the descent once per grad step, the
+    projection and CE kernels never."""
+    from d4pg_tpu_torch.learner.fused import make_fused_chunk
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+
+    k, cap = 3, 2048
+    rng = np.random.default_rng(31)
+    rows = random_rows(rng, cap)
+    u = torch.from_numpy(rng.random((k, BATCH)).astype(np.float32))
+    draws = _draws(rng, k, BATCH, mog=MOG_COMPONENTS)
+    cfg = mog_config()
+    out = {}
+    for where in ("cpu", dev):
+        buf = FusedDeviceReplay(cap, OBS, ACT, device=where, block_rows=512)
+        buf.add(rows)
+        buf.drain()
+        state = init_state(cfg, seed=0, device=where)
+        fn = make_fused_chunk(cfg, k=k, batch_size=BATCH)
+        zero_counts()
+        _, m = fn(state, buf.trees, buf.storage, buf.size, u=u.to(where),
+                  draws=type(draws)(*[None if d is None else d.to(where)
+                                      for d in draws]))
+        out[str(where)] = {n: v.cpu() for n, v in m.items()}
+    launches = launch_counts()
+    check(launches == {"projection": 0, "projection_ce_fwd": 0,
+                       "projection_ce_bwd": 0, "descent": k},
+          f"MoG chunk launches: {launches}")
+    cpu, gpu = out["cpu"], out[str(dev)]
+    check(torch.equal(cpu["idx"], gpu["idx"]), "MoG chunk slots, card vs CPU")
+    for name in ("critic_loss", "actor_loss", "td_error"):
+        err = _rel_err(gpu[name], cpu[name])
+        print(f"MoG chunk card vs CPU {name}: max rel err {err:.3e}")
+        check(err <= 1e-4, f"MoG chunk {name} card vs CPU")
+    timed, finish = slice_arm(dev, per, cfg, "mog", ("descent",),
+                              3 * WINDOW_CHUNKS)
+    for _ in range(3):
+        timed(WINDOW_CHUNKS)
+    return finish()
+
+
+def phase_driver_families(card: str, hooks: DriverHooks) -> dict:
+    """``train.main`` on the new families at the default widths:
+    ``pixel-point`` with ``--frame_stack 3 --augment shift
+    --share_encoder 1`` (uint8 [16, 16, 9] rows) for two cycles, a
+    resume for one, one cycle with ``--compute_dtype bfloat16`` and one
+    with ``--fused_replay off``; then ``point`` with ``--critic_family
+    mog`` for two cycles and a resume. Launches per grad step: the arm
+    ``auto`` chose once (never under MoG), the descent once on the fused
+    path; the rows in the ring are checked when the service closes."""
+    import shutil
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.ops.autotune import select_projection
+
+    runs = ROOT / "runs" / "chip_smoke_families"
+    shutil.rmtree(runs, ignore_errors=True)
+    pixel = ["--env", "pixel-point", "--frame_stack", "3", "--augment",
+             "shift", "--share_encoder", "1"]
+    mog = ["--env", "point", "--critic_family", "mog"]
+    arms = {}
+    for env in ("pixel-point", "point"):
+        cfg = ExperimentConfig(env=env).resolve()
+        dev = driver.learner_device(cfg)
+        zero_counts()
+        arms[env] = select_projection(
+            "auto", batch_size=cfg.batch_size, v_min=cfg.v_min,
+            v_max=cfg.v_max, n_atoms=cfg.n_atoms, device=dev).selected
+    per_cycle = ExperimentConfig(env="point").resolve().train_steps_per_cycle
+    rings = []
+    close = ReplayService.close
+
+    def closing(service):
+        buf = service.buffer
+        # the fused buffer's ring is a TransitionBatch of device tensors;
+        # the host-sampled buffers gather
+        obs = (buf.storage.obs if isinstance(buf.storage, tuple)
+               else buf.gather(np.arange(1)).obs)
+        rings.append((type(buf).__name__, tuple(obs.shape[1:]), obs.dtype))
+        close(service)
+
+    ReplayService.close = closing
+    out = {}
+    try:
+        for tag, argv, fused, cycles in (
+                ("pixel", pixel + ["--n_cycles", "2"], True, [2]),
+                ("pixel_resume", pixel + ["--n_cycles", "1", "--resume",
+                                          "1"], True, [3]),
+                ("pixel_bf16", pixel + ["--n_cycles", "1",
+                                        "--compute_dtype", "bfloat16"],
+                 True, [1]),
+                ("pixel_host", pixel + ["--n_cycles", "1", "--fused_replay",
+                                        "off"], False, [1]),
+                ("mog", mog + ["--n_cycles", "2"], True, [2]),
+                ("mog_resume", mog + ["--n_cycles", "1", "--resume", "1"],
+                 True, [3])):
+            hooks.reset(False)
+            rings.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            log_tag = tag.replace("_resume", "")
+            result = driver.main(["--n_eps", "1", "--log_dir",
+                                  str(runs / log_tag), *argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            steps_seen = sorted({s for s, _ in hooks.records})
+            check(steps_seen[-1:] == [per_cycle * cycles[0]],
+                  f"driver {tag}: ends at step {per_cycle * cycles[0]} "
+                  f"(rows {steps_seen})")
+            n = per_cycle * len(hooks.spans)
+            check(math.isfinite(result["critic_loss"]),
+                  f"driver {tag}: finite critic_loss")
+            arm = "einsum" if tag.startswith("mog") else arms[
+                "pixel-point" if tag.startswith("pixel") else "point"]
+            want = {name: n if name in ARM_KERNELS[arm] + (
+                ("descent",) if fused else ()) else 0 for name in counts}
+            check(counts == want, f"driver {tag}: launches {counts}, "
+                  f"expected {want}")
+            (kind, shape, dtype), = rings
+            if tag.startswith("pixel"):
+                check(shape == (16, 16, 9) and dtype in (torch.uint8,
+                                                         np.uint8),
+                      f"driver {tag}: ring rows {shape} {dtype}")
+            own = [per_cycle / span for span in hooks.spans]
+            env_rates = [m.get("env_steps_per_sec") for _, m in
+                         hooks.records]
+            print(f"[driver {tag}] {wall:.2f} s; {kind} rows {shape} "
+                  f"{dtype}; own grad-steps/s "
+                  f"{[round(x, 2) for x in own]}, env_steps_per_sec "
+                  f"{env_rates}, launches per grad step "
+                  f"{ {k: c / n for k, c in counts.items()} } ({card})")
+            out[tag] = {"own_grad_steps_per_sec": own,
+                        "env_steps_per_sec": env_rates, "launches": counts}
+    finally:
+        ReplayService.close = close
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1484,20 +1927,26 @@ def main() -> int:
     per, uniform = fill_buffers(dev)
     # both arms warmed up, then timed in turns (A B B A A B B A A B) on
     # the one ring, TIMED_CHUNKS chunks per arm in windows of 2
-    arm_runs = {arm: slice_arm(dev, per, arm)
-               for arm in ("pallas", "pallas_ce")}
+    arm_runs = {arm: slice_arm(dev, per, config(arm), arm,
+                               fused_kernels(arm), TIMED_CHUNKS)
+                for arm in ("pallas", "pallas_ce")}
     for arm in ("pallas", "pallas_ce", "pallas_ce", "pallas") * 2 + (
             "pallas", "pallas_ce"):
         arm_runs[arm][0](WINDOW_CHUNKS)
     arms = {arm: finish() for arm, (_, finish) in arm_runs.items()}
     phase_uniform(dev, uniform)
-    del per, uniform
+    del uniform  # phase 16 times the MoG critic over ``per``
     phase_ingest(dev)
     hooks = DriverHooks()
     drv = phase_driver(card, hooks)
     phase_device_ring_commits(dev)
     host = phase_host_chunks(dev, card)
     drv_host = phase_driver_host(card, hooks, drv["auto"])
+    phase_pixel_reference(dev)
+    pixel = phase_pixel_slice(dev)
+    mog = phase_mog(dev, per)
+    del per
+    families = phase_driver_families(card, hooks)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -1510,6 +1959,13 @@ def main() -> int:
             host[storage][arm]["launches"][kern["name"]] for storage in host)
         kern["host_driver_launches"] = sum(
             run["launches"][kern["name"]] for run in drv_host.values())
+        # the new paths: the pixel slice's timed windows (both dtypes,
+        # 480 grad steps), the MoG windows (240), the family driver runs
+        kern["pixel_launches"] = sum(
+            arm["launches"][kern["name"]] for arm in pixel.values())
+        kern["mog_launches"] = mog["launches"][kern["name"]]
+        kern["family_driver_launches"] = sum(
+            run["launches"][kern["name"]] for run in families.values())
     for arm, result in arms.items():
         print(f"[{arm}] grad_steps_per_s {result['grad_steps_per_s']:.1f} "
               f"on {card}")
@@ -1528,6 +1984,20 @@ def main() -> int:
                   f"{st['h2d_bytes_per_chunk']:.0f} B/chunk, waits "
                   f"{st['waits_per_chunk']:.3f}/chunk on {card}")
     for tag, run in drv_host.items():
+        print(f"[driver {tag}] own grad-steps/s "
+              f"{[round(x, 2) for x in run['own_grad_steps_per_sec']]}, "
+              f"env_steps_per_sec {run['env_steps_per_sec']} on {card}")
+    for arm, st in pixel.items():
+        print(f"[{arm}] grad_steps_per_s {st['grad_steps_per_s']:.2f}, "
+              f"device busy share {st['device_busy_share']}, peak device "
+              f"memory {st['peak_bytes'] / 1e9:.3f} GB (ring "
+              f"{st['ring_bytes'] / 1e9:.3f} GB), "
+              f"{st['flops_per_s'] / 1e12:.2f} TFLOP/s "
+              f"({100 * st['peak_share']:.2f}% of peak) on {card}")
+    print(f"[mog] grad_steps_per_s {mog['grad_steps_per_s']:.2f}, device "
+          f"busy share {mog['device_busy_share']}, peak device memory "
+          f"{mog['peak_bytes'] / 1e9:.3f} GB on {card}")
+    for tag, run in families.items():
         print(f"[driver {tag}] own grad-steps/s "
               f"{[round(x, 2) for x in run['own_grad_steps_per_sec']]}, "
               f"env_steps_per_sec {run['env_steps_per_sec']} on {card}")

@@ -23,10 +23,16 @@ CPU (the tests pass it). No code carries on on the CPU when it finds no
 GPU. Acting and eval run on the host CPU by the driver's
 ``--actor_device cpu`` default, the reference's own choice.
 
-Precision: the port runs in float32, like ``D4PGConfig``'s default
-``compute_dtype``. TF32 is switched off for matmuls and cuDNN so a float32
-product on the card keeps float32 precision (the reference's numbers are
-float32 products; TF32 keeps about three decimal digits).
+It trains the reference's model families: the MLP and the conv-encoder
+pixel models (``models/``, ``ops/augment.py``), the categorical and the
+mixture-of-Gaussians critics (``core/mog.py``).
+
+Precision: the port runs in float32 by default, like ``D4PGConfig``'s
+``compute_dtype``; ``compute_dtype='bfloat16'`` runs the network
+products in bfloat16 over float32 parameters. TF32 is switched off for
+matmuls and cuDNN so a float32 product on the card keeps float32
+precision (the reference's numbers are float32 products; TF32 keeps
+about three decimal digits).
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
+import numpy as np
 import torch
 
 from d4pg_tpu_torch.envs.presets import get_preset, has_preset
@@ -169,18 +170,19 @@ class ExperimentConfig:
             )
         return dataclasses.replace(self, **updates) if updates else self
 
-    def learner_config(self, obs_dim: int, act_dim: int,
+    def learner_config(self, obs_dim, act_dim: int,
                        device: str | torch.device | None = None,
                        ) -> D4PGConfig:
-        """The port's learner config for vector observations of
-        ``obs_dim``. ``projection='auto'`` resolves first, through the
-        port's autotuner on ``device`` (``cuda`` by default): it times the
-        arms on the card and picks the plain arm on the CPU, as the
-        reference does off its accelerator. The port's ``D4PGConfig`` has
-        no pixel, MoG or bfloat16 fields and the port no mesh learner: the
-        driver refuses those flag values before it gets here
+        """The port's learner config. ``obs_dim`` is an int (vector
+        observations) or an [H, W, C] tuple, which selects the
+        conv-encoder pixel path. ``projection='auto'`` resolves first,
+        through the port's autotuner on ``device`` (``cuda`` by default):
+        it times the arms on the card and picks the plain arm on the CPU,
+        as the reference does off its accelerator. The port has no mesh
+        learner: the driver refuses those flag values before it gets here
         (``train.check_ported``)."""
         resolved = self.resolve()
+        pixels = not np.isscalar(obs_dim)
         projection = self.projection
         if projection == "auto":
             from d4pg_tpu_torch.ops.autotune import select_projection
@@ -190,17 +192,25 @@ class ExperimentConfig:
                 v_min=float(resolved.v_min), v_max=float(resolved.v_max),
                 n_atoms=self.n_atoms, device=device).selected
         return D4PGConfig(
-            obs_dim=int(obs_dim),
+            obs_dim=int(np.prod(obs_dim)) if pixels else int(obs_dim),
+            pixels=pixels,
+            obs_shape=tuple(obs_dim) if pixels else (),
             act_dim=int(act_dim),
             v_min=float(resolved.v_min),
             v_max=float(resolved.v_max),
             n_atoms=self.n_atoms,
             hidden=tuple(self.hidden),
+            critic_family=self.critic_family,
             projection=projection,
+            augment=self.augment,
+            augment_pad=self.augment_pad,
+            share_encoder=self.share_encoder,
+            encoder_channels=(self.encoder_width,) * 4,
             lr_actor=self.lr_actor,
             lr_critic=self.lr_critic,
             adam_b1=self.adam_b1,
             adam_b2=self.adam_b2,
+            compute_dtype=self.compute_dtype,
             tau=self.tau,
             gamma=self.gamma,
             action_l2=self.action_l2,

@@ -33,6 +33,7 @@ class ActorWorker:
         weights,
         seed: int = 0,
         learner_device=None,
+        obs_dtype=None,
     ):
         self.actor_id = actor_id
         self.config = config
@@ -44,7 +45,8 @@ class ActorWorker:
         self.pool = pool
         self._stop = threading.Event()
         self._lane = VectorActorLane(actor_id, config, actor_cfg, pool,
-                                     service, self.policy, stop=self._stop)
+                                     service, self.policy, stop=self._stop,
+                                     obs_dtype=obs_dtype)
 
     def run(self, max_steps: int) -> int:
         """Collect ``max_steps`` pool ticks (E transitions per tick)."""

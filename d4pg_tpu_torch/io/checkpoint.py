@@ -6,9 +6,10 @@ with its method names (``save(state, extra)``, ``wait``, ``latest_step``,
 ``restore(template)``, ``close``) and ``max_to_keep``. A checkpoint holds
 everything a learner needs to go on exactly where it stopped: the actor,
 the critic and both targets, both Adam states, the step (it also drives
-the PER beta schedule), the learner's ``torch.Generator`` state (it
-draws the PER uniforms; the reference keeps a PRNG key in its state) and
-the caller's ``extra`` (the driver's ``env_steps``).
+the PER beta schedule), the state's own generator (the DrQ offsets and
+MoG draws; the reference keeps a PRNG key in its state), the learner's
+``torch.Generator`` state (it draws the PER uniforms) and the caller's
+``extra`` (the driver's ``env_steps``).
 
 Layout: ``<directory>/<step>.pt``, written to a temporary name and
 renamed, so a crash mid-save leaves the previous checkpoint whole; the
@@ -51,6 +52,7 @@ class CheckpointManager:
         payload = {name: getattr(state, name).state_dict()
                    for name in _MODULES + _OPTIMIZERS}
         payload["step"] = int(state.step)
+        payload["state_generator"] = state.generator.get_state()
         payload["generator"] = (None if generator is None
                                 else generator.get_state())
         payload["extra"] = dict(extra or {})
@@ -83,6 +85,7 @@ class CheckpointManager:
         for name in _MODULES + _OPTIMIZERS:
             getattr(template, name).load_state_dict(payload[name])
         template.step = int(payload["step"])
+        template.generator.set_state(payload["state_generator"].cpu())
         if generator is not None and payload["generator"] is not None:
             generator.set_state(payload["generator"].cpu())
         return template, dict(payload["extra"])

@@ -6,12 +6,19 @@ never sees a JAX type and imports nothing of JAX: it reads the fields by
 name. Mapping:
 
   - a Flax ``Dense`` ``kernel`` [in, out] becomes ``Linear.weight``
-    [out, in]; ``bias`` is copied; the critic's ``torso`` level is
-    flattened (``torso/fc1`` -> ``fc1``);
+    [out, in], a ``Conv`` ``kernel`` [kh, kw, in, out] (HWIO) becomes
+    ``Conv2d.weight`` [out, in, kh, kw] (OIHW), a ``LayerNorm``
+    ``scale`` becomes its ``weight``; ``bias`` is copied;
+  - the critic's ``torso`` level is flattened (``torso/fc1`` -> ``fc1``),
+    every other level keeps its name as a prefix (``encoder/conv1`` ->
+    ``encoder.conv1``, ``critic/torso/fc1`` -> ``critic.fc1``); the MoG
+    head carries across as the categorical head does;
   - each ``optax.adam`` state (``count``, ``mu``, ``nu``) becomes the
     ``torch.optim.Adam`` state (``step``, ``exp_avg``, ``exp_avg_sq``) of
     the matching parameter;
-  - ``step`` becomes the host step counter.
+  - ``step`` becomes the host step counter. The PRNG ``key`` has no
+    torch counterpart: the state keeps the generator ``init_state``
+    seeds.
 """
 
 from __future__ import annotations
@@ -22,21 +29,31 @@ import torch
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState, init_state
 
 
-def torch_layout(tree: dict) -> dict[str, np.ndarray]:
+def torch_layout(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     """A Flax param tree (the dict under ``'params'``) as torch parameter
     names -> arrays in torch layout."""
     out = {}
-    for layer, leaves in tree.items():
-        if "kernel" not in leaves:  # a submodule such as the critic torso
-            out.update(torch_layout(leaves))
-            continue
-        out[f"{layer}.weight"] = np.asarray(leaves["kernel"]).T
-        out[f"{layer}.bias"] = np.asarray(leaves["bias"])
+    for name, leaves in tree.items():
+        if "kernel" in leaves:  # Dense [in, out] or Conv HWIO
+            kernel = np.asarray(leaves["kernel"])
+            out[f"{prefix}{name}.weight"] = (
+                kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4
+                else kernel.T)
+            out[f"{prefix}{name}.bias"] = np.asarray(leaves["bias"])
+        elif "scale" in leaves:  # LayerNorm
+            out[f"{prefix}{name}.weight"] = np.asarray(leaves["scale"])
+            out[f"{prefix}{name}.bias"] = np.asarray(leaves["bias"])
+        elif name == "torso":  # the critic torso is flat in the port
+            out.update(torch_layout(leaves, prefix))
+        else:  # a submodule: encoder, actor, critic
+            out.update(torch_layout(leaves, f"{prefix}{name}."))
     return out
 
 
 @torch.no_grad()
-def _load_params(module: torch.nn.Module, params: dict) -> None:
+def load_params(module: torch.nn.Module, params: dict) -> None:
+    """Copy a Flax variable dict (``{"params": tree}``) into ``module``
+    (names and shapes checked)."""
     arrays = torch_layout(params["params"])
     named = dict(module.named_parameters())
     if set(arrays) != set(named):
@@ -75,7 +92,7 @@ def state_from_jax(config: D4PGConfig, jax_state,
             (state.critic, jax_state.critic_params),
             (state.target_actor, jax_state.target_actor_params),
             (state.target_critic, jax_state.target_critic_params)):
-        _load_params(module, params)
+        load_params(module, params)
     _load_adam(state.actor_opt, state.actor, jax_state.actor_opt_state)
     _load_adam(state.critic_opt, state.critic, jax_state.critic_opt_state)
     state.step = int(np.asarray(jax_state.step))

@@ -23,7 +23,7 @@ import dataclasses
 import torch
 
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
-from d4pg_tpu_torch.learner.update import update_step
+from d4pg_tpu_torch.learner.update import UpdateDraws, update_step
 from d4pg_tpu_torch.replay import device_per as dper
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
 
@@ -42,6 +42,7 @@ def fused_chunk_step(
     generator: torch.Generator | None = None,
     u: torch.Tensor | None = None,
     slots: torch.Tensor | None = None,
+    draws: UpdateDraws | None = None,
     alpha: float = 0.6,
     beta0: float = 0.4,
     beta_steps: int = 100_000,
@@ -52,8 +53,10 @@ def fused_chunk_step(
     injected (tests hand the same draws to the reference): PER uniforms
     ``u`` [K, B], or, for uniform replay (``trees=None``), the slots
     ``slots`` [K, B] themselves, which ``torch.randint(0, size)`` draws
-    otherwise. ``storage`` is the ring's [capacity + shadow, ...] tensors
-    and ``size`` the live row count. Returns the new trees (``None`` for
+    otherwise; the updates' own draws (DrQ offsets, MoG samples) come
+    from the state's generator or are injected as ``draws`` [K, ...].
+    ``storage`` is the ring's [capacity + shadow, ...] tensors and
+    ``size`` the live row count. Returns the new trees (``None`` for
     uniform replay) and the per-step metrics stacked along K
     (``td_error`` and ``idx`` [K, B])."""
     if trees is None and u is not None:
@@ -83,7 +86,8 @@ def fused_chunk_step(
             beta = dper.beta_schedule(state.step, beta0, beta_steps)
             w = dper.is_weights(trees, idx, beta, size)
         batch = TransitionBatch(*[arr[idx] for arr in storage])
-        metrics = update_step(config, state, batch, w)
+        metrics = update_step(config, state, batch, w,
+                              None if draws is None else draws.at(t))
         if trees is not None:
             trees = dper.update_from_td(trees, idx, metrics["td_error"],
                                         alpha)
@@ -115,17 +119,19 @@ def make_fused_chunk(
         config = dataclasses.replace(config, projection=projection)
 
     if not prioritized:
-        def uniform(state, storage, size, generator=None, slots=None):
+        def uniform(state, storage, size, generator=None, slots=None,
+                    draws=None):
             return fused_chunk_step(
                 config, state, None, storage, size, k=k,
-                batch_size=batch_size, generator=generator, slots=slots)[1]
+                batch_size=batch_size, generator=generator, slots=slots,
+                draws=draws)[1]
 
         return uniform
 
-    def fn(state, trees, storage, size, generator=None, u=None):
+    def fn(state, trees, storage, size, generator=None, u=None, draws=None):
         return fused_chunk_step(
             config, state, trees, storage, size, k=k, batch_size=batch_size,
-            generator=generator, u=u, alpha=alpha, beta0=beta0,
+            generator=generator, u=u, draws=draws, alpha=alpha, beta0=beta0,
             beta_steps=beta_steps)
 
     return fn

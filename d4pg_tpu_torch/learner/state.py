@@ -2,8 +2,9 @@
 
 Counterpart of ``d4pg_tpu/learner/state.py``. The JAX state is one
 immutable pytree; here it is a small mutable object holding the online
-and target modules, one ``torch.optim.Adam`` per network and the step
-counter. Updates mutate it in place.
+and target modules, one ``torch.optim.Adam`` per network, the step
+counter and the state's ``torch.Generator`` (the reference's ``key``).
+Updates mutate it in place.
 
 Adam: ``optax.adam(lr, b1, b2)`` (eps 1e-8, bias-corrected) and
 ``torch.optim.Adam(lr, betas=(b1, b2), eps=1e-8)`` apply the same update;
@@ -20,25 +21,40 @@ import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.core.distribution import CategoricalSupport
+from d4pg_tpu_torch.core.updates import tie_encoder
 from d4pg_tpu_torch.models.actor import Actor
-from d4pg_tpu_torch.models.critic import CategoricalCritic
+from d4pg_tpu_torch.models.critic import (
+    CategoricalCritic,
+    MixtureOfGaussianCritic,
+)
+from d4pg_tpu_torch.models.encoder import PixelActor, PixelCategoricalCritic
+from d4pg_tpu_torch.models.layers import COMPUTE_DTYPES
 
 PROJECTIONS = ("einsum", "pallas", "pallas_ce")
 
 
 @dataclasses.dataclass(frozen=True)
 class D4PGConfig:
-    """The categorical subset of the reference's ``D4PGConfig``.
+    """The reference's ``D4PGConfig``, field for field.
 
     ``projection`` keeps the reference's arm names so a reference config
     carries over. ``einsum`` runs the plain ``categorical_projection`` on
     every device and ``pallas`` ``ops.projection.projection`` (the CUDA
     kernel for tensors on the card, its plain version for tensors on the
-    CPU), each then the cross-entropy. ``pallas_ce`` fuses the projection into the cross-entropy
-    (``ops.projection_ce.projection_ce``: forward and backward CUDA
-    kernels on the card, the plain version on the CPU). Like the
-    reference's field it must be concrete: ``auto`` is resolved first by
-    ``ops.autotune.select_projection``."""
+    CPU), each then the cross-entropy. ``pallas_ce`` fuses the projection
+    into the cross-entropy (``ops.projection_ce.projection_ce``: forward
+    and backward CUDA kernels on the card, the plain version on the CPU).
+    Like the reference's field it must be concrete: ``auto`` is resolved
+    first by ``ops.autotune.select_projection``. The MoG family ignores
+    it.
+
+    ``critic_family`` is ``categorical`` or ``mog`` (``n_components``,
+    ``mog_samples``). ``compute_dtype`` (``float32`` or ``bfloat16``) is
+    the dtype of the network products; parameters, Adam state, losses
+    and the kernels' operands stay float32. ``pixels`` selects the conv
+    encoder over [H, W, C] frames (``obs_shape``, ``encoder_channels``),
+    with the DrQ shift (``augment='shift'``, ``augment_pad``) and the
+    shared encoder (``share_encoder``) as options."""
 
     obs_dim: int
     act_dim: int
@@ -54,23 +70,94 @@ class D4PGConfig:
     gamma: float = 0.99
     action_l2: float = 0.0
     projection: str = "pallas"
+    critic_family: str = "categorical"  # 'categorical' | 'mog'
+    n_components: int = 5
+    mog_samples: int = 32
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    pixels: bool = False
+    obs_shape: tuple = ()  # [H, W, C] when pixels=True
+    encoder_channels: tuple = (32, 32, 32, 32)
+    augment: str = "none"  # 'none' | 'shift'
+    augment_pad: int = 4
+    share_encoder: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "hidden", tuple(self.hidden))
+        object.__setattr__(self, "obs_shape", tuple(self.obs_shape))
+        object.__setattr__(self, "encoder_channels",
+                           tuple(self.encoder_channels))
+        if self.critic_family not in ("categorical", "mog"):
+            raise ValueError(f"unknown critic_family {self.critic_family!r}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.projection not in PROJECTIONS:
             raise ValueError(f"unknown projection {self.projection!r}")
+        if self.augment not in ("none", "shift"):
+            raise ValueError(f"unknown augment {self.augment!r}")
+        if self.augment != "none" and not self.pixels:
+            raise ValueError(
+                "--augment is an image augmentation; it requires the "
+                "pixel (conv-encoder) observation path")
+        if self.augment != "none" and self.augment_pad < 1:
+            raise ValueError(
+                f"--augment {self.augment} with augment_pad="
+                f"{self.augment_pad} would silently train UNaugmented; "
+                "set a positive shift radius (or --augment none)")
+        if self.share_encoder and not (
+                self.pixels and self.critic_family == "categorical"):
+            raise ValueError(
+                "--share_encoder ties the actor's conv encoder to the "
+                "critic's; it requires the pixel path with the "
+                "categorical critic")
+        if self.pixels and self.critic_family == "mog":
+            # the reference builds its vector MoG critic over the frames
+            # and fails in the first forward; refuse it up front
+            raise ValueError(
+                "--critic_family mog has no pixel encoder; the pixel path "
+                "takes the categorical critic")
+        if self.pixels and len(self.obs_shape) != 3:
+            raise ValueError(f"pixels=True needs obs_shape [H, W, C], got "
+                             f"{self.obs_shape}")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype as a torch dtype."""
+        return COMPUTE_DTYPES[self.compute_dtype]
 
     @property
     def support(self) -> CategoricalSupport:
         return CategoricalSupport(self.v_min, self.v_max, self.n_atoms)
 
-    def build_actor(self, generator: torch.Generator) -> Actor:
-        return Actor(self.obs_dim, self.act_dim, self.hidden,
-                     generator=generator)
+    @property
+    def obs_spec(self) -> int | tuple:
+        """Replay/folder storage spec: [H, W, C] for pixels, else obs_dim."""
+        return tuple(self.obs_shape) if self.pixels else self.obs_dim
 
-    def build_critic(self, generator: torch.Generator) -> CategoricalCritic:
+    def build_actor(self, generator: torch.Generator) -> torch.nn.Module:
+        if self.pixels:
+            # share_encoder => the policy loss must not train the (tied)
+            # encoder: the gradient stops at the latent
+            return PixelActor(self.obs_shape, self.act_dim,
+                              channels=self.encoder_channels,
+                              hidden=self.hidden,
+                              detach_encoder=self.share_encoder,
+                              generator=generator, dtype=self.dtype)
+        return Actor(self.obs_dim, self.act_dim, self.hidden,
+                     generator=generator, dtype=self.dtype)
+
+    def build_critic(self, generator: torch.Generator) -> torch.nn.Module:
+        if self.critic_family == "mog":
+            return MixtureOfGaussianCritic(
+                self.obs_dim, self.act_dim, self.n_components, self.hidden,
+                generator=generator, dtype=self.dtype)
+        if self.pixels:
+            return PixelCategoricalCritic(
+                self.obs_shape, self.act_dim, self.n_atoms,
+                channels=self.encoder_channels, hidden=self.hidden,
+                generator=generator, dtype=self.dtype)
         return CategoricalCritic(self.obs_dim, self.act_dim, self.n_atoms,
-                                 self.hidden, generator=generator)
+                                 self.hidden, generator=generator,
+                                 dtype=self.dtype)
 
     def optimizer(self, module: torch.nn.Module,
                   lr: float) -> torch.optim.Adam:
@@ -81,30 +168,43 @@ class D4PGConfig:
 @dataclasses.dataclass
 class D4PGState:
     """The complete learner state. ``step`` is a host int: the fused chunk
-    reads it for the PER beta schedule without a device sync."""
+    reads it for the PER beta schedule without a device sync.
+    ``generator`` lives on the state's device and takes the place of the
+    reference's ``key``: the DrQ offsets and the MoG draws of the updates
+    come from it (the checkpoint saves it)."""
 
-    actor: Actor
-    critic: CategoricalCritic
-    target_actor: Actor
-    target_critic: CategoricalCritic
+    actor: torch.nn.Module
+    critic: torch.nn.Module
+    target_actor: torch.nn.Module
+    target_critic: torch.nn.Module
     actor_opt: torch.optim.Adam
     critic_opt: torch.optim.Adam
     step: int = 0
+    generator: torch.Generator | None = None
 
     @property
     def device(self) -> torch.device:
-        return self.actor.out.weight.device
+        return next(self.actor.parameters()).device
+
+
+# the state's stream is seeded apart from a driver's PER stream of the
+# same seed
+_STATE_STREAM = 1 << 32
 
 
 def init_state(config: D4PGConfig, seed: int = 0,
                device: str | torch.device | None = None) -> D4PGState:
     """Fresh networks (drawn on the CPU from ``seed``, then moved, so a seed
-    gives the same weights on every device), targets as hard copies, and
-    Adam states. ``device`` defaults to ``cuda`` and raises without a card."""
+    gives the same weights on every device), targets as hard copies, Adam
+    states and the state's generator. With ``share_encoder`` the actor's
+    encoder is the critic's from step 0, targets included. ``device``
+    defaults to ``cuda`` and raises without a card."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     actor = config.build_actor(gen).to(dev)
     critic = config.build_critic(gen).to(dev)
+    if config.share_encoder:
+        tie_encoder(actor, critic)
     return D4PGState(
         actor=actor,
         critic=critic,
@@ -112,4 +212,6 @@ def init_state(config: D4PGConfig, seed: int = 0,
         target_critic=copy.deepcopy(critic).requires_grad_(False),
         actor_opt=config.optimizer(actor, config.lr_actor),
         critic_opt=config.optimizer(critic, config.lr_critic),
+        generator=torch.Generator(device=dev).manual_seed(
+            int(seed) + _STATE_STREAM),
     )

@@ -1,0 +1,127 @@
+"""Convolutional pixel encoder and the pixel actor and critic.
+
+Counterpart of ``d4pg_tpu/models/encoder.py``: four 3x3 convolutions of
+``channels`` (stride 2, then 1) with ReLU, flattened through a linear
+projection, LayerNorm and tanh into a ``latent_dim`` latent that feeds
+the MLP actor or critic. Frames are [..., H, W, C] (uint8 or float);
+the encoder casts them to the compute dtype and divides by 255.
+
+Matching Flax:
+
+  - ``nn.Conv`` pads ``SAME``, with the odd pixel after
+    (``layers.same_padding``): stride 2 on 84 px pads (0, 1) and gives
+    42 px, and every stride-1 layer pads 1 on each side;
+  - the convolutions run NCHW (channels-last strides, cuDNN's preferred
+    layout for them) and the activations go back to NHWC before the
+    flatten, so ``proj``'s input rows are in Flax's (h, w, c) order;
+  - LayerNorm's epsilon is Flax's 1e-6; its statistics are float32 and
+    its output is cast to the compute dtype; the latent comes back as
+    float32.
+
+Parameter names follow the Flax tree: ``encoder.conv1`` ..
+``encoder.conv4``, ``encoder.proj``, ``encoder.ln``, then ``actor.*`` or
+``critic.*``. ``PixelActor(detach_encoder=True)`` stops the gradient at
+the latent (``--share_encoder``: the critic loss alone trains the tied
+encoder).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from d4pg_tpu_torch.models.actor import Actor
+from d4pg_tpu_torch.models.critic import CategoricalCritic
+from d4pg_tpu_torch.models.init import lecun_normal
+from d4pg_tpu_torch.models.layers import conv_same, dense, same_padding
+
+LN_EPS = 1e-6  # Flax's LayerNorm epsilon (torch's default is 1e-5)
+
+
+class PixelEncoder(nn.Module):
+    def __init__(self, obs_shape: Sequence[int], latent_dim: int = 50,
+                 channels: Sequence[int] = (32, 32, 32, 32),
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.obs_shape = tuple(int(s) for s in obs_shape)
+        h, w, c = self.obs_shape
+        self._pads = []
+        for i, ch in enumerate(channels):
+            stride = 2 if i == 0 else 1
+            conv = nn.Conv2d(c, ch, 3, stride=stride)
+            lecun_normal(conv, generator)
+            self.add_module(f"conv{i + 1}", conv)
+            (top, bottom), (left, right) = (same_padding(h, stride, 3),
+                                            same_padding(w, stride, 3))
+            self._pads.append((top, bottom, left, right))
+            h, w, c = -(-h // stride), -(-w // stride), ch
+        self.proj = nn.Linear(h * w * c, latent_dim)
+        lecun_normal(self.proj, generator)
+        self.ln = nn.LayerNorm(latent_dim, eps=LN_EPS)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        lead = pixels.shape[:-3]
+        x = pixels.reshape(-1, *self.obs_shape).to(dt)
+        # a 0-dim divisor made on the device: a Python scalar becomes a
+        # multiply by its reciprocal on CUDA (an ulp off the quotient), and
+        # a tensor copied from the host would sync the host per forward
+        x = x / torch.full((), 255.0, dtype=dt, device=x.device)
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        for i, pads in enumerate(self._pads):
+            x = torch.relu(conv_same(getattr(self, f"conv{i + 1}"), x, pads,
+                                     dt))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # Flax's order
+        x = dense(self.proj, x, dt)
+        x = F.layer_norm(x.float(), self.ln.normalized_shape, self.ln.weight,
+                         self.ln.bias, self.ln.eps).to(dt)
+        return torch.tanh(x).float().reshape(*lead, -1)
+
+
+class PixelActor(nn.Module):
+    """Encoder + MLP actor for pixel observations."""
+
+    def __init__(self, obs_shape: Sequence[int], act_dim: int,
+                 latent_dim: int = 50,
+                 channels: Sequence[int] = (32, 32, 32, 32),
+                 hidden: Sequence[int] = (256, 256, 256),
+                 detach_encoder: bool = False,
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.detach_encoder = bool(detach_encoder)
+        self.encoder = PixelEncoder(obs_shape, latent_dim, channels,
+                                    generator, dtype)
+        self.actor = Actor(latent_dim, act_dim, hidden, generator=generator,
+                           dtype=dtype)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        z = self.encoder(pixels)
+        if self.detach_encoder:
+            z = z.detach()
+        return self.actor(z)
+
+
+class PixelCategoricalCritic(nn.Module):
+    """Encoder + categorical critic for pixel observations."""
+
+    def __init__(self, obs_shape: Sequence[int], act_dim: int,
+                 n_atoms: int = 51, latent_dim: int = 50,
+                 channels: Sequence[int] = (32, 32, 32, 32),
+                 hidden: Sequence[int] = (256, 256, 256),
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder = PixelEncoder(obs_shape, latent_dim, channels,
+                                    generator, dtype)
+        self.critic = CategoricalCritic(latent_dim, act_dim, n_atoms, hidden,
+                                        generator=generator, dtype=dtype)
+
+    def forward(self, pixels: torch.Tensor, action: torch.Tensor,
+                return_logits: bool = False) -> torch.Tensor:
+        return self.critic(self.encoder(pixels), action, return_logits)

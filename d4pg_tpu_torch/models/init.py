@@ -26,3 +26,17 @@ def scaled_normal(layer: nn.Linear, std: float,
     """N(0, std) weight, zero bias."""
     layer.weight.normal_(0.0, std, generator=generator)
     layer.bias.zero_()
+
+
+@torch.no_grad()
+def lecun_normal(layer: nn.Module, generator: torch.Generator) -> None:
+    """Flax's default kernel init (``lecun_normal``: a normal truncated at
+    two standard deviations, scaled to variance 1/fan_in) on a ``Linear``
+    or ``Conv2d`` weight, zero bias. fan_in is every weight dimension but
+    the first (``[out, in]`` or ``[out, in, kh, kw]``)."""
+    fan_in = layer.weight[0].numel()
+    # the std of a unit normal truncated at +-2 is 0.87962566...
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    torch.nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std,
+                                2.0 * std, generator=generator)
+    layer.bias.zero_()

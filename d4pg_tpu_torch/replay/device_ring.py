@@ -32,7 +32,11 @@ import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.replay.staging import PinnedBlocks
-from d4pg_tpu_torch.replay.uniform import TransitionBatch
+from d4pg_tpu_torch.replay.uniform import (
+    TransitionBatch,
+    field_layouts,
+    torch_dtype,
+)
 
 
 @torch.no_grad()
@@ -53,11 +57,12 @@ def block_write(storage: TransitionBatch, frame: TransitionBatch, start: int,
 class DeviceStore:
     """Fixed-capacity transition storage on ``device`` (default ``cuda``)
     with ``block_rows`` shadow rows for the block writer (0: no block
-    writer)."""
+    writer). Observations are ``obs_dim`` (int or [H, W, C]) rows of
+    ``obs_dtype`` (``uniform.obs_layout``)."""
 
-    def __init__(self, capacity: int, obs_dim: int, act_dim: int,
+    def __init__(self, capacity: int, obs_dim, act_dim: int,
                  device: str | torch.device | None = None,
-                 block_rows: int = 0):
+                 block_rows: int = 0, obs_dtype=None):
         self.capacity = int(capacity)
         self.block_rows = int(block_rows)
         if not 0 <= self.block_rows <= self.capacity:
@@ -65,14 +70,11 @@ class DeviceStore:
                 f"block_rows {block_rows} must be in [0, capacity {capacity}]")
         self.device = resolve_device(device)
         rows = self.capacity + self.block_rows
-
-        def zeros(*shape):
-            return torch.zeros((rows, *shape), dtype=torch.float32,
-                               device=self.device)
-
-        self._storage = TransitionBatch(
-            obs=zeros(obs_dim), action=zeros(act_dim), reward=zeros(),
-            next_obs=zeros(obs_dim), done=zeros(), discount=zeros())
+        layouts = field_layouts(obs_dim, act_dim, obs_dtype)
+        self._dtypes = [dtype for _, dtype in layouts]
+        self._storage = TransitionBatch(*[
+            torch.zeros((rows, *shape), dtype=torch_dtype(dtype),
+                        device=self.device) for shape, dtype in layouts])
         card = self.device.type == "cuda"
         self._stream = (torch.cuda.default_stream(self.device) if card
                         else None)
@@ -109,7 +111,8 @@ class DeviceStore:
     def write(self, idx: np.ndarray, batch: TransitionBatch) -> None:
         """Write host rows ``batch`` at the distinct slots ``idx``."""
         idx = np.asarray(idx, np.int64)
-        fields = [np.asarray(v, np.float32) for v in batch]
+        fields = [np.asarray(v, dtype) for v, dtype in zip(batch,
+                                                             self._dtypes)]
         dev_idx, *values = self._to_device(self._write_blocks,
                                            [idx, *fields])
         for arr, val in zip(self._storage, values):

@@ -41,21 +41,26 @@ from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.obs.registry import REGISTRY
 from d4pg_tpu_torch.replay import device_per as dper
 from d4pg_tpu_torch.replay.device_ring import DeviceStore
-from d4pg_tpu_torch.replay.uniform import TransitionBatch
+from d4pg_tpu_torch.replay.uniform import (
+    TransitionBatch,
+    field_layouts,
+    torch_dtype,
+)
 
 
 class HostStagingRing:
     """Preallocated column-major host staging for fixed-size block frames.
 
-    One buffer per transition field, ``n_blocks * block_rows`` rows; when
-    producers outrun the drains by more than that, the oldest staged rows
-    are dropped (they would be overwritten by the next drains anyway)."""
+    One buffer per transition field (``specs``: its row's ``(shape,
+    dtype)``), ``n_blocks * block_rows`` rows; when producers outrun the
+    drains by more than that, the oldest staged rows are dropped (they
+    would be overwritten by the next drains anyway)."""
 
     def __init__(self, specs, block_rows: int, n_blocks: int):
         self.block_rows = int(block_rows)
         self.size = self.block_rows * max(2, int(n_blocks))
-        self._arrays = [np.zeros((self.size, *shape), np.float32)
-                        for shape in specs]
+        self._arrays = [np.zeros((self.size, *shape), dtype)
+                        for shape, dtype in specs]
         self._r = 0  # absolute rows consumed
         self._w = 0  # absolute rows written
 
@@ -71,7 +76,7 @@ class HostStagingRing:
         off = self._w % self.size
         first = min(n, self.size - off)
         for dst, src in zip(self._arrays, batch):
-            src = np.asarray(src, np.float32)
+            src = np.asarray(src, dst.dtype)
             dst[off:off + first] = src[:first]
             dst[:n - first] = src[first:]
         self._w += n
@@ -106,13 +111,16 @@ class HostStagingRing:
 
 class FusedDeviceReplay:
     """Fixed-capacity device ring + (``prioritized``) device PER trees;
-    ``trees`` is ``None`` for uniform replay."""
+    ``trees`` is ``None`` for uniform replay. ``obs_dim`` is an int or an
+    [H, W, C] tuple, stored as ``obs_dtype`` (``uniform.obs_layout``:
+    uint8 frames by default) in the staging ring, the pinned block and
+    the device ring alike."""
 
-    def __init__(self, capacity: int, obs_dim: int, act_dim: int,
+    def __init__(self, capacity: int, obs_dim, act_dim: int,
                  alpha: float = 0.6, prioritized: bool = True,
                  device: str | torch.device | None = None,
                  block_rows: int | None = None, staging_blocks: int = 8,
-                 ingest_shards: int = 1):
+                 ingest_shards: int = 1, obs_dtype=None):
         if int(ingest_shards) != 1:
             raise NotImplementedError(
                 f"ingest_shards={ingest_shards}: the sharded ingest plane "
@@ -124,7 +132,7 @@ class FusedDeviceReplay:
         self.block_rows = int(block_rows if block_rows is not None
                               else min(4096, self.capacity))
         self._store = DeviceStore(self.capacity, obs_dim, act_dim,
-                                  self.device, self.block_rows)
+                                  self.device, self.block_rows, obs_dtype)
         self.prioritized = bool(prioritized)
         self.trees = (dper.init(self.capacity, self.device)
                       if self.prioritized else None)
@@ -132,17 +140,17 @@ class FusedDeviceReplay:
         self.head = 0
         n_blocks = min(int(staging_blocks),
                        -(-self.capacity // self.block_rows))
-        specs = [(obs_dim,), (act_dim,), (), (obs_dim,), (), ()]
+        specs = field_layouts(obs_dim, act_dim, obs_dtype)
         self._staging = HostStagingRing(specs, self.block_rows, n_blocks)
         pin = self.device.type == "cuda"
         # the one in-flight block: host side (pinned on the card) and its
         # device twin, both allocated once
         self._host_block = TransitionBatch(*[
-            torch.zeros((self.block_rows, *shape), dtype=torch.float32,
-                        pin_memory=pin) for shape in specs])
+            torch.zeros((self.block_rows, *shape), dtype=torch_dtype(dtype),
+                        pin_memory=pin) for shape, dtype in specs])
         self._dev_block = (TransitionBatch(*[
-            torch.zeros((self.block_rows, *shape), dtype=torch.float32,
-                        device=self.device) for shape in specs])
+            torch.zeros((self.block_rows, *shape), dtype=torch_dtype(dtype),
+                        device=self.device) for shape, dtype in specs])
             if pin else self._host_block)
         self._copy_stream = torch.cuda.Stream(self.device) if pin else None
         self._copied = None  # event: the H2D copy of the block is done

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from d4pg_tpu_torch.replay.uniform import TransitionBatch
+from d4pg_tpu_torch.replay.uniform import TransitionBatch, obs_layout
 
 
 class NStepFolder:
@@ -32,9 +32,7 @@ class NStepFolder:
         self.n = int(n)
         self.gamma = float(gamma)
         self.num_envs = int(num_envs)
-        obs_shape = (obs_dim,) if np.isscalar(obs_dim) else tuple(obs_dim)
-        if obs_dtype is None:
-            obs_dtype = np.float32 if len(obs_shape) == 1 else np.uint8
+        obs_shape, obs_dtype = obs_layout(obs_dim, obs_dtype)
         self._obs_shape = obs_shape
         self._obs = np.zeros((num_envs, n, *obs_shape), obs_dtype)
         self._act = np.zeros((num_envs, n, act_dim), np.float32)

@@ -74,12 +74,12 @@ def make_trees(capacity: int, backend: str = "auto"):
 
 
 class PrioritizedReplayBuffer(ReplayBuffer):
-    def __init__(self, capacity: int, obs_dim: int, act_dim: int,
+    def __init__(self, capacity: int, obs_dim, act_dim: int,
                  alpha: float = 0.6, seed: int = 0,
                  backend: str = "auto", storage: str = "host",
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, obs_dtype=None):
         super().__init__(capacity, obs_dim, act_dim, seed=seed,
-                         storage=storage, device=device)
+                         storage=storage, device=device, obs_dtype=obs_dtype)
         if alpha < 0:
             raise ValueError(f"alpha must be >= 0, got {alpha}")
         self.alpha = float(alpha)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from d4pg_tpu_torch import resolve_device
+from d4pg_tpu_torch.replay.uniform import torch_dtype
 
 
 class PinnedBlocks:
@@ -57,10 +58,10 @@ class PinnedBlocks:
             event.synchronize()
         bufs = self._bufs[slot]
         if bufs is None or len(bufs) != len(arrays) or any(
-                b.dtype != _torch_dtype(a) or b.numel() < a.size
+                b.dtype != torch_dtype(a.dtype) or b.numel() < a.size
                 for b, a in zip(bufs, arrays)):
             bufs = self._bufs[slot] = [
-                torch.empty(max(a.size, 1), dtype=_torch_dtype(a),
+                torch.empty(max(a.size, 1), dtype=torch_dtype(a.dtype),
                             pin_memory=True) for a in arrays]
         views = []
         for buf, a in zip(bufs, arrays):
@@ -75,10 +76,6 @@ class PinnedBlocks:
         event = torch.cuda.Event()
         event.record(stream)
         self._events[slot] = event
-
-
-def _torch_dtype(a: np.ndarray) -> torch.dtype:
-    return torch.from_numpy(a[:0]).dtype
 
 
 def _flatten(payload):

@@ -5,6 +5,11 @@ Counterpart of ``d4pg_tpu/replay/uniform.py``: a fixed-capacity ring of
 uniformly with replacement from a host ``np.random.default_rng(seed)``
 (so a seed picks the reference's slots, bit for bit).
 
+Observations are vectors (``obs_dim`` an int, float32) or frames
+(``obs_dim`` an [H, W, C] tuple, uint8 by default: a 1,000,000-frame
+ring of 84x84x9 rows is 127 GB in float32 and 32 GB in uint8), with the
+reference's ``obs_dtype`` rule (``obs_layout``).
+
   - ``storage='host'``: preallocated numpy arrays in host RAM
     (``HostStore``); ``gather`` returns numpy rows, which the learner
     copies to the card (``replay/staging.DeviceStager``);
@@ -27,12 +32,34 @@ import torch
 class TransitionBatch(NamedTuple):
     """A batch of (possibly n-step-folded) transitions."""
 
-    obs: torch.Tensor  # [B, obs_dim] float32
+    obs: torch.Tensor  # [B, obs_dim] float32, or [B, H, W, C] uint8
     action: torch.Tensor  # [B, act_dim] float32
     reward: torch.Tensor  # [B] float32 (n-step folded return)
-    next_obs: torch.Tensor  # [B, obs_dim] float32 (s_{t+n})
+    next_obs: torch.Tensor  # as obs (s_{t+n})
     done: torch.Tensor  # [B] float32
     discount: torch.Tensor  # [B] float32 = gamma^m * (1 - done)
+
+
+def obs_layout(obs_dim, obs_dtype=None) -> tuple[tuple, np.dtype]:
+    """``(obs_shape, obs_dtype)`` of an obs spec: an int is a vector
+    (float32 by default), a tuple a frame shape (uint8 by default)."""
+    shape = (int(obs_dim),) if np.isscalar(obs_dim) else tuple(obs_dim)
+    if obs_dtype is None:
+        obs_dtype = np.float32 if len(shape) == 1 else np.uint8
+    return shape, np.dtype(obs_dtype)
+
+
+def field_layouts(obs_dim, act_dim: int, obs_dtype=None) -> list:
+    """``(shape, dtype)`` of each ``TransitionBatch`` field's row."""
+    obs_shape, obs_dtype = obs_layout(obs_dim, obs_dtype)
+    f32 = np.dtype(np.float32)
+    return [(obs_shape, obs_dtype), ((int(act_dim),), f32), ((), f32),
+            (obs_shape, obs_dtype), ((), f32), ((), f32)]
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype."""
+    return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
 def pack_rows(rows: TransitionBatch, head: int, size: int,
@@ -67,13 +94,12 @@ def unpack_rows(d: dict, capacity: int):
 class HostStore:
     """Preallocated contiguous numpy storage."""
 
-    def __init__(self, capacity: int, obs_dim: int, act_dim: int):
-        self.obs = np.zeros((capacity, obs_dim), np.float32)
-        self.action = np.zeros((capacity, act_dim), np.float32)
-        self.reward = np.zeros((capacity,), np.float32)
-        self.next_obs = np.zeros((capacity, obs_dim), np.float32)
-        self.done = np.zeros((capacity,), np.float32)
-        self.discount = np.zeros((capacity,), np.float32)
+    def __init__(self, capacity: int, obs_dim, act_dim: int,
+                 obs_dtype=None):
+        for name, (shape, dtype) in zip(
+                TransitionBatch._fields,
+                field_layouts(obs_dim, act_dim, obs_dtype)):
+            setattr(self, name, np.zeros((capacity, *shape), dtype))
 
     def write(self, idx: np.ndarray, batch: TransitionBatch) -> None:
         self.obs[idx] = batch.obs
@@ -97,19 +123,21 @@ class HostStore:
 class ReplayBuffer:
     """Fixed-capacity ring over ``storage='host'`` or ``'device'`` (see
     the module docstring); ``device`` is where a ``'device'`` ring lives
-    (default ``cuda``). Vector observations, float32."""
+    (default ``cuda``). ``obs_dim`` is an int or an [H, W, C] tuple,
+    stored as ``obs_dtype`` (``obs_layout``)."""
 
-    def __init__(self, capacity: int, obs_dim: int, act_dim: int,
+    def __init__(self, capacity: int, obs_dim, act_dim: int,
                  seed: int = 0, storage: str = "host",
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, obs_dtype=None):
         self.capacity = int(capacity)
         if storage == "device":
             from d4pg_tpu_torch.replay.device_ring import DeviceStore
 
             self._store = DeviceStore(self.capacity, obs_dim, act_dim,
-                                      device=device)
+                                      device=device, obs_dtype=obs_dtype)
         elif storage == "host":
-            self._store = HostStore(self.capacity, obs_dim, act_dim)
+            self._store = HostStore(self.capacity, obs_dim, act_dim,
+                                    obs_dtype)
         else:
             raise ValueError(f"unknown storage {storage!r}")
         self.storage = storage

@@ -145,11 +145,14 @@ class LocalPolicyClient:
         return version, published_step
 
     def _obs(self, obs: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(obs, np.float32),
-                               device=self.device)
+        # each frame keeps its own dtype, as the reference's jnp.asarray:
+        # uint8 pixels reach the encoder as uint8 (a quarter of float32's
+        # bytes), and the networks cast to their compute dtype
+        return torch.as_tensor(np.asarray(obs), device=self.device)
 
     def actions(self, obs: np.ndarray) -> np.ndarray:
-        """Noisy policy actions for a [B, obs_dim] batch; uniform random
+        """Noisy policy actions for a [B, obs_dim] (or [B, H, W, C]) batch;
+        uniform random
         in (-1, 1) before the first weight publish (warm-up)."""
         n = obs.shape[0]
         if not self._has_params:
@@ -179,7 +182,8 @@ class LocalPolicyClient:
         return actions
 
     def greedy_actions(self, obs: np.ndarray) -> np.ndarray:
-        """Deterministic mu(s) for a [B, obs_dim] batch (evaluation)."""
+        """Deterministic mu(s) for a [B, obs_dim] (or [B, H, W, C]) batch
+        (evaluation)."""
         if not self._has_params:
             raise RuntimeError("no weights pulled yet")
         return act_deterministic(self._actor, self._obs(obs)).cpu().numpy()

@@ -32,6 +32,7 @@ class VectorActorLane:
         service,
         policy: LocalPolicyClient,
         stop: threading.Event | None = None,
+        obs_dtype=None,
     ):
         self.lane_id = lane_id
         self.config = config
@@ -39,9 +40,10 @@ class VectorActorLane:
         self.pool = pool
         self.service = service
         self.policy = policy
+        # pixel rows fold as [H, W, C] frames of their own dtype
         self._folder = NStepFolder(
             actor_cfg.n_step, actor_cfg.gamma, pool.num_envs,
-            config.obs_dim, config.act_dim)
+            config.obs_spec, config.act_dim, obs_dtype=obs_dtype)
         self._obs = None
         self._stop = stop if stop is not None else threading.Event()
         self.env_steps = 0

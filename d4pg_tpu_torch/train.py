@@ -43,8 +43,13 @@ runs the learner on the CPU (the tests do). Acting and eval run where
 
 Every flag value that selects a path the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item (``check_ported``); none
-is skipped quietly. gymnasium is imported only
-inside ``make_env_fn``, for gymnasium ids.
+is skipped quietly. gymnasium is imported only inside ``make_env_fn``,
+for gymnasium ids, and dm_control only inside ``envs/dmc.DMControlEnv``,
+for ``dmc:*`` and ``*-pixels`` ids. Pixel envs (``pixel-point``, the
+dm_control pixel tasks, 3-D gymnasium observations) store uint8 [H, W,
+C] rows (``--frame_stack k`` stacks k frames on the channels) and train
+the conv encoder; ``--critic_family mog`` and ``--compute_dtype
+bfloat16`` select the MoG critic and bfloat16 products.
 """
 
 from __future__ import annotations
@@ -63,7 +68,9 @@ from d4pg_tpu_torch.distributed.actor import ActorWorker
 from d4pg_tpu_torch.distributed.evaluator import AsyncEvaluator, Evaluator
 from d4pg_tpu_torch.distributed.replay_service import ReplayService
 from d4pg_tpu_torch.distributed.weights import WeightStore
-from d4pg_tpu_torch.envs.fake import PointMassEnv, SlowEnv
+from d4pg_tpu_torch.envs.dmc import DMControlEnv, parse_dmc_id
+from d4pg_tpu_torch.envs.fake import PixelPointEnv, PointMassEnv, SlowEnv
+from d4pg_tpu_torch.envs.wrappers import FrameStack
 from d4pg_tpu_torch.envs.vector import EnvPool
 from d4pg_tpu_torch.io.checkpoint import CheckpointManager
 from d4pg_tpu_torch.io.metrics import CsvLogger, MetricsBus, TensorBoardSink
@@ -85,14 +92,6 @@ def _unported(cfg: ExperimentConfig) -> list[tuple[bool, str, str]]:
     return [
         (cfg.her, "--her 1 (the HER recipe)", "Queue 1 item 11"),
         (cfg.normalize_obs, "--normalize_obs 1", "Queue 1 item 11"),
-        (cfg.frame_stack > 1, f"--frame_stack {cfg.frame_stack}",
-         "Queue 1 item 9"),
-        (cfg.augment != "none", f"--augment {cfg.augment}", "Queue 1 item 9"),
-        (cfg.share_encoder, "--share_encoder 1", "Queue 1 item 9"),
-        (cfg.critic_family == "mog", "--critic_family mog",
-         "Queue 1 item 10"),
-        (cfg.compute_dtype != "float32",
-         f"--compute_dtype {cfg.compute_dtype}", "Queue 1 item 3"),
         (cfg.learners > 1, f"--learners {cfg.learners}", "Queue 1 item 15"),
         (cfg.sample_on_ingest, "--sample_on_ingest 1", "Queue 1 item 14"),
         (cfg.data_parallel > 1, f"--data_parallel {cfg.data_parallel}",
@@ -129,26 +128,18 @@ def learner_device(cfg: ExperimentConfig) -> torch.device:
     return resolve_device("cuda")
 
 
-def _parse_dmc_id(env_id: str):
-    """``'dmc:cheetah-run'`` / ``'cheetah-run-pixels'`` -> (domain, task,
-    pixels), None when the id is not a dm_control spec (the reference's
-    ``envs/dmc.parse_dmc_id``)."""
-    name = env_id[4:] if env_id.startswith("dmc:") else env_id
-    pixels = name.endswith("-pixels")
-    if pixels:
-        name = name[: -len("-pixels")]
-    elif not env_id.startswith("dmc:"):
-        return None
-    if "-" not in name:
-        return None
-    domain, task = name.split("-", 1)
-    return domain, task, pixels
-
-
 def make_env_fn(cfg: ExperimentConfig, seed: int):
     """A constructor of one env: the fake point mass for ``point`` and
-    ``point-slow:<ms>`` (a fixed wall cost per step), else a gymnasium id
-    (gymnasium imported here, only then)."""
+    ``point-slow:<ms>`` (a fixed wall cost per step), the fake pixel env
+    for ``pixel-point``, a ``dm_control`` task for ``dmc:*`` and
+    ``*-pixels`` ids, else a gymnasium id (gymnasium imported here, only
+    then). ``--frame_stack k > 1`` stacks the frames of a pixel env and
+    is an error on any other, as in the reference."""
+    if ((cfg.env in ("point", "fake-goal")
+         or cfg.env.startswith("point-slow:")) and cfg.frame_stack > 1):
+        raise ValueError(
+            f"--frame_stack {cfg.frame_stack} requires a pixel env; "
+            f"{cfg.env!r} is state-observation")
     if cfg.env == "point":
         return lambda: PointMassEnv(horizon=cfg.max_steps, seed=seed)
     if cfg.env.startswith("point-slow:"):
@@ -159,10 +150,25 @@ def make_env_fn(cfg: ExperimentConfig, seed: int):
         raise NotImplementedError(
             "--env fake-goal (goal-conditioned envs) is not ported yet "
             "(ROADMAP Queue 1 item 11)")
-    if cfg.env == "pixel-point" or _parse_dmc_id(cfg.env) is not None:
-        raise NotImplementedError(
-            f"--env {cfg.env} (pixel and dm_control envs) is not ported "
-            "yet (ROADMAP Queue 1 item 9)")
+
+    def stack(make_pixel_env):
+        if cfg.frame_stack <= 1:
+            return make_pixel_env
+        return lambda: FrameStack(make_pixel_env(), cfg.frame_stack)
+
+    if cfg.env == "pixel-point":
+        return stack(lambda: PixelPointEnv(horizon=cfg.max_steps, seed=seed))
+    dmc = parse_dmc_id(cfg.env)
+    if dmc is not None:
+        domain, task, pixels = dmc
+        if not pixels and cfg.frame_stack > 1:
+            raise ValueError(
+                f"--frame_stack {cfg.frame_stack} requires a pixel env; "
+                f"{cfg.env!r} is state-observation")
+        make = lambda: DMControlEnv(domain, task, pixels=pixels, seed=seed,
+                                    height=cfg.pixel_size,
+                                    width=cfg.pixel_size)
+        return stack(make) if pixels else make
     import gymnasium as gym
 
     def make():
@@ -173,41 +179,60 @@ def make_env_fn(cfg: ExperimentConfig, seed: int):
                 f"--env {cfg.env}: not a gymnasium id; the "
                 "gymnasium_robotics envs are not ported yet (ROADMAP "
                 "Queue 1 item 11)") from e
-        if len(env.observation_space.shape or ()) != 1:
-            env.close()
-            raise NotImplementedError(
-                f"--env {cfg.env}: observations of shape "
-                f"{env.observation_space.shape}; pixel observations are "
-                "not ported yet (ROADMAP Queue 1 item 9)")
+        if cfg.frame_stack > 1:
+            # stack 3-D (pixel) observations; anything else is a config
+            # error, not a flag to drop quietly
+            if len(env.observation_space.shape or ()) != 3:
+                env.close()
+                raise ValueError(
+                    f"--frame_stack {cfg.frame_stack} requires pixel "
+                    f"[H, W, C] observations; {cfg.env!r} has shape "
+                    f"{env.observation_space.shape}")
+            return FrameStack(env, cfg.frame_stack)
         return env
 
     return make
 
 
-def infer_dims(cfg: ExperimentConfig) -> tuple[int, int]:
-    """obs dim and act dim (vector observations, stored as float32)."""
+def infer_dims(cfg: ExperimentConfig) -> tuple[int | tuple, int, np.dtype]:
+    """obs spec, act dim and obs storage dtype: an int and float32 for
+    vector observations, the [H, W, C] tuple and the dtype of a real
+    reset observation for pixels (a float frame is stored as float32;
+    rank alone must not decide the dtype)."""
     env = make_env_fn(cfg, seed=0)()
     try:
-        obs_dim = int(np.prod(env.observation_space.shape))
+        shape = env.observation_space.shape
+        obs_dtype = np.dtype(np.float32)
+        if len(shape) == 3:  # pixels
+            obs_dim = tuple(int(s) for s in shape)
+            obs, _ = env.reset(seed=0)
+            obs_dtype = np.asarray(obs).dtype
+            if np.issubdtype(obs_dtype, np.floating):
+                obs_dtype = np.dtype(np.float32)
+        else:
+            obs_dim = int(np.prod(shape))
         act_dim = int(np.prod(env.action_space.shape))
     finally:
         env.close()
-    return obs_dim, act_dim
+    return obs_dim, act_dim, obs_dtype
 
 
-def resolve_storage(cfg: ExperimentConfig, obs_dim: int, act_dim: int,
-                    device: torch.device) -> tuple[str, bool]:
+def resolve_storage(cfg: ExperimentConfig, obs_dim, act_dim: int,
+                    device: torch.device,
+                    obs_dtype=np.float32) -> tuple[str, bool]:
     """``(storage, fused)`` as the reference resolves ``replay_storage``
     and ``fused_replay`` for one single-host learner
     (``d4pg_tpu/train.py``), with ``device != cpu`` where the reference
     asks ``jax.default_backend() != 'cpu'``: ``auto`` storage is the
-    device ring on the card when it fits (under 8e9 bytes) and host RAM
-    otherwise; the path is fused when the storage is ``device`` and fused
+    device ring on the card when it fits (under 8e9 bytes, observations
+    reckoned at ``obs_dtype``'s itemsize) and host RAM otherwise; the path is fused when the storage is ``device`` and fused
     replay is not ``off``. ``--fused_replay on`` with host storage raises
     ``ValueError``."""
     storage = cfg.replay_storage
     if storage == "auto":
-        ring_bytes = cfg.memory_size * (2 * obs_dim * 4 + (act_dim + 3) * 4)
+        obs_elems = int(np.prod(obs_dim))
+        ring_bytes = cfg.memory_size * (
+            2 * obs_elems * np.dtype(obs_dtype).itemsize + (act_dim + 3) * 4)
         # a single-host learner without a mesh keeps the device ring even
         # with fused replay off (the non-fused device ring)
         storage = "device" if device.type != "cpu" and ring_bytes < 8e9 \
@@ -224,11 +249,15 @@ def train(cfg: ExperimentConfig) -> dict:
     cfg = cfg.resolve()
     check_ported(cfg)
     device = learner_device(cfg)
+    obs_dim, act_dim, obs_dtype = infer_dims(cfg)
+    if cfg.normalize_obs and not np.isscalar(obs_dim):
+        raise ValueError("--normalize_obs is for vector observations; "
+                         "pixel observations are normalized by the encoder")
     run_dir = os.path.join(cfg.log_dir, cfg.run_name())
     os.makedirs(run_dir, exist_ok=True)
 
-    obs_dim, act_dim = infer_dims(cfg)
-    storage, fused = resolve_storage(cfg, obs_dim, act_dim, device)
+    storage, fused = resolve_storage(cfg, obs_dim, act_dim, device,
+                                     obs_dtype)
     config = cfg.learner_config(obs_dim, act_dim, device=device)
     state = init_state(config, cfg.seed, device)
 
@@ -237,14 +266,16 @@ def train(cfg: ExperimentConfig) -> dict:
         buffer = FusedDeviceReplay(cfg.memory_size, obs_dim, act_dim,
                                    alpha=cfg.per_alpha,
                                    prioritized=cfg.prioritized_replay,
-                                   device=device)
+                                   device=device, obs_dtype=obs_dtype)
     elif cfg.prioritized_replay:
         buffer = PrioritizedReplayBuffer(cfg.memory_size, obs_dim, act_dim,
                                          alpha=cfg.per_alpha, seed=cfg.seed,
-                                         storage=storage, device=device)
+                                         storage=storage, device=device,
+                                         obs_dtype=obs_dtype)
     else:
         buffer = ReplayBuffer(cfg.memory_size, obs_dim, act_dim,
-                              seed=cfg.seed, storage=storage, device=device)
+                              seed=cfg.seed, storage=storage, device=device,
+                              obs_dtype=obs_dtype)
     if cfg.debug:
         print(f"replay storage: {storage} (fused={fused}) on {device}",
               flush=True)
@@ -286,7 +317,8 @@ def train(cfg: ExperimentConfig) -> dict:
                         for i in range(cfg.num_envs)], seed=cfg.seed + w)
         actors.append(ActorWorker(f"actor-{w}", config, actor_cfg, pool,
                                   service, weights, seed=cfg.seed + w,
-                                  learner_device=device))
+                                  learner_device=device,
+                                  obs_dtype=obs_dtype))
     evaluator = Evaluator(config, make_env_fn(cfg, seed=cfg.seed + 777),
                           weights, max_steps=cfg.max_steps,
                           device=cfg.actor_device, learner_device=device)

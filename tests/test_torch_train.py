@@ -4,10 +4,12 @@ The config surface (same flags, fields and run names as the JAX
 parser), tiny end-to-end runs on ``--platform cpu --replay_storage device
 --fused_replay on`` (PER and uniform with async actors), bitwise
 determinism of two same-seed runs, checkpoint round trip and exact
-resume, one cycle for each flag value the host replay path and the obs
-plane made trainable (and the default flags on the CPU, which take the
-host path), the refusal of every flag value that still selects an
-unported path, and whole-slice parity on both paths: with the same
+resume, one cycle for each flag value the host replay path, the obs
+plane and the model families (bfloat16, the pixel path, the MoG critic)
+made trainable (and the default flags on the CPU, which take the host
+path), a resume of each family to the state its first run ended with,
+the reference's errors for those flags' misuse, the refusal of every
+flag value that still selects an unported path, and whole-slice parity on both paths: with the same
 initial weights carried across and exploration off, the rows both
 drivers hold in replay when the first grad step starts match within atol
 1e-5 (and on the host path the first chunk's slots and IS weights are
@@ -280,14 +282,6 @@ UNPORTED = [
     (dict(her=True), "item 11"),
     (dict(env="fake-goal"), "item 11"),
     (dict(normalize_obs=True), "item 11"),
-    (dict(env="pixel-point"), "item 9"),
-    (dict(env="dmc:cheetah-run"), "item 9"),
-    (dict(env="cheetah-run-pixels"), "item 9"),
-    (dict(frame_stack=3), "item 9"),
-    (dict(augment="shift"), "item 9"),
-    (dict(share_encoder=True), "item 9"),
-    (dict(critic_family="mog"), "item 10"),
-    (dict(compute_dtype="bfloat16"), "item 3"),
     (dict(learners=2), "item 15"),
     (dict(sample_on_ingest=True), "item 14"),
     (dict(data_parallel=2), "item 16"),
@@ -324,9 +318,169 @@ def test_platform_without_a_card_raises(tmp_path, monkeypatch, platform):
 
 def test_gymnasium_envs_build_through_make_env_fn():
     cfg = ExperimentConfig(env="Pendulum-v1").resolve()
-    assert ttrain.infer_dims(cfg) == (3, 1)
+    assert ttrain.infer_dims(cfg) == (3, 1, np.float32)
     with pytest.raises(NotImplementedError, match="item 11"):
         ttrain.make_env_fn(ExperimentConfig(env="NoSuchEnv-v0"), 0)()
+
+
+class _FakeDMC:
+    """Stands in for ``envs.dmc.DMControlEnv`` where the test must not
+    depend on dm_control: the fake pixel env for pixel tasks, the point
+    mass for state tasks."""
+
+    def __init__(self, domain, task, pixels, seed, height, width):
+        from d4pg_tpu_torch.envs.fake import PixelPointEnv, PointMassEnv
+
+        self._env = (PixelPointEnv(seed=seed, horizon=20) if pixels
+                     else PointMassEnv(seed=seed, horizon=20))
+        self.observation_space = self._env.observation_space
+        self.action_space = self._env.action_space
+
+    def __getattr__(self, name):
+        return getattr(self._env, name)
+
+
+PIXEL_TINY = dict(encoder_width=8, v_min=-20.0)
+# flag values that raised until the model families were ported
+# (bfloat16, the pixel path, the MoG critic): each trains one cycle on the
+# fused path
+RETIRED_FAMILIES = [
+    dict(env="pixel-point", **PIXEL_TINY),
+    dict(env="dmc:cheetah-run"),
+    dict(env="cheetah-run-pixels", pixel_size=16, **PIXEL_TINY),
+    dict(env="pixel-point", frame_stack=3, **PIXEL_TINY),
+    dict(env="pixel-point", augment="shift", **PIXEL_TINY),
+    dict(env="pixel-point", share_encoder=True, **PIXEL_TINY),
+    dict(critic_family="mog"),
+    dict(compute_dtype="bfloat16"),
+]
+
+
+@pytest.mark.parametrize("kw", RETIRED_FAMILIES,
+                         ids=[",".join(f"{k}={v}" for k, v in kw.items()
+                                       if k not in PIXEL_TINY)
+                              for kw in RETIRED_FAMILIES])
+def test_retired_family_flag_values_train(tmp_path, monkeypatch, kw):
+    monkeypatch.setattr(ttrain, "DMControlEnv", _FakeDMC)
+    cfg = _cfg(tmp_path, n_cycles=1, train_steps_per_cycle=4, **kw)
+    metrics = ttrain.train(cfg)
+    assert np.isfinite(metrics["critic_loss"])
+    assert CheckpointManager(str(Path(
+        tmp_path, cfg.run_name(), "ckpt"))).latest_step == 4
+
+
+def _states_equal(a, b):
+    for name in ("actor", "critic", "target_actor", "target_critic"):
+        for (n, p), (_, q) in zip(getattr(a, name).named_parameters(),
+                                  getattr(b, name).named_parameters()):
+            assert torch.equal(p, q), f"{name}.{n}"
+    for name in ("actor_opt", "critic_opt"):
+        sa = getattr(a, name).state_dict()["state"]
+        sb = getattr(b, name).state_dict()["state"]
+        assert sa.keys() == sb.keys()
+        for i in sa:
+            for k in sa[i]:
+                assert torch.equal(sa[i][k], sb[i][k]), f"{name} {i} {k}"
+    assert a.step == b.step
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+FAMILY_RUNS = {
+    "pixel_fused": dict(env="pixel-point", frame_stack=3, augment="shift",
+                        share_encoder=True, **PIXEL_TINY),
+    "pixel_host": dict(env="pixel-point", frame_stack=3, augment="shift",
+                       share_encoder=True, replay_storage="auto",
+                       fused_replay="auto", **PIXEL_TINY),
+    "mog": dict(critic_family="mog"),
+    "bfloat16": dict(compute_dtype="bfloat16"),
+}
+
+
+@pytest.mark.parametrize("name", list(FAMILY_RUNS))
+def test_family_runs_resume_to_the_same_state(tmp_path, monkeypatch, name):
+    """Two cycles, then ``--resume 1``: the restored state (weights, Adam
+    moments, step and the state's generator, which draws the DrQ offsets
+    and MoG samples) is the one the first run ended with. The pixel runs
+    store uint8 [16, 16, 9] rows."""
+    states, buffers = [], []
+    init = ttrain.init_state
+
+    def recording_init(config, seed, device):
+        states.append(init(config, seed, device))
+        return states[-1]
+
+    class Service(ttrain.ReplayService):
+        def __init__(self, buffer, *args, **kwargs):
+            buffers.append(buffer)
+            super().__init__(buffer, *args, **kwargs)
+
+    monkeypatch.setattr(ttrain, "init_state", recording_init)
+    monkeypatch.setattr(ttrain, "ReplayService", Service)
+    cfg = _cfg(tmp_path, concurrent_eval=False, **FAMILY_RUNS[name])
+    assert np.isfinite(ttrain.train(cfg)["critic_loss"])
+    assert states[0].step == 2 * cfg.train_steps_per_cycle
+    ttrain.train(dataclasses.replace(cfg, resume=True, n_cycles=0))
+    _states_equal(states[0], states[1])
+    if name.startswith("pixel"):
+        assert states[0].actor.detach_encoder
+        rows = buffers[0].gather(np.arange(4)) if name == "pixel_host" \
+            else buffers[0].storage
+        assert rows.obs.dtype in (np.uint8, torch.uint8)
+        assert tuple(rows.obs.shape[1:]) == (16, 16, 9)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(frame_stack=3), "requires a pixel env"),
+    (dict(augment="shift"), "requires the pixel"),
+    (dict(share_encoder=True), "share_encoder"),
+    (dict(env="pixel-point", critic_family="mog"), "pixel encoder"),
+])
+def test_family_flag_misuse_raises_as_in_the_reference(tmp_path, kw, match):
+    with pytest.raises(ValueError, match=match):
+        ttrain.train(_cfg(tmp_path, **kw))
+    assert not list(Path(tmp_path).rglob("*.pt"))
+
+
+@pytest.mark.parametrize("kw", [dict(her=True, env="Pendulum-v1"),
+                                dict(normalize_obs=True, env="pixel-point")],
+                         ids=["her-Pendulum", "normalize_obs-pixels"])
+def test_unported_flags_raise_before_the_env_is_built(tmp_path, monkeypatch,
+                                                      kw):
+    """An unported flag names its ROADMAP item before ``make_env_fn``
+    builds an env: where gymnasium is missing, ``--her 1 --env
+    Pendulum-v1`` must not end in gymnasium's ImportError."""
+    def no_env(*args, **kwargs):
+        raise AssertionError("an env was built before check_ported")
+
+    monkeypatch.setattr(ttrain, "make_env_fn", no_env)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ttrain.train(_cfg(tmp_path, **kw))
+
+
+def test_normalize_obs_with_pixels_is_a_config_error(tmp_path, monkeypatch):
+    """The reference's check on the obs shape, kept behind the unported
+    ``--normalize_obs`` (Queue 1 item 11): pixels are normalized by the
+    encoder."""
+    monkeypatch.setattr(ttrain, "check_ported", lambda cfg: None)
+    with pytest.raises(ValueError, match="vector observations"):
+        ttrain.train(_cfg(tmp_path, env="pixel-point", normalize_obs=True))
+    assert not list(Path(tmp_path).rglob("*.pt"))
+
+
+def test_pixel_storage_reckons_the_obs_itemsize():
+    """``auto`` storage reckons the ring at the obs dtype's itemsize: a
+    50,000-row ring of 84x84x9 uint8 frames (6.35 GB) stays on the card,
+    a 1,000,000-row one goes to host RAM, and the same ring in float32
+    would not fit."""
+    card = torch.device("cuda")
+    frames = (84, 84, 9)
+    for rows, want in ((50_000, ("device", True)),
+                       (1_000_000, ("host", False))):
+        cfg = ExperimentConfig(env="pixel-point", memory_size=rows)
+        assert ttrain.resolve_storage(cfg, frames, 6, card, np.uint8) == want
+    cfg = ExperimentConfig(env="pixel-point", memory_size=50_000)
+    assert ttrain.resolve_storage(cfg, frames, 6, card, np.float32) == (
+        "host", False)
 
 
 def _capture_first_replay(monkeypatch, module, sink):
