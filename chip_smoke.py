@@ -139,7 +139,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      one ``--fused_replay off`` cycle; ``point --critic_family mog`` for
      two cycles and a resume; own grad-steps/s, env steps/s and launches
      per grad step of each;
- 18. a ``kernels`` JSON line (each kernel's launches on every path that
+ 18. the HER recipe on the card: (a) ``GoalActorWorker`` episodes of
+     ``FakeGoalEnv`` (seed 0, horizon 50) through a ``ReplayService``
+     with a ``RunningMeanStd`` over a ``FusedDeviceReplay`` on the card:
+     the ring's ``obs`` and ``next_obs`` rows bitwise ``normalize`` of
+     the raw rows on the host in the same fold order, ``env_steps`` the
+     env steps taken (relabels uncounted); (b) ``train.main`` with the
+     reference's FetchReach recipe on ``fake-goal`` (``--her 1
+     --normalize_obs 1 --n_steps 1 --max_steps 50 --bsize 256
+     --episodes_per_cycle 4 --train_steps_per_cycle 40 --random_eps
+     0.3``) for two cycles and ``--resume 1`` for one: the resumed
+     normalizer's count the saved one, the arm ``auto`` picks and the
+     descent once per grad step, the last publish's statistics the
+     service normalizer's; own grad-steps/s, env steps/s and
+     ``success_rate`` per cycle;
+ 19. remote actors on the card: ``train.main --env point --serve 1
+     --actor_procs 2 --n_workers 0`` for three cycles, then ``fake-goal
+     --her 1 --normalize_obs 1 --actor_procs 1`` for two: rows from
+     every child, a pull of a grad-step publish answered to each, the
+     arm's kernels and the descent once per grad step, the learner and
+     no child on ``nvidia-smi``'s compute apps, and under HER the
+     learner's env_steps below its rows; own grad-steps/s and rows/s
+     received per cycle beside phase 11's;
+ 20. a ``kernels`` JSON line (each kernel's launches on every path that
      runs it), then the result line.
 """
 
@@ -949,7 +971,8 @@ class DriverHooks:
     as a run goes: each ``MetricsBus.log`` call as (step, metrics), and
     each ``StepTimer`` span's wall time (the driver's
     ``grad_steps_per_sec`` is the reference's EWMA of the spans' rates,
-    alpha 0.9, so a cycle's own rate is its steps over its span). A run
+    alpha 0.9, so a cycle's own rate is its steps over its span) with
+    the CPU time the learner's thread took in it (``cpu_spans``). A run
     driven with ``profiled=True`` holds a profiler, warming up from the
     run's start, that records device events from the end of the first
     cycle's log call to the end of the second's: one whole iteration of
@@ -961,7 +984,8 @@ class DriverHooks:
         from d4pg_tpu_torch.io.profiling import StepTimer
 
         self.reset(False)
-        log, stop = MetricsBus.log, StepTimer.stop
+        log, start, stop = (MetricsBus.log, StepTimer.start,
+                            StepTimer.stop)
         hooks = self
 
         def logged(bus, step, metrics):
@@ -970,17 +994,24 @@ class DriverHooks:
             hooks._logged()
             return out
 
+        def started(timer):
+            out = start(timer)
+            hooks._cpu0 = time.thread_time()
+            return out
+
         def stopped(timer, n_steps):
             t0 = timer._t0  # set after the start's device sync
             out = stop(timer, n_steps)  # ends in a device sync
             if t0 is not None:
                 hooks.spans.append(time.perf_counter() - t0)
+                hooks.cpu_spans.append(time.thread_time() - hooks._cpu0)
             return out
 
-        MetricsBus.log, StepTimer.stop = logged, stopped
+        MetricsBus.log, StepTimer.start, StepTimer.stop = (logged, started,
+                                                           stopped)
 
     def reset(self, profiled: bool) -> None:
-        self.records, self.spans = [], []
+        self.records, self.spans, self.cpu_spans = [], [], []
         self.device_events, self.window_s = None, None
         self._logs = 0
         self.prof = None if not profiled else profile(
@@ -1899,6 +1930,390 @@ def phase_driver_families(card: str, hooks: DriverHooks) -> dict:
     return out
 
 
+def phase_her_ingest(dev) -> None:
+    """The normalized fused ingest: ``GoalActorWorker`` episodes of
+    ``FakeGoalEnv`` (seed 0, 50-step horizon) through a
+    ``ReplayService(obs_norm=RunningMeanStd(4))`` over a
+    ``FusedDeviceReplay`` on the card; a spy keeps the raw batches. The
+    ring's ``obs`` and ``next_obs`` rows must be bitwise ``normalize`` of
+    the raw rows on the host, folded batch by batch in the same order,
+    and ``env_steps`` the env steps taken (relabels uncounted)."""
+    from d4pg_tpu_torch.distributed.actor import GoalActorWorker
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.distributed.weights import WeightStore
+    from d4pg_tpu_torch.envs.fake import FakeGoalEnv
+    from d4pg_tpu_torch.envs.normalizer import RunningMeanStd
+    from d4pg_tpu_torch.learner.state import D4PGConfig
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+    from d4pg_tpu_torch.serving.client import ActorConfig
+
+    norm = RunningMeanStd(4)
+    buf = FusedDeviceReplay(16_384, 4, 2, device=dev, block_rows=512)
+    service = ReplayService(buf, obs_norm=norm)
+    raw = []
+
+    class Spy:
+        def add(self, batch, actor_id="local", count_env_steps=True, **kw):
+            raw.append(batch)
+            return service.add(batch, actor_id=actor_id,
+                               count_env_steps=count_env_steps, **kw)
+
+    actor = GoalActorWorker(
+        "goal-0", D4PGConfig(obs_dim=4, act_dim=2), ActorConfig(gamma=0.98),
+        FakeGoalEnv(horizon=50, seed=0), Spy(), WeightStore(),
+        her_ratio=0.8, rng_seed=0, seed=0, obs_norm=norm, learner_device=dev)
+    try:
+        for _ in range(40):
+            actor.run_episode(50)
+        service.flush()
+        service.drain_device()
+        rows = sum(b.obs.shape[0] for b in raw)
+        check(buf.size == rows, f"her ingest: {buf.size} rows in the ring, "
+              f"{rows} streamed")
+        host = RunningMeanStd(4)
+        want_obs, want_next = [], []
+        for b in raw:
+            host.update(b.obs)
+            want_obs.append(host.normalize(b.obs))
+            want_next.append(host.normalize(b.next_obs))
+        ring = buf.storage
+        check(ring.obs.device.type == "cuda", "her ingest: the ring is on "
+              "the card")
+        check(np.array_equal(ring.obs[:rows].cpu().numpy(),
+                             np.concatenate(want_obs)),
+              "her ingest: ring obs bitwise the host normalize")
+        check(np.array_equal(ring.next_obs[:rows].cpu().numpy(),
+                             np.concatenate(want_next)),
+              "her ingest: ring next_obs bitwise the host normalize")
+        check(norm.state_dict()["count"] == host.state_dict()["count"],
+              "her ingest: the service folded every obs row once")
+        check(service.env_steps == actor.env_steps < rows,
+              f"her ingest: env_steps {service.env_steps} == env steps "
+              f"taken {actor.env_steps} < rows {rows}")
+    finally:
+        service.close()
+    print(f"her ingest: {len(raw) // 2} episodes, {actor.env_steps} env "
+          f"steps, {rows} rows on the card bitwise the host's normalize "
+          f"(fold order kept), relabels uncounted")
+
+
+def _driver_run(hooks, driver, tag, argv, log_dir, profiled=False):
+    """``driver.main(argv)`` with the launch counters set to 0 just before
+    and read just after; (result, counts, own grad-steps/s per cycle, the
+    logged cycle rows, wall seconds). ``profiled``: the second cycle's
+    device events land in ``hooks`` (see ``DriverHooks``)."""
+    import contextlib
+
+    hooks.reset(profiled)
+    zero_counts()
+    t0 = time.perf_counter()
+    with hooks.prof if profiled else contextlib.nullcontext():
+        result = driver.main([*argv, "--n_eps", "1", "--log_dir",
+                              str(log_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    cycles, seen = [], set()
+    for step, m in hooks.records:
+        if step not in seen:
+            seen.add(step)
+            cycles.append(m)
+    from d4pg_tpu_torch.config import ExperimentConfig
+
+    per_cycle = ExperimentConfig().train_steps_per_cycle  # 40, not changed
+    own = [per_cycle / span for span in hooks.spans]
+    check(math.isfinite(result["critic_loss"]),
+          f"driver {tag}: finite critic_loss")
+    return result, counts, own, cycles, wall
+
+
+def phase_her_driver(card: str, hooks: DriverHooks) -> dict:
+    """The HER recipe through ``train.main`` at the default widths (hidden
+    256x3, 51 atoms, the fused path): the reference's FetchReach recipe on
+    ``fake-goal`` (``--her 1 --normalize_obs 1 --n_steps 1 --max_steps 50
+    --bsize 256 --episodes_per_cycle 4 --train_steps_per_cycle 40
+    --random_eps 0.3``) for two cycles, then ``--resume 1`` for one. The
+    resumed normalizer's count is the saved one; the arm ``auto`` picks
+    and the descent launch once per grad step; after the last publish
+    the weight store's statistics are the service normalizer's."""
+    import shutil
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.io.checkpoint import CheckpointManager
+    from d4pg_tpu_torch.ops.autotune import select_projection
+
+    runs = ROOT / "runs" / "chip_smoke_her"
+    shutil.rmtree(runs, ignore_errors=True)
+    argv = ["--env", "fake-goal", "--her", "1", "--normalize_obs", "1",
+            "--n_steps", "1", "--max_steps", "50", "--bsize", "256",
+            "--episodes_per_cycle", "4", "--train_steps_per_cycle", "40",
+            "--random_eps", "0.3"]
+    cfg = ExperimentConfig(env="fake-goal", batch_size=256).resolve()
+    zero_counts()
+    arm = select_projection("auto", batch_size=256, v_min=cfg.v_min,
+                            v_max=cfg.v_max, n_atoms=cfg.n_atoms,
+                            device=driver.learner_device(cfg)).selected
+    stores, restored, closed = [], [], []
+
+    class Store(driver.WeightStore):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            stores.append(self)
+
+    class RMS(driver.RunningMeanStd):
+        def load_state_dict(self, d):
+            super().load_state_dict(d)
+            restored.append(self.state_dict())
+
+    close = ReplayService.close
+
+    def closing(service):
+        norm = service.obs_norm
+        closed.append(((*norm.stats(), norm.clip), stores[-1].norm_stats))
+        close(service)
+
+    saved = (driver.WeightStore, driver.RunningMeanStd)
+    driver.WeightStore, driver.RunningMeanStd = Store, RMS
+    ReplayService.close = closing
+    out = {"launches": {}, "own_grad_steps_per_sec": [], "arm": arm}
+    try:
+        for tag, extra, n_cycles in (("her", [], 2),
+                                     ("her_resume", ["--resume", "1"], 1)):
+            result, counts, own, cycles, wall = _driver_run(
+                hooks, driver, tag, argv + ["--n_cycles", str(n_cycles),
+                                            *extra], runs)
+            steps = 40 * len(own)
+            want = {k: steps if k in fused_kernels(arm) else 0
+                    for k in counts}
+            check(counts == want, f"driver {tag}: launches {counts}, "
+                  f"expected {want}")
+            for k, c in counts.items():
+                out["launches"][k] = out["launches"].get(k, 0) + c
+            out["own_grad_steps_per_sec"] += own
+            for i, m in enumerate(cycles):
+                print(f"[driver {tag}] step {40 * (i + 1)}: own "
+                      f"{own[i] if i < len(own) else '-'} grad-steps/s, "
+                      f"env_steps_per_sec {m.get('env_steps_per_sec')}, "
+                      f"success_rate {m.get('success_rate')}, "
+                      f"avg_test_reward {m.get('avg_test_reward')} ({card})")
+            print(f"[driver {tag}] {wall:.2f} s, arm {arm!r}, launches "
+                  f"{counts}")
+            (norm_now, published), = closed
+            closed.clear()
+            check(published is not None and len(published) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(norm_now, published)),
+                f"driver {tag}: the last publish carries the service "
+                "normalizer's (mean, std, clip)")
+            if tag == "her":
+                run_dir = runs / ExperimentConfig(
+                    env="fake-goal", her=True, n_steps=1).run_name()
+                mgr = CheckpointManager(str(run_dir / "ckpt"))
+                saved_count = torch.load(
+                    mgr._path(mgr.latest_step),
+                    weights_only=True)["extra"]["obs_norm"]["count"]
+        (resumed,) = restored
+        check(resumed["count"] == saved_count > 0,
+              f"her resume: normalizer count {resumed['count']} restored, "
+              f"{saved_count} saved")
+        print(f"her resume: the normalizer came back at count "
+              f"{resumed['count']} (saved {saved_count})")
+    finally:
+        driver.WeightStore, driver.RunningMeanStd = saved
+        ReplayService.close = close
+    return out
+
+
+def compute_app_pids() -> list[int]:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+class CpuMeter:
+    """CPU seconds (``time.thread_time``) spent inside the functions it
+    wraps, summed per name over every thread that calls them."""
+
+    def __init__(self):
+        import threading
+
+        self.seconds: dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def wrap(self, name: str, fn):
+        def timed(*args, **kwargs):
+            t0 = time.thread_time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.thread_time() - t0
+                with self._lock:
+                    self.seconds[name] = self.seconds.get(name, 0.0) + dt
+        return timed
+
+    def snapshot(self) -> dict[str, float]:
+        with self._lock:
+            return dict(self.seconds)
+
+
+def phase_remote_driver(card: str, hooks: DriverHooks) -> dict:
+    """Remote actors through ``train.main``: ``point --serve 1
+    --actor_procs 2 --n_workers 0`` for three cycles (every row from the
+    spawned ``actor_main`` children over TCP), then ``fake-goal --her 1
+    --normalize_obs 1 --actor_procs 1``. Per run: rows from each child,
+    a weight pull answered to each child after the first grad publish,
+    the arm's kernels and the descent once per grad step, and on the
+    card's process list the learner and no child; HER: the learner's
+    env_steps below its rows (the relabels' count flag). Per cycle, where
+    the learner's host goes: the CPU its process takes (cores), the share
+    of its grad-step span the learner's thread is on a core, and the
+    cores the receiver's frame decoding and the commit thread's inserts
+    take; the ``point`` run's second cycle is profiled for the device's
+    busy share."""
+    import os
+    import shutil
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.distributed import transport
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.ops.autotune import select_projection
+
+    runs = ROOT / "runs" / "chip_smoke_remote"
+    shutil.rmtree(runs, ignore_errors=True)
+    planes = []
+    meter = CpuMeter()
+
+    def tick(service):
+        return (time.perf_counter(), len(service), time.process_time(),
+                meter.snapshot())
+
+    class Planes(driver.RemotePlanes):
+        def __init__(self, cfg, service, weights):
+            self.service = service
+            # the card's compute apps before any child exists: the
+            # learner's context alone
+            self.apps_before = compute_app_pids()
+            self.rows, self.served = {}, {}
+            super().__init__(cfg, service, weights)
+            self.ticks = [tick(service)]
+            self.apps = None
+            planes.append(self)
+
+        def supervise(self):
+            if self.apps is None:  # children alive: who holds the card
+                self.apps = (compute_app_pids(),
+                             [p.pid for p in self.procs if p is not None])
+            self.ticks.append(tick(self.service))
+            super().supervise()
+
+        def close(self):
+            self.rows = self.service.rows_by_actor()
+            if self.weight_server is not None:
+                self.served = dict(self.weight_server.served_versions)
+            super().close()
+
+    saved = (driver.RemotePlanes, transport.decode_frame,
+             ReplayService._insert_group)
+    driver.RemotePlanes = Planes
+    transport.decode_frame = meter.wrap("decode", saved[1])
+    ReplayService._insert_group = meter.wrap("commit", saved[2])
+    out = {"launches": {}, "runs": {}}
+    try:
+        for tag, argv, children in (
+                ("remote_point", ["--env", "point", "--serve", "1",
+                                  "--actor_procs", "2", "--n_workers", "0",
+                                  "--n_cycles", "3"], 2),
+                ("remote_her", ["--env", "fake-goal", "--her", "1",
+                                "--normalize_obs", "1", "--n_steps", "1",
+                                "--max_steps", "50", "--actor_procs", "1",
+                                "--n_workers", "0", "--n_cycles", "2"], 1)):
+            env = argv[1]
+            cfg = ExperimentConfig(env=env).resolve()
+            arm = select_projection(
+                "auto", batch_size=cfg.batch_size, v_min=cfg.v_min,
+                v_max=cfg.v_max, n_atoms=cfg.n_atoms,
+                device=driver.learner_device(cfg)).selected
+            result, counts, own, cycles, wall = _driver_run(
+                hooks, driver, tag, argv, runs / tag,
+                profiled=env == "point")
+            (pl,) = planes
+            planes.clear()
+            steps = 40 * len(own)
+            check(steps > 0, f"driver {tag}: grad steps ran")
+            want = {k: steps if k in fused_kernels(arm) else 0
+                    for k in counts}
+            check(counts == want, f"driver {tag}: launches {counts}, "
+                  f"expected {want}")
+            for k, c in counts.items():
+                out["launches"][k] = out["launches"].get(k, 0) + c
+            ids = [f"proc-{i}" for i in range(children)]
+            check(all(pl.rows.get(i, 0) > 0 for i in ids),
+                  f"driver {tag}: rows from {ids} ({pl.rows})")
+            fresh = [peer for peer, v in pl.served.items() if v >= 2]
+            check(len(fresh) >= children,
+                  f"driver {tag}: a pull of a grad-step publish answered "
+                  f"to each child (served {pl.served})")
+            pids, child_pids = pl.apps
+            me = os.getpid()
+            # nvidia-smi may report pids of another pid namespace than
+            # this process's (a container): then the learner's own entry
+            # is the one listed before the children were spawned, and a
+            # child holding a context would add an entry
+            print(f"[driver {tag}] compute apps on the card before the "
+                  f"children {pl.apps_before}, with them alive {pids}; "
+                  f"learner pid {me}, children {child_pids}")
+            check(len(pl.apps_before) == 1 and pids == pl.apps_before
+                  and not set(child_pids) & set(pids),
+                  f"driver {tag}: the learner and no child on the card "
+                  f"(before {pl.apps_before}, during {pids})")
+            rows = sum(pl.rows.values())
+            if env == "fake-goal":
+                check(result["env_steps"] < rows,
+                      f"driver {tag}: env_steps {result['env_steps']} "
+                      f"below the rows {rows} (relabels uncounted)")
+            pairs = list(zip(pl.ticks, pl.ticks[1:]))
+            rates = [(b[1] - a[1]) / (b[0] - a[0]) for a, b in pairs]
+            # CPU seconds per wall second of each cycle: cores taken
+            cores = {name: [(b[3].get(name, 0.0) - a[3].get(name, 0.0))
+                            / (b[0] - a[0]) for a, b in pairs]
+                     for name in ("decode", "commit")}
+            cores["process"] = [(b[2] - a[2]) / (b[0] - a[0])
+                                for a, b in pairs]
+            on_core = [c / w for c, w in zip(hooks.cpu_spans, hooks.spans)]
+            busy = None
+            if hooks.device_events is not None and hooks.window_s:
+                busy = sum(e.self_device_time_total
+                           for e in hooks.device_events) / 1e6 \
+                    / hooks.window_s
+            print(f"[driver {tag}] {wall:.2f} s, arm {arm!r}; own "
+                  f"grad-steps/s {[round(x, 2) for x in own]}; rows/s "
+                  f"received per cycle {[round(x, 1) for x in rates]}; "
+                  f"rows {pl.rows}, env_steps {result['env_steps']}; "
+                  f"weight versions served {pl.served}; launches {counts} "
+                  f"({card})")
+            print(f"[driver {tag}] per cycle: learner process "
+                  f"{[round(x, 3) for x in cores['process']]} cores; frame "
+                  f"decoding {[round(x, 3) for x in cores['decode']]} "
+                  f"cores; commit thread "
+                  f"{[round(x, 3) for x in cores['commit']]} cores; the "
+                  f"learner's thread on a core "
+                  f"{[round(x, 3) for x in on_core]} of its grad-step "
+                  f"span; device busy share of cycle 2 "
+                  f"{'not measured' if busy is None else round(busy, 4)} "
+                  f"({card})")
+            out["runs"][tag] = {"own_grad_steps_per_sec": own,
+                                "rows_per_sec": rates, "cores": cores,
+                                "learner_on_core": on_core,
+                                "device_busy_share": busy}
+    finally:
+        (driver.RemotePlanes, transport.decode_frame,
+         ReplayService._insert_group) = saved
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1947,6 +2362,9 @@ def main() -> int:
     mog = phase_mog(dev, per)
     del per
     families = phase_driver_families(card, hooks)
+    phase_her_ingest(dev)
+    her = phase_her_driver(card, hooks)
+    remote = phase_remote_driver(card, hooks)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -1966,6 +2384,10 @@ def main() -> int:
         kern["mog_launches"] = mog["launches"][kern["name"]]
         kern["family_driver_launches"] = sum(
             run["launches"][kern["name"]] for run in families.values())
+        # this slice's paths: the HER driver runs (120 grad steps), the
+        # remote-actor driver runs (200)
+        kern["her_driver_launches"] = her["launches"][kern["name"]]
+        kern["remote_driver_launches"] = remote["launches"][kern["name"]]
     for arm, result in arms.items():
         print(f"[{arm}] grad_steps_per_s {result['grad_steps_per_s']:.1f} "
               f"on {card}")
@@ -2001,6 +2423,22 @@ def main() -> int:
         print(f"[driver {tag}] own grad-steps/s "
               f"{[round(x, 2) for x in run['own_grad_steps_per_sec']]}, "
               f"env_steps_per_sec {run['env_steps_per_sec']} on {card}")
+    print(f"[driver her] own grad-steps/s "
+          f"{[round(x, 2) for x in her['own_grad_steps_per_sec']]} (arm "
+          f"{her['arm']!r}) against phase 11's in-process point driver "
+          f"{[round(x, 2) for x in drv['own_grad_steps_per_sec']]} on "
+          f"{card}")
+    for tag, run in remote["runs"].items():
+        cores = {k: [round(x, 3) for x in v]
+                 for k, v in run["cores"].items()}
+        print(f"[driver {tag}] own grad-steps/s "
+              f"{[round(x, 2) for x in run['own_grad_steps_per_sec']]}, "
+              f"rows/s received {[round(x, 1) for x in run['rows_per_sec']]}"
+              f" against phase 11's "
+              f"{[round(x, 2) for x in drv['own_grad_steps_per_sec']]}; "
+              f"learner process {cores['process']} cores, decoding "
+              f"{cores['decode']}, commit {cores['commit']}, "
+              f"device busy share {run['device_busy_share']} on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

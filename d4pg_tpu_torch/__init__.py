@@ -25,7 +25,11 @@ GPU. Acting and eval run on the host CPU by the driver's
 
 It trains the reference's model families: the MLP and the conv-encoder
 pixel models (``models/``, ``ops/augment.py``), the categorical and the
-mixture-of-Gaussians critics (``core/mog.py``).
+mixture-of-Gaussians critics (``core/mog.py``); the HER recipe with
+observation normalization (``envs/her.py``, ``envs/normalizer.py``,
+``distributed/actor.py::GoalActorWorker``); and remote actors over the
+reference's wire (``core/wire.py``, ``distributed/transport.py``,
+``distributed/weight_server.py``, ``actor_main.py``).
 
 Precision: the port runs in float32 by default, like ``D4PGConfig``'s
 ``compute_dtype``; ``compute_dtype='bfloat16'`` runs the network

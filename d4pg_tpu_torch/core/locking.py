@@ -29,6 +29,7 @@ HIERARCHY: dict[str, int] = {
     "service": 50,  # ReplayService._lock (heartbeats, pending, env_steps)
     "buffer": 40,   # ReplayService._buffer_lock (all replay-state access)
     "commit": 30,   # ReplayService._commit_cond (ordered-merge state)
+    "wserve": 26,   # WeightServer._frame_lock (frame memo; fills read wstore)
     "wstore": 24,   # WeightStore._store_lock (published params + version)
     "shard": 20,    # _IngestShard.cond (admission deque + counters)
 }

@@ -9,8 +9,12 @@ thread, so the learner never waits for them; a failed eval is printed
 and the thread goes on, and a crash of the thread's own loop is counted
 (``obs.containment.contained_crash``). Inference goes through the
 same policy client as the actors (``serving/client``), on the CPU by
-default. Goal-conditioned envs and observation normalization wait for the
-HER slice of the port.
+default. A goal-conditioned env's dict observation is flattened to
+[observation, desired goal] and ``success_rate`` reads the env's
+``is_success`` (``goal_conditioned`` is the reference's flag; the
+flattening keys on the observation's type, as there), and ``obs_norm`` (the service's live
+``RunningMeanStd``, read only) standardizes the policy input as the
+replay rows were.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from d4pg_tpu_torch.envs.wrappers import rescale_action
+from d4pg_tpu_torch.envs.wrappers import flatten_goal_obs, rescale_action
 from d4pg_tpu_torch.learner.state import D4PGConfig
 from d4pg_tpu_torch.obs.containment import contained_crash
 from d4pg_tpu_torch.serving.client import ActorConfig, LocalPolicyClient
@@ -38,13 +42,19 @@ class Evaluator:
         env_fn: Callable[[], object],
         weights,
         max_steps: int = 1000,
+        goal_conditioned: bool = False,
         device: str = "cpu",
+        obs_norm=None,
         learner_device=None,
     ):
         self.config = config
         self.env = env_fn()
         self.weights = weights
         self.max_steps = max_steps
+        self.goal_conditioned = goal_conditioned
+        # the policy was trained on normalized rows: greedy eval applies
+        # the same (current) statistics, read only
+        self.obs_norm = obs_norm
         self.ewma_return: Optional[float] = None
         self._low = np.asarray(self.env.action_space.low, np.float32)
         self._high = np.asarray(self.env.action_space.high, np.float32)
@@ -57,7 +67,10 @@ class Evaluator:
         obs, _ = self.env.reset(**reset_kw)
         total, success = 0.0, False
         for _ in range(self.max_steps):
-            a = self.policy.greedy_actions(np.asarray(obs)[None])[0]
+            flat = flatten_goal_obs(obs)
+            if self.obs_norm is not None:
+                flat = self.obs_norm.normalize(flat)
+            a = self.policy.greedy_actions(flat[None])[0]
             obs, r, term, trunc, info = self.env.step(
                 rescale_action(a, self._low, self._high))
             total += float(r)

@@ -33,12 +33,22 @@ never nested. The unified registry (``obs.registry``) holds the
 counter; a crash of either ingest thread is counted
 (``obs.containment.contained_crash``), after which ``flush`` times out.
 
+Observation normalization (``obs_norm``, an ``envs/normalizer.
+RunningMeanStd``): the commit thread is the single writer of the
+statistics. Batch by batch, in admission-ticket order, it folds the
+batch's ``obs`` into them and then normalizes the batch's ``obs`` and
+``next_obs`` with them (``next_obs`` never folds), as the reference's
+``_insert_group`` does; every buffer therefore receives standardized
+float32 rows, and the statistics do not depend on how the batches were
+grouped. The remote planes add through ``add`` from the transport's
+receiver callback (one heartbeat per frame), wait on ``wait_until``
+(the spawned actors' warm-up), and greet senders with ``generation``,
+which stays 0 here: snapshot and restore, which advance it, wait for
+ROADMAP Queue 1 item 17.
+
 Not ported yet (each raises when asked for): more than one ingest shard
-and shedding at a watermark (ROADMAP Queue 1 item 12, with the wire
-frames ``add_payload`` needs), observation normalization (item 11);
-snapshot and restore with their generation fencing, eviction and
-``kill`` wait for items 12 and 17, and ``wait_until`` (the spawned-actor
-warm-up) for item 12.
+and shedding at a watermark (ROADMAP Queue 1 item 12, with the undecoded
+``add_payload``); eviction and ``kill`` wait for items 12 and 17.
 """
 
 from __future__ import annotations
@@ -85,11 +95,9 @@ class ReplayService:
             raise NotImplementedError(
                 "sharded ingest (num_ingest_shards > 1) and watermark "
                 "shedding are not ported yet (ROADMAP Queue 1 item 12)")
-        if obs_norm is not None:
-            raise NotImplementedError(
-                "observation normalization at ingest is not ported yet "
-                "(ROADMAP Queue 1 item 11)")
         self.buffer = buffer
+        self.obs_norm = obs_norm
+        self._generation = 0
         self._env_steps = 0
         self._rows_committed = 0
         self._lock = TieredLock("service")
@@ -101,6 +109,7 @@ class ReplayService:
         # commit's insert
         self._pending = 0
         self._heartbeats: dict[str, float] = {}
+        self._actor_rows: dict[str, int] = {}  # rows committed per actor
         self._heartbeat_timeout = heartbeat_timeout
         self._shard = _IngestShard(int(ingest_capacity))
         # the commit's inbox, under _commit_cond: the worker's groups, in
@@ -231,6 +240,13 @@ class ReplayService:
             return stage()
 
     @property
+    def generation(self) -> int:
+        """The service generation the transition receiver greets senders
+        with (0: no restore has advanced it)."""
+        with self._lock:
+            return self._generation
+
+    @property
     def env_steps(self) -> int:
         with self._lock:
             return self._env_steps
@@ -243,6 +259,22 @@ class ReplayService:
     def __len__(self) -> int:
         with self._buffer_lock:
             return len(self.buffer)
+
+    def wait_until(self, min_size: int, timeout: float = 300.0) -> bool:
+        """Block until the buffer holds ``min_size`` rows (staged rows of a
+        fused buffer count); False past ``timeout``."""
+        deadline = time.monotonic() + timeout
+        while len(self) < min_size:
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.01)
+        return True
+
+    def rows_by_actor(self) -> dict[str, int]:
+        """Rows committed per actor id (relabels included): which actors,
+        local or remote, the replay rows came from."""
+        with self._lock:
+            return dict(self._actor_rows)
 
     def dead_actors(self) -> list[str]:
         """Actors whose last heartbeat is older than the timeout."""
@@ -331,16 +363,28 @@ class ReplayService:
 
     def _insert_group(self, group: list) -> None:
         try:
+            if self.obs_norm is not None:
+                # fold, then normalize, batch by batch in ticket order:
+                # only obs feeds the estimator, next_obs is normalized
+                # but never folded
+                norm = self.obs_norm
+                for j, (seq, batch, aid, rows, count) in enumerate(group):
+                    norm.update(batch.obs)
+                    group[j] = (seq, batch._replace(
+                        obs=norm.normalize(batch.obs),
+                        next_obs=norm.normalize(batch.next_obs)),
+                        aid, rows, count)
             with self._buffer_lock:
                 for _seq, batch, _aid, _rows, _count in group:
                     self.buffer.add(batch)
         finally:
             committed = 0
             with self._lock:
-                for _seq, _batch, _aid, rows, count in group:
+                for _seq, _batch, aid, rows, count in group:
                     if count:
                         self._env_steps += rows
                     committed += rows
+                    self._actor_rows[aid] = self._actor_rows.get(aid, 0) + rows
                 self._rows_committed += committed
                 self._pending -= len(group)
             REGISTRY.counter("ingest.rows_committed").inc(committed)

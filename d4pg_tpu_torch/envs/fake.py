@@ -1,9 +1,9 @@
 """Fake environments for tests and the card: no MuJoCo, no gymnasium.
 
-Counterpart of ``PointMassEnv``, ``SlowEnv`` and ``PixelPointEnv`` in
-``d4pg_tpu/envs/fake.py``, copied as they are (numpy only): the same
-seeds give the same trajectories and frames in both packages. The goal
-fake env waits for the HER slice of the port. ``_Box`` stands in for
+Counterpart of ``PointMassEnv``, ``SlowEnv``, ``PixelPointEnv`` and
+``FakeGoalEnv`` in ``d4pg_tpu/envs/fake.py``, copied as they are (numpy
+only): the same seeds give the same trajectories and frames in both
+packages. ``_Box`` stands in for
 gymnasium's ``Box`` (the card has no gymnasium): bounds, shape and
 dtype.
 """
@@ -119,6 +119,58 @@ class PixelPointEnv:
         reward = float(-np.linalg.norm(self._pos - 0.5))
         truncated = self._t >= self.horizon
         return self._obs(), reward, False, truncated, {}
+
+    def close(self):
+        pass
+
+
+class FakeGoalEnv:
+    """Goal-conditioned point reach with sparse -1/0 reward and dict obs
+    (``observation``, ``achieved_goal``, ``desired_goal``); ``info``
+    carries ``is_success``."""
+
+    def __init__(self, horizon: int = 50, tol: float = 0.15, seed: int = 0):
+        self.horizon = horizon
+        self.tol = tol
+        self.action_space = _Box(-1.0, 1.0, (2,))
+        self.observation_space = _Box(-np.inf, np.inf, (2,))
+        self.goal_dim = 2
+        self._rng = np.random.default_rng(seed)
+        self._t = 0
+        self._pos = np.zeros(2, np.float32)
+        self._goal = np.zeros(2, np.float32)
+
+    def compute_reward(self, achieved_goal, desired_goal, info=None):
+        """Sparse -1/0 (the GoalEnv ``compute_reward`` contract),
+        vectorized over leading dims."""
+        d = np.linalg.norm(
+            np.asarray(achieved_goal) - np.asarray(desired_goal), axis=-1)
+        return -(d > self.tol).astype(np.float32)
+
+    def _obs(self):
+        return {
+            "observation": self._pos.copy(),
+            "achieved_goal": self._pos.copy(),
+            "desired_goal": self._goal.copy(),
+        }
+
+    def reset(self, seed=None, **kw):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._pos = self._rng.uniform(-1, 1, 2).astype(np.float32)
+        self._goal = self._rng.uniform(-1, 1, 2).astype(np.float32)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        action = np.clip(np.asarray(action, np.float32), -1.0, 1.0)
+        self._pos = self._pos + 0.2 * action
+        self._t += 1
+        reward = float(self.compute_reward(self._pos, self._goal))
+        success = reward == 0.0
+        truncated = self._t >= self.horizon
+        return (self._obs(), reward, bool(success), truncated,
+                {"is_success": success})
 
     def close(self):
         pass

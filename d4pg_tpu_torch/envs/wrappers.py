@@ -1,18 +1,18 @@
 """Action rescaling between the policy's tanh range and an env's box,
-and frame stacking for pixel envs.
+goal observations, and frame stacking for pixel envs.
 
 Counterpart of ``rescale_action``, ``inverse_rescale_action``,
-``RescaleActionWrapper`` and ``FrameStack`` in
-``d4pg_tpu/envs/wrappers.py``: numpy only. ``FrameStack`` advertises its
-space as the port's duck-typed ``envs.fake._Box`` where the reference
-builds a gymnasium ``Box`` (the card has no gymnasium). The goal
-observations (``GoalObs``, ``flatten_goal_obs``) wait for the HER slice
-of the port.
+``RescaleActionWrapper``, ``GoalObs``, ``flatten_goal_obs`` and
+``FrameStack`` in ``d4pg_tpu/envs/wrappers.py``: numpy only.
+``FrameStack`` advertises its space as the port's duck-typed
+``envs.fake._Box`` where the reference builds a gymnasium ``Box`` (the
+card has no gymnasium).
 """
 
 from __future__ import annotations
 
 from collections import deque
+from typing import NamedTuple
 
 import numpy as np
 
@@ -48,6 +48,27 @@ class RescaleActionWrapper:
 
     def __getattr__(self, name):
         return getattr(self.env, name)
+
+
+class GoalObs(NamedTuple):
+    """Structured goal-conditioned observation (a gymnasium GoalEnv
+    dict)."""
+
+    observation: np.ndarray
+    achieved_goal: np.ndarray
+    desired_goal: np.ndarray
+
+
+def flatten_goal_obs(obs) -> np.ndarray:
+    """The policy input of a goal env: observation and desired goal
+    concatenated. Takes a ``GoalObs``, a gymnasium dict, or a plain array
+    (returned as it is)."""
+    if isinstance(obs, GoalObs):
+        return np.concatenate([obs.observation, obs.desired_goal], axis=-1)
+    if isinstance(obs, dict):
+        return np.concatenate([obs["observation"], obs["desired_goal"]],
+                              axis=-1)
+    return np.asarray(obs)
 
 
 class FrameStack:

@@ -1,4 +1,4 @@
-"""Carry a learner state across from the JAX package.
+"""Carry a learner state across from the JAX package, and weights back.
 
 Input is the JAX ``D4PGState`` with every leaf turned into a numpy array
 (what ``jax.tree_util.tree_map(np.asarray, state)`` gives), so this module
@@ -19,6 +19,12 @@ name. Mapping:
   - ``step`` becomes the host step counter. The PRNG ``key`` has no
     torch counterpart: the state keeps the generator ``init_state``
     seeds.
+
+``flax_layout`` is the other direction for a module's parameters: torch
+names and layouts back to the Flax tree (``kernel`` [in, out] or HWIO,
+``scale``, ``bias``), with the keys of every level sorted as JAX's dict
+pytrees hold them. The v1 weight frames carry the actor in that tree, so
+a JAX actor adopts a torch learner's weights as its own.
 """
 
 from __future__ import annotations
@@ -48,6 +54,37 @@ def torch_layout(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
         else:  # a submodule: encoder, actor, critic
             out.update(torch_layout(leaves, f"{prefix}{name}."))
     return out
+
+
+def flax_layout(named: dict) -> dict:
+    """Torch parameter names -> tensors (a module's ``state_dict``) as the
+    Flax variable dict ``{"params": tree}`` of numpy arrays: the inverse
+    of ``torch_layout`` for modules without the critic's flattened
+    ``torso`` level (the actor, the encoder). A 2-D ``weight`` is a Dense
+    kernel (transposed to [in, out]), a 4-D one a Conv kernel (OIHW to
+    HWIO), a 1-D one a LayerNorm ``scale``."""
+    tree: dict = {}
+    for name, t in named.items():
+        arr = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+               else np.asarray(t))
+        *path, leaf = name.split(".")
+        if leaf == "weight":
+            if arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                leaf, arr = "kernel", arr.T
+            else:
+                leaf = "scale"
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+
+    def sort(node):
+        return ({k: sort(node[k]) for k in sorted(node)}
+                if isinstance(node, dict) else node)
+
+    return {"params": sort(tree)}
 
 
 @torch.no_grad()

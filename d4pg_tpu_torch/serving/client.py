@@ -13,6 +13,8 @@ epsilon schedule. Interface, as in the reference:
     reset_noise(done_mask)    zero per-env OU state on episode end
     decay_epsilon()           episode-boundary epsilon schedule step
     close()                   no-op locally
+    obs_norm                  read-only normalizer view (or None); the
+                              caller normalizes the policy input with it
 
 Random draws: the reference holds a JAX key; the client here owns a
 ``torch.Generator`` seeded from ``seed`` (uniform warm-up actions before
@@ -37,6 +39,7 @@ import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.core.noise import ou
+from d4pg_tpu_torch.envs.normalizer import FrozenNormalizer, RunningMeanStd
 from d4pg_tpu_torch.learner.state import D4PGConfig
 from d4pg_tpu_torch.learner.update import act, act_deterministic, act_ou
 
@@ -94,11 +97,15 @@ class LocalPolicyClient:
         weights,
         seed: int = 0,
         learner_device: str | torch.device | None = None,
+        obs_norm=None,
     ):
         self.config = config
         self.cfg = actor_cfg
         self.weights = weights
-        self.obs_norm = None  # observation normalization is not ported
+        # read-only view for the policy input: in-process actors share the
+        # service's live RunningMeanStd; a remote actor's client builds a
+        # FrozenNormalizer from the statistics its weight pulls carry
+        self.obs_norm = obs_norm
         self.device = resolve_act_device(actor_cfg.device, learner_device)
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
@@ -132,6 +139,14 @@ class LocalPolicyClient:
             return False
         self._version, params = got
         self._adopt(params)
+        # a remote store (WeightClient) hands over the learner's statistics
+        # with the weights; a live in-process RunningMeanStd stays in charge
+        ns = getattr(self.weights, "norm_stats", None)
+        if ns is not None and not isinstance(self.obs_norm, RunningMeanStd):
+            if self.obs_norm is None:
+                self.obs_norm = FrozenNormalizer(*ns)
+            else:
+                self.obs_norm.set(*ns)
         return True
 
     def snapshot_pull(self) -> tuple[int, int]:

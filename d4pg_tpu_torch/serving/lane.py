@@ -3,9 +3,10 @@
 Counterpart of ``d4pg_tpu/serving/lane.py``. One lane owns an ``EnvPool``
 (E envs stepping in lockstep), an n-step folder and a transition sink (a
 ``ReplayService``); the policy queries go through an injected policy
-client (``serving/client.LocalPolicyClient``). The tick order
-is the reference's: poll gate -> act -> step -> fold -> send -> noise
-reset -> epsilon decay. ``run`` is resumable: the pool is reset once, and
+client (``serving/client.LocalPolicyClient``). The tick order is the
+reference's: poll gate -> normalize (when the client holds a normalizer)
+-> act -> step -> fold -> send -> noise reset -> epsilon decay. The
+rows stream raw: the service normalizes them at insert. ``run`` is resumable: the pool is reset once, and
 the episode state and the n-step window persist across calls, so a cycle
 boundary never restarts episodes or drops pending window entries.
 """
@@ -64,7 +65,10 @@ class VectorActorLane:
                 break
             if tick % self.cfg.weight_poll_every == 0:
                 policy.pull()
-            actions = policy.actions(obs)
+            if policy.obs_norm is not None:
+                actions = policy.actions(policy.obs_norm.normalize(obs))
+            else:
+                actions = policy.actions(obs)
             out = self.pool.step(actions)
             folded = self._folder.step(
                 obs, actions, out.reward * self.cfg.reward_scale,

@@ -44,6 +44,13 @@ HOST_PATH_AND_OBS = {
     "d4pg_tpu_torch.replay.prioritized", "d4pg_tpu_torch.replay.staging",
     "d4pg_tpu_torch.learner.pipeline",
 }
+# modules the HER recipe and the remote planes added
+HER_AND_REMOTE = {
+    "d4pg_tpu_torch.envs.her", "d4pg_tpu_torch.envs.normalizer",
+    "d4pg_tpu_torch.envs.robotics_compat", "d4pg_tpu_torch.core.wire",
+    "d4pg_tpu_torch.distributed.transport",
+    "d4pg_tpu_torch.distributed.weight_server", "d4pg_tpu_torch.actor_main",
+}
 
 
 def test_port_imports_with_jax_blocked():
@@ -53,9 +60,10 @@ def test_port_imports_with_jax_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 59  # every module of the package was imported
+    assert n_modules >= 66  # every module of the package was imported
     imported = set(out.stdout.split("] ", 1)[1].split())
     assert HOST_PATH_AND_OBS <= imported, HOST_PATH_AND_OBS - imported
+    assert HER_AND_REMOTE <= imported, HER_AND_REMOTE - imported
 
 
 def test_port_sources_import_no_jax_or_reference():

@@ -31,6 +31,7 @@ from d4pg_tpu.replay.fused_buffer import FusedDeviceReplay as JaxReplay
 from d4pg_tpu.replay.uniform import TransitionBatch as JaxBatch
 from d4pg_tpu_torch.core import locking
 from d4pg_tpu_torch.distributed.replay_service import ReplayService
+from d4pg_tpu_torch.envs.normalizer import RunningMeanStd
 from d4pg_tpu_torch.io.from_jax import state_from_jax, torch_layout
 from d4pg_tpu_torch.learner import state as tstate
 from d4pg_tpu_torch.learner.fused import make_fused_chunk
@@ -216,11 +217,13 @@ def test_service_concurrent_producers_lose_no_row():
 
 
 def test_service_refuses_unported_modes():
+    """Sharded ingest and shedding still raise (item 12); observation
+    normalization is ported (tests/test_torch_normalizer.py)."""
     buf = FusedDeviceReplay(32, OBS, ACT, device="cpu")
-    for kwargs in (dict(num_ingest_shards=2), dict(shed_watermark=0.5),
-                   dict(obs_norm=object())):
+    for kwargs in (dict(num_ingest_shards=2), dict(shed_watermark=0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ReplayService(buf, **kwargs)
+    ReplayService(buf, obs_norm=RunningMeanStd(OBS)).close()
     with pytest.raises(NotImplementedError, match="item 12"):
         FusedDeviceReplay(32, OBS, ACT, device="cpu", ingest_shards=2)
 

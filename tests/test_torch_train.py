@@ -8,8 +8,13 @@ resume, one cycle for each flag value the host replay path, the obs
 plane and the model families (bfloat16, the pixel path, the MoG critic)
 made trainable (and the default flags on the CPU, which take the host
 path), a resume of each family to the state its first run ended with,
-the reference's errors for those flags' misuse, the refusal of every
-flag value that still selects an unported path, and whole-slice parity on both paths: with the same
+the reference's errors for those flags' misuse, the HER recipe
+(``fake-goal --her 1``, with and without ``--normalize_obs 1``: two
+cycles and a resume with the statistics restored; the reference's two
+resume refusals), ``--serve 1`` with a remote actor on a thread,
+``--actor_procs`` (marked ``slow``, as the reference's
+``tests/test_actor_procs.py``), the refusal of every flag value and
+entry point that still selects an unported path, and whole-slice parity on both paths: with the same
 initial weights carried across and exploration off, the rows both
 drivers hold in replay when the first grad step starts match within atol
 1e-5 (and on the host path the first chunk's slots and IS weights are
@@ -21,6 +26,8 @@ import dataclasses
 import os
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import jax
@@ -279,17 +286,12 @@ def test_fused_on_with_host_storage_raises(tmp_path):
 
 
 UNPORTED = [
-    (dict(her=True), "item 11"),
-    (dict(env="fake-goal"), "item 11"),
-    (dict(normalize_obs=True), "item 11"),
     (dict(learners=2), "item 15"),
     (dict(sample_on_ingest=True), "item 14"),
     (dict(data_parallel=2), "item 16"),
     (dict(coordinator="localhost:9999"), "item 16"),
     (dict(num_processes=2), "item 16"),
-    (dict(serve=True), "item 12"),
     (dict(serve_policy=True), "item 13"),
-    (dict(actor_procs=1), "item 12"),
     (dict(autoscale=True), "item 17"),
     (dict(ingest_shards=2), "item 12"),
     (dict(checkpoint_replay=True), "item 17"),
@@ -306,6 +308,39 @@ def test_unported_flag_values_raise(tmp_path, kw, item):
     assert not list(Path(tmp_path).rglob("*.pt"))
 
 
+def _actor_main_argv(*extra):
+    from d4pg_tpu_torch import actor_main
+
+    return lambda: actor_main.main(
+        ["--learner_host", "127.0.0.1", "--transitions_port", "1",
+         "--weights_port", "2", *extra])
+
+
+def _receiver(**kw):
+    from d4pg_tpu_torch.distributed.transport import TransitionReceiver
+
+    return lambda: TransitionReceiver(lambda *a: None, **kw)
+
+
+# what the remote planes' entry points still leave unported
+UNPORTED_ENTRY_POINTS = [
+    ("actor_main --weight_codec bf16",
+     _actor_main_argv("--weight_codec", "bf16"), "item 12"),
+    ("actor_main --policy_port", _actor_main_argv("--policy_port", "3"),
+     "item 13"),
+    ("TransitionReceiver(num_shards=2)", _receiver(num_shards=2), "item 12"),
+]
+
+
+@pytest.mark.parametrize("call,item", [(c, i) for _, c, i in
+                                       UNPORTED_ENTRY_POINTS],
+                         ids=[n for n, _, _ in UNPORTED_ENTRY_POINTS])
+def test_unported_entry_point_values_raise(call, item):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+        call()
+    assert item in str(err.value)
+
+
 @pytest.mark.parametrize("platform", ["auto", "accel"])
 def test_platform_without_a_card_raises(tmp_path, monkeypatch, platform):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -317,9 +352,15 @@ def test_platform_without_a_card_raises(tmp_path, monkeypatch, platform):
 
 
 def test_gymnasium_envs_build_through_make_env_fn():
+    """A gymnasium id builds; an id gymnasium does not know is looked up
+    in gymnasium_robotics (registered on import, the MuJoCo-3 shim
+    installed) and, unknown there too, raises gymnasium's error as the
+    reference's does."""
+    import gymnasium as gym
+
     cfg = ExperimentConfig(env="Pendulum-v1").resolve()
     assert ttrain.infer_dims(cfg) == (3, 1, np.float32)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(gym.error.NameNotFound):
         ttrain.make_env_fn(ExperimentConfig(env="NoSuchEnv-v0"), 0)()
 
 
@@ -441,27 +482,27 @@ def test_family_flag_misuse_raises_as_in_the_reference(tmp_path, kw, match):
     assert not list(Path(tmp_path).rglob("*.pt"))
 
 
-@pytest.mark.parametrize("kw", [dict(her=True, env="Pendulum-v1"),
-                                dict(normalize_obs=True, env="pixel-point")],
-                         ids=["her-Pendulum", "normalize_obs-pixels"])
+@pytest.mark.parametrize("kw,item", [
+    (dict(serve_policy=True, env="Pendulum-v1"), "item 13"),
+    (dict(learners=2, env="pixel-point"), "item 15")],
+    ids=["serve_policy-Pendulum", "learners-pixels"])
 def test_unported_flags_raise_before_the_env_is_built(tmp_path, monkeypatch,
-                                                      kw):
+                                                      kw, item):
     """An unported flag names its ROADMAP item before ``make_env_fn``
-    builds an env: where gymnasium is missing, ``--her 1 --env
-    Pendulum-v1`` must not end in gymnasium's ImportError."""
+    builds an env: where gymnasium is missing, an unported flag with
+    ``--env Pendulum-v1`` must not end in gymnasium's ImportError."""
     def no_env(*args, **kwargs):
         raise AssertionError("an env was built before check_ported")
 
     monkeypatch.setattr(ttrain, "make_env_fn", no_env)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match=item):
         ttrain.train(_cfg(tmp_path, **kw))
 
 
-def test_normalize_obs_with_pixels_is_a_config_error(tmp_path, monkeypatch):
-    """The reference's check on the obs shape, kept behind the unported
-    ``--normalize_obs`` (Queue 1 item 11): pixels are normalized by the
-    encoder."""
-    monkeypatch.setattr(ttrain, "check_ported", lambda cfg: None)
+def test_normalize_obs_with_pixels_is_a_config_error(tmp_path):
+    """The reference's check on the obs shape: pixels are normalized by
+    the encoder, so ``--normalize_obs`` is refused for them before any
+    run directory is written."""
     with pytest.raises(ValueError, match="vector observations"):
         ttrain.train(_cfg(tmp_path, env="pixel-point", normalize_obs=True))
     assert not list(Path(tmp_path).rglob("*.pt"))
@@ -570,3 +611,174 @@ def test_host_path_replay_rows_and_first_chunk_match_reference(
         np.testing.assert_allclose(t, j, atol=1e-5, rtol=0, err_msg=name)
     np.testing.assert_array_equal(tidx, jidx)
     np.testing.assert_array_equal(tw, jw)
+
+
+# -- the HER recipe and the remote planes ------------------------------------
+
+HER = dict(env="fake-goal", her=True, n_steps=1, max_steps=20,
+           episodes_per_cycle=2, v_min=-20.0, v_max=0.0)
+
+
+class _RecordingRMS(ttrain.RunningMeanStd):
+    """Records the state each driver normalizer was restored to."""
+
+    restored: list = []
+
+    def load_state_dict(self, d):
+        super().load_state_dict(d)
+        _RecordingRMS.restored.append(self.state_dict())
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_her_trains_and_resumes_with_the_statistics(tmp_path, monkeypatch,
+                                                    normalize):
+    """``--env fake-goal --her 1`` (with and without ``--normalize_obs
+    1``) trains two cycles on the CPU, then resumes for one: the
+    normalizer comes back with the count, mean and M2 it was saved with,
+    and the run goes on from the saved step."""
+    monkeypatch.setattr(ttrain, "RunningMeanStd", _RecordingRMS)
+    _RecordingRMS.restored = []
+    cfg = _cfg(tmp_path, **HER, normalize_obs=normalize)
+    metrics = ttrain.train(cfg)
+    assert np.isfinite(metrics["critic_loss"])
+    assert 0.0 <= metrics["success_rate"] <= 1.0
+    ckpt = CheckpointManager(str(Path(tmp_path, cfg.run_name(), "ckpt")))
+    assert ckpt.latest_step == 12
+    saved = torch.load(Path(ckpt._path(12)), weights_only=True)["extra"]
+    assert ("obs_norm" in saved) == normalize
+    ttrain.train(dataclasses.replace(cfg, n_cycles=1, resume=True))
+    assert ckpt.latest_step == 18
+    if not normalize:
+        assert _RecordingRMS.restored == []
+        return
+    (restored,) = _RecordingRMS.restored
+    want = saved["obs_norm"]
+    assert restored["count"] == want["count"] > 0
+    np.testing.assert_array_equal(restored["mean"], want["mean"].numpy())
+    np.testing.assert_array_equal(restored["m2"], want["m2"].numpy())
+
+
+def test_normalize_obs_resume_refusals(tmp_path):
+    """The reference's two refusals: a normalized checkpoint resumed
+    without the flag, and a raw one resumed with it."""
+    raw = _cfg(tmp_path / "raw", **HER, n_cycles=1)
+    ttrain.train(raw)
+    with pytest.raises(ValueError, match="without obs_norm"):
+        ttrain.train(dataclasses.replace(raw, resume=True,
+                                         normalize_obs=True))
+    normed = _cfg(tmp_path / "norm", **HER, n_cycles=1, normalize_obs=True)
+    ttrain.train(normed)
+    with pytest.raises(ValueError, match="resume with the flag"):
+        ttrain.train(dataclasses.replace(normed, resume=True,
+                                         normalize_obs=False))
+
+
+def test_serve_trains_with_a_remote_actor_thread(tmp_path, monkeypatch):
+    """``--serve 1``: the receiver and the weight server come up with
+    their ports printed, a remote ``run_actor`` on a thread streams into
+    the learner's service and pulls its weights, and two cycles train."""
+    from d4pg_tpu_torch import actor_main
+
+    seen = {}
+
+    class Planes(ttrain.RemotePlanes):
+        def __init__(self, cfg, service, weights):
+            super().__init__(cfg, service, weights)
+            seen["before"] = len(service)
+            remote = dataclasses.replace(cfg, num_envs=1, seed=99)
+            t = threading.Thread(target=lambda: seen.update(
+                steps=actor_main.run_actor(
+                    remote, "127.0.0.1", self.receiver.port,
+                    self.weight_server.port, actor_id="remote-0",
+                    max_ticks=40, send_timeout=10.0)), daemon=True)
+            t.start()
+            t.join(timeout=120)
+            assert not t.is_alive()
+            # 40 ticks of one env, n-step folded: at least 35 rows
+            assert service.wait_until(seen["before"] + 35, timeout=10.0)
+            seen["service"] = service
+            seen["server"] = self.weight_server
+
+    monkeypatch.setattr(ttrain, "RemotePlanes", Planes)
+    cfg = _cfg(tmp_path, serve=True)
+    metrics = ttrain.train(cfg)
+    assert np.isfinite(metrics["critic_loss"])
+    assert seen["steps"] == 40
+    assert "remote-0" in seen["service"]._heartbeats
+    assert metrics["env_steps"] >= seen["before"] + 35
+    assert seen["server"].pulls_served >= 1
+    assert "dead_actors" in metrics
+
+
+@pytest.mark.parametrize("fail_at", ["weight_server", "loop"])
+def test_remote_planes_closed_when_a_run_fails(tmp_path, monkeypatch,
+                                               fail_at):
+    """What ``--serve 1`` started does not outlive a failed run: a start
+    that fails after the receiver is up closes the receiver, and a run
+    that fails in its cycle loop closes the planes on the way out."""
+    import socket
+
+    from d4pg_tpu_torch.distributed import weight_server
+
+    seen = {}
+
+    class Planes(ttrain.RemotePlanes):
+        def close(self):
+            seen["port"] = self.receiver.port
+            seen["closed"] = seen.get("closed", 0) + 1
+            super().close()
+
+    class Broken:
+        def __init__(self, *args, **kwargs):
+            raise RuntimeError("the start failed")
+
+    monkeypatch.setattr(ttrain, "RemotePlanes", Planes)
+    if fail_at == "weight_server":
+        monkeypatch.setattr(weight_server, "WeightServer", Broken)
+    else:
+        monkeypatch.setattr(ttrain, "StepTimer", Broken)
+    with pytest.raises(RuntimeError, match="the start failed"):
+        ttrain.train(_cfg(tmp_path, serve=True))
+    assert seen["closed"] == 1
+    with socket.socket() as probe:  # nothing listens on the port now
+        probe.settimeout(5.0)
+        assert probe.connect_ex(("127.0.0.1", seen["port"])) != 0
+
+
+@pytest.mark.slow
+def test_train_with_spawned_actor_processes(tmp_path):
+    """``--actor_procs 1 --n_workers 0``: every row arrives over TCP from
+    a spawned ``actor_main`` process."""
+    cfg = _cfg(tmp_path, n_workers=0, actor_procs=1, async_actors=True,
+               train_steps_per_cycle=8)
+    metrics = ttrain.train(cfg)
+    assert np.isfinite(metrics["critic_loss"])
+    assert metrics["env_steps"] >= 100
+
+
+@pytest.mark.slow
+def test_spawned_actor_process_respawned_on_death(tmp_path, capfd):
+    """A killed ``--actor_procs`` child is respawned by the once-per-cycle
+    supervisor, and liveness reaches the metrics as ``dead_actors``."""
+    import multiprocessing as mp
+
+    cfg = _cfg(tmp_path, n_cycles=10, n_workers=0, actor_procs=1,
+               async_actors=True, train_steps_per_cycle=8)
+    result: dict = {}
+    t = threading.Thread(target=lambda: result.update(ttrain.train(cfg)),
+                         daemon=True)
+    t.start()
+    deadline = time.monotonic() + 300
+    csv = Path(tmp_path, cfg.run_name(), "returns.csv")
+    while time.monotonic() < deadline:
+        if csv.exists() and csv.stat().st_size > 0 and mp.active_children():
+            break
+        time.sleep(0.2)
+    kids = mp.active_children()
+    assert kids, "spawned actor process not found"
+    kids[0].terminate()
+    t.join(timeout=600)
+    assert not t.is_alive()
+    assert "supervisor: restarting actor process 0" in capfd.readouterr().out
+    assert "dead_actors" in result
+    assert np.isfinite(result["critic_loss"])
