@@ -161,7 +161,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      no child on ``nvidia-smi``'s compute apps, and under HER the
      learner's env_steps below its rows; own grad-steps/s and rows/s
      received per cycle beside phase 11's;
- 20. a ``kernels`` JSON line (each kernel's launches on every path that
+ 20. the sharded ingest plane and the v2 weight plane: (a) at Humanoid
+     width an 8,192-row ring filled by ragged batches over four rounds
+     that wrap it, a block in flight while more rows are pushed: a
+     ``ReplayService(FusedDeviceReplay(..., ingest_shards=2),
+     num_ingest_shards=2)`` on the card (the direct stage) bitwise the
+     K = 1 service on the card and on the CPU (storage, sum and min
+     trees) with the same row ledger; (b) the driver's actor published
+     from the card, then after 40 grad steps: per codec (f32, bf16,
+     int8) full and delta frames over a socket, the reconstruction
+     bitwise a fresh full pull's, the oracles holding, bytes per frame
+     and encode, decode and apply ms; (c) ``train.main --env point
+     --serve 1 --ingest_shards 2 --actor_procs 2 --n_workers 0
+     --trace_sample 0.05`` on fixed free ports for three cycles (the
+     second profiled) beside one external ``actor_main --codec raw
+     --weight_codec bf16 --trace_sample 0.1`` process with no card
+     visible: ``reuseport`` true, no shed, refused admission, decode
+     error, order break or orphaned ingest trace, the arm's kernels and
+     the descent once per grad step, one compute app; own grad-steps/s
+     per cycle and its ratio to 19a's, rows/s per shard, the learner's
+     CPU per grad step, the weight plane's frames, bytes, delta hit
+     rate and staleness, the trace latency block, the device-busy share
+     of cycle 2;
+ 21. a ``kernels`` JSON line (each kernel's launches on every path that
      runs it), then the result line.
 """
 
@@ -2314,6 +2336,398 @@ def phase_remote_driver(card: str, hooks: DriverHooks) -> dict:
     return out
 
 
+# --- the sharded ingest plane and the v2 weight plane (phase 20) ---------
+
+SHARDED_CAP, SHARDED_BLOCK = 8192, 1024
+
+
+def phase_sharded_ingest(dev) -> None:
+    """20a: the same ragged batches through three services, in rounds
+    that wrap the 8,192-row ring: adds, a flush, a block staged, more adds
+    pushed while it is in flight, a flush, the commit and a drain. The K =
+    2 service on the card (two shard workers staging into two rings,
+    merged in ticket order) must leave the storage, the sum and min trees
+    and the row ledger of the K = 1 service on the card and on the CPU."""
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+
+    rng = np.random.default_rng(20)
+    rounds = [[random_rows(rng, int(n)) for n in rng.integers(1, 900, 6)]
+              for _ in range(4)]
+    total = sum(b.obs.shape[0] for batches in rounds for b in batches)
+
+    def run(where, shards):
+        buf = FusedDeviceReplay(SHARDED_CAP, OBS, ACT, device=where,
+                                block_rows=SHARDED_BLOCK, ingest_shards=shards)
+        svc = ReplayService(buf, num_ingest_shards=shards)
+        try:
+            check(svc._direct_stage == (shards > 1),
+                  f"sharded ingest: direct stage at K = {shards}")
+            for batches in rounds:
+                half = len(batches) // 2
+                for i, b in enumerate(batches):
+                    if i == half:
+                        svc.flush()
+                        check(svc.ingest_stage() > 0,
+                              "sharded ingest: a block in flight")
+                    # from here on pushed while the block is in flight
+                    svc.add(b, actor_id=f"a{i % 2}", shard=i % shards)
+                svc.flush()
+                svc.ingest_commit()
+                svc.drain_device()
+            stats = svc.ingest_stats()
+        finally:
+            svc.close()
+        return buf, stats
+
+    t0 = time.perf_counter()
+    runs = {tag: run(where, k) for tag, where, k in (
+        ("card K=2", dev, 2), ("card K=1", dev, 1), ("cpu K=1", "cpu", 1))}
+    torch.cuda.synchronize()
+    ref, ref_stats = runs["cpu K=1"]
+    for tag, (buf, stats) in runs.items():
+        check((buf.size, buf.head) == (ref.size, ref.head),
+              f"sharded ingest {tag}: size and head")
+        for name, a, b in zip(("obs", "action", "reward", "next_obs", "done",
+                               "discount"), buf.storage, ref.storage):
+            check(torch.equal(a[:SHARDED_CAP].cpu(), b[:SHARDED_CAP]),
+                  f"sharded ingest {tag}: storage {name} bitwise the CPU's")
+        for name, a, b in zip(("sum_tree", "min_tree", "max_priority"),
+                              buf.trees, ref.trees):
+            check(torch.equal(a.cpu(), b),
+                  f"sharded ingest {tag}: {name} bitwise the CPU's")
+        ledger = (stats["rows_committed"], stats["env_steps"],
+                  sum(p["rows_in"] for p in stats["per_shard"]))
+        check(ledger == (total, total, total),
+              f"sharded ingest {tag}: row ledger {ledger}, {total} rows")
+        staged = sum(p["staged_rows"] for p in stats["per_shard"])
+        check(staged == (total if tag == "card K=2" else 0),
+              f"sharded ingest {tag}: {staged} rows direct-staged")
+    per_shard = [p["rows_in"] for p in runs["card K=2"][1]["per_shard"]]
+    print(f"sharded ingest on the card: {total} rows in {len(rounds)} rounds "
+          f"(a {SHARDED_CAP}-row ring wrapped, size {ref.size}, head "
+          f"{ref.head}); K = 2 (rows per shard {per_shard}) bitwise K = 1 on "
+          f"the card and on the CPU, pushes while a block was in flight "
+          f"included; {time.perf_counter() - t0:.2f} s")
+
+
+def phase_weight_plane(dev, card: str) -> dict:
+    """20b: the driver's actor (``point``, hidden 256x3) published from
+    the card (``to_host=False``), then again after 40 grad steps. Per
+    codec, a v2 client pulls the full frame and the delta over a socket;
+    its reconstruction must be bitwise a fresh full pull's, and the
+    delta and quantization oracles must hold. Bytes per frame, and the
+    median of 5 timings of encode (a fill of the server's frame with the
+    version's encoded flat dropped), decode (npz load, delta apply,
+    dequantize, torch tensors) and the delta apply alone."""
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.distributed import weight_plane as wp
+    from d4pg_tpu_torch.distributed.weight_server import _unflatten
+    from d4pg_tpu_torch.distributed.weights import WeightStore
+    from d4pg_tpu_torch.io.from_jax import torch_layout
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.learner.update import update_step
+    from d4pg_tpu_torch.replay.uniform import TransitionBatch
+    from d4pg_tpu_torch.train import infer_dims
+
+    cfg = ExperimentConfig(env="point").resolve()
+    obs_dim, act_dim, _ = infer_dims(cfg)
+    config = cfg.learner_config(obs_dim, act_dim, device=dev)
+    state = init_state(config, 0, dev)
+    g = torch.Generator(device=dev).manual_seed(20)
+    batch = TransitionBatch(
+        obs=torch.randn(64, obs_dim, device=dev, generator=g),
+        action=torch.rand(64, act_dim, device=dev, generator=g) * 2 - 1,
+        reward=torch.randn(64, device=dev, generator=g),
+        next_obs=torch.randn(64, obs_dim, device=dev, generator=g),
+        done=torch.zeros(64, device=dev),
+        discount=torch.full((64,), 0.99, device=dev))
+    store = WeightStore()
+    server = wp.WeightPlaneServer(store, window=4)
+    clients = {c: wp.WeightPlaneClient("127.0.0.1", server.port, codec=c,
+                                       connect_timeout=10.0)
+               for c in wp.CODECS}
+    out: dict = {}
+
+    def median_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return sorted(times)[n // 2]
+
+    def decode(payload, base):
+        with np.load(__import__("io").BytesIO(payload)) as z:
+            entries = {k: z[k] for k in z.files if not k.startswith("__")}
+            for k in ("__same__", "__dropped__"):
+                if k in z.files:
+                    entries[k] = z[k]
+        enc = (wp.delta_apply(base, entries) if "__same__" in entries
+               else {k[2:]: v for k, v in entries.items() if k[:2] == "t:"})
+        flat = wp.decode_flat(enc)
+        for k in ("__norm_mean__", "__norm_std__", "__norm_clip__"):
+            flat.pop(k, None)
+        return {k: torch.from_numpy(np.array(v)) for k, v in
+                torch_layout(_unflatten(flat)["params"]).items()}
+
+    try:
+        store.publish(state.actor, step=0, to_host=False)
+        for c in clients.values():
+            check(c.get_if_newer() is not None, "weight plane: full pull")
+        for _ in range(40):
+            update_step(config, state, batch)
+        store.publish(state.actor, step=40, to_host=False)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in state.actor.state_dict().values())
+        for codec, c in clients.items():
+            got = c.get_if_newer()
+            check(got is not None and c.counters["delta_frames"] == 1,
+                  f"weight plane {codec}: a delta pull")
+            fresh = wp.WeightPlaneClient("127.0.0.1", server.port,
+                                         codec=codec, connect_timeout=10.0)
+            full = fresh.get_if_newer()
+            fresh.close()
+            check(full is not None and set(full[1]) == set(got[1])
+                  and all(torch.equal(full[1][k], got[1][k])
+                          for k in got[1]),
+                  f"weight plane {codec}: the delta reconstruction is "
+                  "bitwise the full snapshot")
+            if codec == "f32":
+                check(all(torch.equal(got[1][k], v.cpu()) for k, v in
+                          state.actor.state_dict().items()),
+                      "weight plane f32: bitwise the learner's actor")
+            row = {}
+            with server._frame_lock:
+                server._refresh_locked()
+                gen, version = server._latest
+                base_enc = server._encoded_locked(gen, version - 1, codec)
+                for kind, base in (("full", -1), ("delta", version - 1)):
+                    def fill():
+                        server._enc.pop((gen, version, codec), None)
+                        server._frames.pop((gen, version, codec, base), None)
+                        return server._frame_locked(gen, version, codec,
+                                                    base)[0]
+                    row[f"{kind}_encode_ms"] = median_ms(fill)
+                    payload = fill()
+                    row[f"{kind}_bytes"] = len(payload)
+                    row[f"{kind}_decode_ms"] = median_ms(
+                        lambda: decode(payload, base_enc))
+                    if kind == "delta":
+                        with np.load(__import__("io").BytesIO(payload)) as z:
+                            entries = {k: z[k] for k in z.files
+                                       if not k.startswith("__")
+                                       or k in ("__same__", "__dropped__")}
+                        row["delta_apply_ms"] = median_ms(
+                            lambda: wp.delta_apply(base_enc, entries))
+            out[codec] = row
+        stats = server.weight_stats()
+        check(stats["oracle_delta_failures"] == 0
+              and stats["oracle_quant_failures"] == 0
+              and stats["oracle_delta_checks"] >= 3
+              and stats["oracle_quant_checks"] >= 2,
+              f"weight plane: the oracles hold ({stats})")
+    finally:
+        for c in clients.values():
+            c.close()
+        server.close()
+    for codec, row in out.items():
+        print(f"weight plane [{codec}] the driver's actor ({n_params} "
+              f"parameters): full {row['full_bytes']} B, encode "
+              f"{row['full_encode_ms']:.3f} ms, decode "
+              f"{row['full_decode_ms']:.3f} ms; delta after 40 grad steps "
+              f"{row['delta_bytes']} B, encode {row['delta_encode_ms']:.3f} "
+              f"ms, decode {row['delta_decode_ms']:.3f} ms, apply "
+              f"{row['delta_apply_ms']:.3f} ms ({card})")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded_driver(card: str, hooks: DriverHooks, remote: dict) -> dict:
+    """20c: ``train.main --env point --serve 1 --ingest_shards 2
+    --actor_procs 2 --n_workers 0 --trace_sample 0.05`` on fixed free
+    ports for three cycles (the second profiled), beside one external
+    ``python -m d4pg_tpu_torch.actor_main --codec raw --weight_codec bf16
+    --trace_sample 0.1`` process with no card visible. Asserted: the
+    receiver's two listeners share the port (``reuseport``); no shed,
+    refused admission, decode error or order break; no orphaned ingest
+    trace (a weight frame served to the external process ends in that
+    process's recorder, so those are counted apart); the arm's kernels
+    and the descent once per grad step; one compute app on the card."""
+    import os
+    import shutil
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.distributed import weight_plane
+    from d4pg_tpu_torch.obs.registry import REGISTRY
+    from d4pg_tpu_torch.obs.trace import RECORDER
+    from d4pg_tpu_torch.ops.autotune import select_projection
+
+    runs = ROOT / "runs" / "chip_smoke_sharded"
+    shutil.rmtree(runs, ignore_errors=True)
+    runs.mkdir(parents=True)
+    t_port, w_port = _free_port(), _free_port()
+    planes, served_tids = [], set()
+    respond = weight_plane.WeightPlaneServer._respond
+
+    def responding(server, *args):
+        resp, tid, version = respond(server, *args)
+        if tid is not None:
+            served_tids.add(tid)
+        return resp, tid, version
+
+    def tick(service):
+        stats = service.ingest_stats()
+        return (time.perf_counter(),
+                [p["rows_in"] for p in stats["per_shard"]])
+
+    class Planes(driver.RemotePlanes):
+        def __init__(self, cfg, service, weights):
+            self.service = service
+            self.apps_before = compute_app_pids()
+            self.external = None
+            super().__init__(cfg, service, weights)
+            self.ticks = [tick(service)]
+            self.apps = None
+            planes.append(self)
+
+        def _spawn(self, i):
+            if self.external is None:  # the servers are up: start it once
+                self.external_log = open(runs / "external_actor.log", "w")
+                self.external = subprocess.Popen(
+                    [sys.executable, "-m", "d4pg_tpu_torch.actor_main",
+                     "--learner_host", "127.0.0.1", "--transitions_port",
+                     str(self.receiver.port), "--weights_port",
+                     str(self.weight_server.port), "--env", "point",
+                     "--actor_id", "ext-0", "--seed", "7", "--codec", "raw",
+                     "--weight_codec", "bf16", "--trace_sample", "0.1",
+                     "--expect_generation", "1"],
+                    cwd=ROOT, stdout=self.external_log,
+                    stderr=subprocess.STDOUT,
+                    env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                         "PYTHONPATH": str(ROOT)})
+            return super()._spawn(i)
+
+        def supervise(self):
+            if self.apps is None:
+                self.apps = compute_app_pids()
+            self.ticks.append(tick(self.service))
+            super().supervise()
+
+        def close(self):
+            self.rows = self.service.rows_by_actor()
+            self.stats = self.service.ingest_stats()
+            self.reuseport = self.receiver.reuseport
+            self.plane_stats = self.weight_server.weight_stats()
+            if self.external is not None:
+                self.external_alive = self.external.poll() is None
+                self.external.terminate()
+                self.external.wait(timeout=30)
+                self.external_log.close()
+            super().close()
+
+    argv = ["--env", "point", "--serve", "1", "--ingest_shards", "2",
+            "--actor_procs", "2", "--n_workers", "0", "--n_cycles", "3",
+            "--trace_sample", "0.05", "--serve_transitions_port",
+            str(t_port), "--serve_weights_port", str(w_port)]
+    cfg = ExperimentConfig(env="point").resolve()
+    arm = select_projection("auto", batch_size=cfg.batch_size,
+                            v_min=cfg.v_min, v_max=cfg.v_max,
+                            n_atoms=cfg.n_atoms,
+                            device=driver.learner_device(cfg)).selected
+    saved = (driver.RemotePlanes, weight_plane.WeightPlaneServer._respond)
+    driver.RemotePlanes = Planes
+    weight_plane.WeightPlaneServer._respond = responding
+    RECORDER.reset()
+    REGISTRY.histogram("weights.staleness_ms").reset()
+    try:
+        result, counts, own, cycles, wall = _driver_run(
+            hooks, driver, "sharded", argv, runs, profiled=True)
+        latency = RECORDER.latency_block()
+        orphans = [t for t in RECORDER.orphans() if t not in served_tids]
+        staleness = REGISTRY.histogram("weights.staleness_ms").snapshot_dict()
+    finally:
+        driver.RemotePlanes, weight_plane.WeightPlaneServer._respond = saved
+        RECORDER.disable()
+    (pl,) = planes
+    steps = 40 * len(own)
+    check(steps == 120, f"driver sharded: {steps} grad steps timed")
+    want = {k: steps if k in fused_kernels(arm) else 0 for k in counts}
+    check(counts == want, f"driver sharded: launches {counts}, expected "
+          f"{want}")
+    check(pl.reuseport, "driver sharded: two listeners on one port "
+          "(SO_REUSEPORT)")
+    st = pl.stats
+    for key in ("sheds", "admit_fails", "decode_errors", "order_breaks"):
+        check(st[key] == 0, f"driver sharded: {key} {st[key]}")
+    check(not orphans, f"driver sharded: {len(orphans)} ingest traces "
+          "orphaned")
+    check(latency["completed"] > 0 and latency["wire_to_grad"]["n"] > 0,
+          f"driver sharded: traced frames reached a grad step ({latency})")
+    ids = ["proc-0", "proc-1", "ext-0"]
+    check(all(pl.rows.get(i, 0) > 0 for i in ids),
+          f"driver sharded: rows from {ids} ({pl.rows})")
+    check(pl.external_alive, "driver sharded: the external actor ran to "
+          "the end")
+    w = pl.plane_stats
+    check(w["frames_full"] >= 1 and w["oracle_delta_failures"] == 0
+          and w["oracle_quant_failures"] == 0,
+          f"driver sharded: v2 frames served, the oracles hold ({w})")
+    check(len(pl.apps_before) == 1 and pl.apps == pl.apps_before,
+          f"driver sharded: the learner and no child on the card (before "
+          f"{pl.apps_before}, during {pl.apps})")
+    pairs = list(zip(pl.ticks, pl.ticks[1:]))
+    per_shard = [[(b[1][i] - a[1][i]) / (b[0] - a[0]) for i in range(2)]
+                 for a, b in pairs]
+    base = remote["runs"]["remote_point"]
+    ratio = [x / y for x, y in zip(own, base["own_grad_steps_per_sec"])]
+    on_core = [c / s for c, s in zip(hooks.cpu_spans, hooks.spans)]
+    cpu_ms = [1e3 * c / 40 for c in hooks.cpu_spans]
+    base_cpu_ms = [1e3 * c / g for c, g in zip(
+        base["learner_on_core"], base["own_grad_steps_per_sec"])]
+    busy = None
+    if hooks.device_events is not None and hooks.window_s:
+        busy = sum(e.self_device_time_total for e in hooks.device_events) \
+            / 1e6 / hooks.window_s
+    stage_ms = {k: v["p50"] for k, v in latency["stages"].items()
+                if v["n"]}
+    print(f"[driver sharded] {wall:.2f} s, arm {arm!r}; own grad-steps/s "
+          f"{[round(x, 2) for x in own]}, ratio to 19a's "
+          f"{[round(x, 3) for x in ratio]}; rows/s per shard per cycle "
+          f"{[[round(x, 1) for x in c] for c in per_shard]}; rows "
+          f"{pl.rows}; launches {counts} ({card})")
+    print(f"[driver sharded] the learner's thread: on a core "
+          f"{[round(x, 3) for x in on_core]} of its grad-step span, "
+          f"{[round(x, 2) for x in cpu_ms]} ms of CPU per grad step (19a: "
+          f"{[round(x, 2) for x in base_cpu_ms]}); device busy share of "
+          f"cycle 2 {'not measured' if busy is None else round(busy, 4)} "
+          f"({card})")
+    print(f"[driver sharded] weight plane: frames full {w['frames_full']}, "
+          f"delta {w['frames_delta']}, not newer {w['frames_not_newer']}, "
+          f"v1 {w['frames_v1']}; bytes full {w['bytes_full']}, delta "
+          f"{w['bytes_delta']}; delta hit rate {w['delta_hit_rate']}; "
+          f"staleness p50 {staleness['p50']} ms, p99 {staleness['p99']} ms "
+          f"over {staleness['count']} frames ({card})")
+    print(f"[driver sharded] traces: {latency['n_traces']} ({len(served_tids)}"
+          f" weight frames served to other processes), completed "
+          f"{latency['completed']}, shed {latency['shed']}, ingest orphans "
+          f"{len(orphans)}; wire_to_grad {latency['wire_to_grad']}; stage "
+          f"p50 ms {stage_ms} ({card})")
+    return {"launches": counts, "own_grad_steps_per_sec": own,
+            "ratio_to_19a": ratio, "rows_per_sec_per_shard": per_shard,
+            "learner_on_core": on_core, "cpu_ms_per_grad_step": cpu_ms,
+            "device_busy_share": busy, "weights": w,
+            "staleness_ms": staleness, "latency": latency}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2365,6 +2779,9 @@ def main() -> int:
     phase_her_ingest(dev)
     her = phase_her_driver(card, hooks)
     remote = phase_remote_driver(card, hooks)
+    phase_sharded_ingest(dev)
+    plane = phase_weight_plane(dev, card)
+    sharded = phase_sharded_driver(card, hooks, remote)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -2388,6 +2805,8 @@ def main() -> int:
         # remote-actor driver runs (200)
         kern["her_driver_launches"] = her["launches"][kern["name"]]
         kern["remote_driver_launches"] = remote["launches"][kern["name"]]
+        # the sharded driver run of phase 20c (120 grad steps)
+        kern["sharded_driver_launches"] = sharded["launches"][kern["name"]]
     for arm, result in arms.items():
         print(f"[{arm}] grad_steps_per_s {result['grad_steps_per_s']:.1f} "
               f"on {card}")
@@ -2439,6 +2858,17 @@ def main() -> int:
               f"learner process {cores['process']} cores, decoding "
               f"{cores['decode']}, commit {cores['commit']}, "
               f"device busy share {run['device_busy_share']} on {card}")
+    print(f"[driver sharded] own grad-steps/s "
+          f"{[round(x, 2) for x in sharded['own_grad_steps_per_sec']]}, "
+          f"ratio to 19a's {[round(x, 3) for x in sharded['ratio_to_19a']]}"
+          f"; rows/s per shard "
+          f"{[[round(x, 1) for x in c] for c in sharded['rows_per_sec_per_shard']]}"
+          f"; the learner's CPU ms per grad step "
+          f"{[round(x, 2) for x in sharded['cpu_ms_per_grad_step']]}; "
+          f"wire_to_grad p50 {sharded['latency']['wire_to_grad']['p50']} ms;"
+          f" weight frames bf16 full / delta bytes "
+          f"{plane['bf16']['full_bytes']} / {plane['bf16']['delta_bytes']} "
+          f"on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

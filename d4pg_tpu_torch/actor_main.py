@@ -3,7 +3,12 @@
 Counterpart of ``d4pg_tpu/actor_main.py``: acting in another process or
 on another host, streaming transitions to the learner's
 ``TransitionReceiver`` (``distributed/transport``) and pulling weights
-from its ``WeightServer`` (``distributed/weight_server``, the v1 frames).
+from its weight server: v1 full frames by default
+(``distributed/weight_server.WeightClient``), or with ``--weight_codec
+f32|bf16|int8`` the v2 plane (``distributed/weight_plane.
+WeightPlaneClient``: deltas against the last accepted version unless
+``--weight_delta 0``, quantized transport, generation fencing). The
+learner's ``WeightPlaneServer`` answers both on one port.
 Actors are stateless: kill one and start another; replay and weights
 live with the learner. The frames are the reference's, so this runner
 feeds a JAX learner as well as the port's, and the reference's runner
@@ -14,9 +19,8 @@ originals and their HER relabels streamed with the count flag (relabels
 off), the normalizer statistics adopted from the weight frames. Without
 it an ``EnvPool`` of ``--num_envs`` envs runs an ``ActorWorker``.
 
-Not ported yet, each raising ``NotImplementedError``: ``--weight_codec``
-(the v2 weight plane, ROADMAP Queue 1 item 12) and ``--policy_port``
-(the serving plane, item 13).
+Not ported yet, raising ``NotImplementedError``: ``--policy_port`` (the
+serving plane, ROADMAP Queue 1 item 13).
 
 Spawned children (``train.py --actor_procs N``, through
 ``run_local_actor_process``) act on the CPU and never create a CUDA
@@ -35,6 +39,7 @@ from d4pg_tpu_torch.distributed.transport import (
     CoalescingSender,
     TransitionSender,
 )
+from d4pg_tpu_torch.distributed.weight_plane import WeightPlaneClient
 from d4pg_tpu_torch.distributed.weight_server import WeightClient
 from d4pg_tpu_torch.envs.vector import EnvPool
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
@@ -58,13 +63,7 @@ class RemoteReplayClient:
         return self._sender.send(batch, count_env_steps=count_env_steps)
 
 
-def _refuse_unported(weight_codec: str | None,
-                     policy_port: int | None) -> None:
-    if weight_codec is not None:
-        raise NotImplementedError(
-            f"--weight_codec {weight_codec} selects the v2 weight plane, "
-            "which the PyTorch port does not have yet (ROADMAP Queue 1 "
-            "item 12); the v1 puller is the default")
+def _refuse_unported(policy_port: int | None) -> None:
     if policy_port is not None:
         raise NotImplementedError(
             "--policy_port selects the serving plane, which the PyTorch "
@@ -86,11 +85,13 @@ def run_actor(
     trace_sample: float = 0.0,
     expect_generation: bool = False,
     weight_codec: str | None = None,
+    weight_delta: bool = True,
     policy_port: int | None = None,
 ) -> int:
     """Act until ``max_ticks`` pool ticks (HER: env steps) are done, or
-    forever; returns the env steps taken."""
-    _refuse_unported(weight_codec, policy_port)
+    forever; returns the env steps taken. ``weight_codec`` selects the v2
+    weight puller (None: v1)."""
+    _refuse_unported(policy_port)
     cfg = cfg.resolve()
     obs_dim, act_dim, obs_dtype = infer_dims(cfg)
     # acting needs the networks' shapes only: the projection arm is
@@ -103,7 +104,12 @@ def run_actor(
                               drop_on_timeout=drop_on_timeout,
                               codec=codec, trace_sample=trace_sample,
                               expect_generation=expect_generation)
-    weights = WeightClient(learner_host, weights_port, secret=secret)
+    if weight_codec is not None:
+        weights = WeightPlaneClient(learner_host, weights_port,
+                                    codec=weight_codec, delta=weight_delta,
+                                    secret=secret)
+    else:
+        weights = WeightClient(learner_host, weights_port, secret=secret)
     actor_cfg = ActorConfig(
         epsilon_0=cfg.epsilon_0, min_epsilon=cfg.min_epsilon,
         epsilon_horizon=cfg.epsilon_horizon, n_step=cfg.n_steps,
@@ -232,7 +238,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "connect and stamp raw frames with it")
     p.add_argument("--weight_codec", choices=("f32", "bf16", "int8"),
                    default=None,
-                   help="the v2 weight plane (not ported yet: raises)")
+                   help="pull from the v2 weight plane with this codec: "
+                        "f32, bf16 (relative error <= 2^-8) or int8 "
+                        "(per-tensor scale); default: the v1 puller")
+    p.add_argument("--weight_delta", type=int, choices=(0, 1), default=1,
+                   help="with --weight_codec: 1 pulls deltas against the "
+                        "last accepted version when the server still "
+                        "holds it; 0 always pulls full frames")
     p.add_argument("--policy_port", type=int, default=None,
                    help="the serving plane (not ported yet: raises)")
     return p
@@ -240,7 +252,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     ns = build_parser().parse_args(argv)
-    _refuse_unported(ns.weight_codec, ns.policy_port)
+    _refuse_unported(ns.policy_port)
     if ns.actor_device == "cpu":
         # acting on the host: keep this process off the card entirely
         os.environ["CUDA_VISIBLE_DEVICES"] = ""
@@ -256,7 +268,9 @@ def main(argv=None) -> int:
                       send_retries=ns.send_retries,
                       drop_on_timeout=bool(ns.drop_on_timeout),
                       codec=ns.codec, trace_sample=ns.trace_sample,
-                      expect_generation=bool(ns.expect_generation))
+                      expect_generation=bool(ns.expect_generation),
+                      weight_codec=ns.weight_codec,
+                      weight_delta=bool(ns.weight_delta))
     print(f"collected {steps} env steps")
     return steps
 

@@ -29,9 +29,16 @@ HIERARCHY: dict[str, int] = {
     "service": 50,  # ReplayService._lock (heartbeats, pending, env_steps)
     "buffer": 40,   # ReplayService._buffer_lock (all replay-state access)
     "commit": 30,   # ReplayService._commit_cond (ordered-merge state)
-    "wserve": 26,   # WeightServer._frame_lock (frame memo; fills read wstore)
+    # Weight-distribution plane (learner -> actors; disjoint from the
+    # ingest tiers above, so its band sits between commit and the leaf
+    # tiers): a relay's swap state may publish into its local store
+    # (wrelay -> wstore), and a server's frame cache refreshes from the
+    # store under the cache lock (wserve -> wstore) — both descend.
+    "wrelay": 28,   # WeightRelay._relay_lock (generation swap + counters)
+    "wserve": 26,   # WeightServer._frame_lock (version window + frame memo)
     "wstore": 24,   # WeightStore._store_lock (published params + version)
     "shard": 20,    # _IngestShard.cond (admission deque + counters)
+    "ring": 10,     # MultiRingStaging._ring_locks[i] (staging ring slices)
 }
 
 

@@ -25,10 +25,10 @@ cannot execute code.
 Ported: the handshake and greeting, both codecs, ``ReconnectingClient``,
 ``TransitionSender`` (bounded retry, exponential backoff with seeded
 upward jitter, ``drop_on_timeout``), ``CoalescingSender``,
-``ConnRegistry`` and ``TransitionReceiver`` at one shard, decoding in the
-connection thread. The sharded receiver (``num_shards > 1``, and
-``on_payload``, which hands undecoded frames to the service's shard
-workers) waits for ROADMAP Queue 1 item 12 and raises.
+``ConnRegistry`` and ``TransitionReceiver``, decoding in the connection
+thread or, sharded (``num_shards`` listeners on one port by
+``SO_REUSEPORT``, ``on_payload``), handing undecoded frames to the
+replay service's shard workers.
 """
 
 from __future__ import annotations
@@ -758,10 +758,15 @@ class TransitionReceiver(ConnRegistry):
     unknown magic or over ``max_payload``, or one that does not decode,
     drops its connection and counts in ``frames_rejected``.
 
-    The sharded plane (``num_shards > 1``: listeners sharing the port by
-    ``SO_REUSEPORT``; ``on_payload``: undecoded frames handed to the
-    service's shard workers) waits for ROADMAP Queue 1 item 12 and
-    raises."""
+    Sharded (``num_shards=K``, the multi-core ingest plane): K listening
+    sockets share the port through ``SO_REUSEPORT``, so the kernel
+    spreads connections over them, and each connection carries the index
+    of the listener that accepted it as its shard. Where the option is
+    missing, one listener assigns connections to shards round-robin;
+    ``reuseport`` says which happened. With ``on_payload`` set, frames go
+    to it undecoded as ``(payload, shard, codec)`` (normally
+    ``ReplayService.add_payload``), so decoding runs on the owning
+    shard's worker instead of the connection thread."""
 
     def __init__(
         self,
@@ -774,66 +779,89 @@ class TransitionReceiver(ConnRegistry):
         on_payload: Optional[Callable[[bytes, int, str], object]] = None,
         generation: int | Callable[[], int] | None = None,
     ):
-        if int(num_shards) != 1 or on_payload is not None:
-            raise NotImplementedError(
-                "the sharded transition receiver (num_shards > 1, "
-                "on_payload) is not ported yet (ROADMAP Queue 1 item 12)")
         super().__init__()
         self._on_batch = on_batch
+        self._on_payload = on_payload
         self._generation = generation
         self._secret = secret
         self._max_payload = int(max_payload)
         # hostile or corrupt frames dropped (bad magic, oversize, decode
         # failure). Monotonic; reads are informational so no lock.
         self.frames_rejected = 0
-        self.num_shards = 1
-        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        try:
-            s.bind((host, port))
-        except OSError:
-            s.close()
-            raise
-        s.listen()
-        self._server = s
-        self.port = s.getsockname()[1]
+        self.num_shards = max(1, int(num_shards))
+        self._servers: list[socket.socket] = []
+        self._rr = 0  # the round-robin shard cursor (one listener)
+        bind_port = port
+        for _ in range(self.num_shards):
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            if self.num_shards > 1:
+                try:
+                    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+                except (AttributeError, OSError):
+                    # no SO_REUSEPORT here: one listener, connections
+                    # assigned to shards round-robin
+                    if self._servers:
+                        s.close()
+                        break
+            try:
+                s.bind((host, bind_port))
+            except OSError:
+                s.close()
+                if self._servers:
+                    break  # fall back to the listeners bound so far
+                raise
+            s.listen()
+            bind_port = s.getsockname()[1]
+            self._servers.append(s)
+            if self.num_shards == 1:
+                break
+        self.reuseport = len(self._servers) == self.num_shards > 1
+        self.port = self._servers[0].getsockname()[1]
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
-        self._accept_thread = threading.Thread(target=self._accept,
-                                               daemon=True)
-        self._accept_thread.start()
+        self._accept_threads = [
+            threading.Thread(target=self._accept, args=(srv, i), daemon=True)
+            for i, srv in enumerate(self._servers)]
+        for t in self._accept_threads:
+            t.start()
 
-    def _accept(self) -> None:
+    def _accept(self, server: socket.socket, listener: int) -> None:
         try:
             while not self._stop.is_set():
                 try:
-                    self._server.settimeout(0.2)
-                    conn, _ = self._server.accept()
+                    server.settimeout(0.2)
+                    conn, _ = server.accept()
                 except socket.timeout:
                     continue
                 except OSError:
                     return
+                if self.reuseport:
+                    shard = listener
+                else:
+                    shard = self._rr % self.num_shards
+                    self._rr += 1
                 # reap finished connection threads (a long-lived service
                 # with a churning fleet otherwise grows this list without
                 # bound)
                 self._threads = [t for t in self._threads if t.is_alive()]
                 self._register_conn(conn)
-                t = threading.Thread(target=self._serve, args=(conn,),
+                t = threading.Thread(target=self._serve, args=(conn, shard),
                                      daemon=True)
                 t.start()
                 self._threads.append(t)
         except Exception as e:
             contained_crash("ingest.accept", e)
 
-    def _serve(self, conn: socket.socket) -> None:
+    def _serve(self, conn: socket.socket, shard: int = 0) -> None:
         try:
-            self._serve_conn(conn)
+            self._serve_conn(conn, shard)
         except Exception as e:
-            # a raising _on_batch callback must not silently
-            # kill the connection thread
+            # a raising callback must not silently kill the connection
+            # thread
             contained_crash("ingest.serve", e)
 
-    def _serve_conn(self, conn: socket.socket) -> None:
+    def _serve_conn(self, conn: socket.socket, shard: int = 0) -> None:
         try:
             with conn:
                 if not server_handshake(conn, self._secret):
@@ -857,6 +885,10 @@ class TransitionReceiver(ConnRegistry):
                     if payload is None:
                         return
                     codec = "raw" if magic == _MAGIC_RAW else "npz"
+                    if self._on_payload is not None:
+                        # sharded plane: decoded on the shard's worker
+                        self._on_payload(payload, shard, codec)
+                        continue
                     actor_id, batch, count = decode_frame(payload, codec)
                     self._on_batch(batch, actor_id, count)
         except (ProtocolError, struct.error, ValueError, TypeError):
@@ -873,13 +905,15 @@ class TransitionReceiver(ConnRegistry):
 
     def close(self) -> None:
         self._stop.set()
-        try:
-            self._server.close()
-        except OSError:
-            pass
-        # the accept loop wakes within its 0.2 s poll and lets the
-        # listening socket go; a peer it accepted meanwhile is shut below
-        self._accept_thread.join(timeout=1.0)
+        for s in self._servers:
+            try:
+                s.close()
+            except OSError:
+                pass
+        # the accept loops wake within their 0.2 s poll and let the
+        # listening sockets go; a peer accepted meanwhile is shut below
+        for t in self._accept_threads:
+            t.join(timeout=1.0)
         self._shutdown_conns()
         for t in self._threads:
             t.join(timeout=1.0)

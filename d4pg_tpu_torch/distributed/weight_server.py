@@ -26,10 +26,10 @@ torch ``state_dict`` of that tree (``io/from_jax.torch_layout``).
 The server memoizes the serialized frame by version under the declared
 ``wserve`` tier lock, held across the fill (single flight: N pullers of
 one version cost one flatten and one savez); the fill reads the store's
-``snapshot_ex`` (``wstore``, below ``wserve``). The reference serves v1
-and its v2 plane (deltas, quantized codecs, fencing) from one
-``WeightPlaneServer`` port; the port serves v1 only until the v2 plane
-lands (ROADMAP Queue 1 item 12).
+``snapshot_ex`` (``wstore``, below ``wserve``). ``weight_plane.
+WeightPlaneServer`` subclasses this server and answers v1 and the v2
+plane (deltas, quantized codecs, fencing) on one port, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -187,20 +187,24 @@ class WeightServer(ConnRegistry):
                     magic, have = _REQ.unpack(req)
                     if magic != _MAGIC:
                         return
-                    got = self._versioned_frame(have)
-                    if got is None:
-                        conn.sendall(_RESP.pack(_MAGIC, 0))
-                        continue
-                    version, payload = got
-                    # counted before the send: the puller may act on the
-                    # frame before this thread runs again
-                    self.pulls_served += 1
-                    self.served_versions[peer] = version
-                    conn.sendall(_RESP.pack(_MAGIC, len(payload)) + payload)
+                    self._answer_v1(conn, peer, have)
         except OSError:
             return  # the peer died mid-frame (actor terminated)
         finally:
             self._unregister_conn(conn)
+
+    def _answer_v1(self, conn: socket.socket, peer: str, have: int) -> None:
+        """Send the v1 response to a puller at version ``have``."""
+        got = self._versioned_frame(have)
+        if got is None:
+            conn.sendall(_RESP.pack(_MAGIC, 0))
+            return
+        version, payload = got
+        # counted before the send: the puller may act on the frame before
+        # this thread runs again
+        self.pulls_served += 1
+        self.served_versions[peer] = version
+        conn.sendall(_RESP.pack(_MAGIC, len(payload)) + payload)
 
     def close(self) -> None:
         self._stop.set()

@@ -1,10 +1,15 @@
 """Replay buffer for the fused device path: ring + PER trees on the card.
 
-Counterpart of ``d4pg_tpu/replay/fused_buffer.py`` at one ingest shard,
-without generation tracking. ``add`` (any thread, under the service's
-buffer lock) only copies host rows into a preallocated column-major
-staging ring; every device write happens on the learner thread, which
-owns the ring and the trees. A block moves in two calls:
+Counterpart of ``d4pg_tpu/replay/fused_buffer.py`` without generation
+tracking. ``add`` (any thread, under the service's buffer lock) only
+copies host rows into a preallocated column-major staging ring; every
+device write happens on the learner thread, which owns the ring and the
+trees. With ``ingest_shards=K > 1`` the staging is a
+``staging.MultiRingStaging``: ``add_sharded`` pushes into one shard's
+own ring under that ring's leaf lock alone (the replay service's shard
+workers call it without the buffer lock), and the rings merge in
+admission-ticket order into the frame stream the two calls below read.
+A block moves in two calls:
 
   - ``stage_block()`` copies the next pending frame (at most
     ``block_rows`` rows) out of the staging ring into a dedicated block
@@ -28,8 +33,10 @@ per-chunk schedule (``learner/pipeline.IngestOverlap``) interleaves the
 two calls with the chunks so the copy rides under a chunk's compute.
 The ring and trees a sequence of adds leaves are bitwise those of the
 synchronous drain, whatever ``add`` does while a block is in flight.
-The unified registry counts ``fused.rows_staged``,
-``fused.rows_committed`` and ``fused.blocks_committed``.
+``drain_per_row`` lands the staged rows one row per ring write and tree
+insert: the oracle the block path is held to, bitwise. The unified
+registry counts ``fused.rows_staged``, ``fused.rows_committed`` and
+``fused.blocks_committed``.
 """
 
 from __future__ import annotations
@@ -121,11 +128,6 @@ class FusedDeviceReplay:
                  device: str | torch.device | None = None,
                  block_rows: int | None = None, staging_blocks: int = 8,
                  ingest_shards: int = 1, obs_dtype=None):
-        if int(ingest_shards) != 1:
-            raise NotImplementedError(
-                f"ingest_shards={ingest_shards}: the sharded ingest plane "
-                "(per-shard staging rings and their ordered merge) is not "
-                "ported yet (ROADMAP Queue 1 item 12); use 1")
         self.device = resolve_device(device)
         self.capacity = int(capacity)
         self.alpha = float(alpha)
@@ -141,7 +143,14 @@ class FusedDeviceReplay:
         n_blocks = min(int(staging_blocks),
                        -(-self.capacity // self.block_rows))
         specs = field_layouts(obs_dim, act_dim, obs_dtype)
-        self._staging = HostStagingRing(specs, self.block_rows, n_blocks)
+        self.ingest_shards = max(1, int(ingest_shards))
+        if self.ingest_shards > 1:
+            from d4pg_tpu_torch.replay.staging import MultiRingStaging
+
+            self._staging = MultiRingStaging(specs, self.block_rows,
+                                             n_blocks, self.ingest_shards)
+        else:
+            self._staging = HostStagingRing(specs, self.block_rows, n_blocks)
         pin = self.device.type == "cuda"
         # the one in-flight block: host side (pinned on the card) and its
         # device twin, both allocated once
@@ -158,8 +167,23 @@ class FusedDeviceReplay:
         self._inflight = 0  # rows of the staged, uncommitted block
 
     def add(self, batch: TransitionBatch) -> None:
-        """Stage host rows (numpy arrays); no device work."""
+        """Stage host rows (numpy arrays); no device work. Sharded, the
+        rows go to shard 0's ring."""
         if np.asarray(batch.obs).shape[0]:
+            self._staging.push(batch)
+
+    def add_sharded(self, batch: TransitionBatch, shard: int,
+                    ticket: int | None = None) -> None:
+        """Stage host rows into shard ``shard``'s own ring: safe without
+        the service's buffer lock, since each ring has one pushing worker
+        and its own leaf lock against the learner's merge. ``ticket``
+        orders the merge and must ascend per shard (the admission ticket
+        does)."""
+        if not np.asarray(batch.obs).shape[0]:
+            return
+        if self.ingest_shards > 1:
+            self._staging.push(batch, shard=shard, ticket=ticket)
+        else:
             self._staging.push(batch)
 
     def __len__(self) -> int:
@@ -228,4 +252,28 @@ class FusedDeviceReplay:
         total = self.commit_staged()
         while self.stage_block():
             total += self.commit_staged()
+        return total
+
+    def drain_per_row(self) -> int:
+        """Land every staged row one at a time: a ring write and a tree
+        insert per row (an in-flight block lands first, as a block). The
+        oracle the block path is held to; no loop runs it."""
+        total = self.commit_staged()
+        while True:
+            frame, n = self._staging.frame()
+            if n == 0:
+                break
+            rows = [np.array(v[:n]) for v in frame]
+            self._staging.pop(n)
+            for i in range(n):
+                idx = np.array([self.head], np.int64)
+                self._store.write(idx, TransitionBatch(
+                    *[v[i:i + 1] for v in rows]))
+                if self.prioritized:
+                    self.trees = dper.insert(
+                        self.trees, torch.as_tensor(idx, device=self.device),
+                        self.alpha)
+                self.head = (self.head + 1) % self.capacity
+                self.size = min(self.size + 1, self.capacity)
+            total += n
         return total

@@ -21,19 +21,144 @@ the learner's stream wait on the copy before it hands the batch over.
 Leaves that are tensors already (rows a device ring gathered) pass
 through. On the CPU the numpy leaves become tensors without a copy.
 
-``MultiRingStaging`` and ``DealtBlockRing`` of the reference wait for
-ROADMAP Queue 1 items 12 and 14.
+``MultiRingStaging`` is the host half of the sharded ingest plane: K
+private column-major staging rings (one per ingest shard, so K workers
+copy rows at once) whose rows merge back, in admission-ticket order, into
+the one frame stream ``FusedDeviceReplay.stage_block`` reads. The
+reference's ``DealtBlockRing`` waits for ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
 
+import itertools
+from collections import deque
 from typing import Callable
 
 import numpy as np
 import torch
 
 from d4pg_tpu_torch import resolve_device
+from d4pg_tpu_torch.core.locking import TieredLock
+from d4pg_tpu_torch.obs.registry import REGISTRY
 from d4pg_tpu_torch.replay.uniform import torch_dtype
+
+
+class MultiRingStaging:
+    """K per-shard host staging rings and a ticket-ordered merge ring.
+
+    The consumer side is ``HostStagingRing``'s (``frame``, ``pop``,
+    ``take``, ``__len__``), so ``FusedDeviceReplay.stage_block``,
+    ``commit_staged`` and ``drain_per_row`` read the merged stream
+    unchanged: ``stage_block`` still copies each frame into its own
+    pinned block before the copy to the card.
+
+    Ownership: shard ``i``'s worker is the only pusher of ring ``i``; the
+    ring and its ``(ticket, rows)`` records are guarded by one leaf lock
+    (the ``ring`` tier, the lowest), held only for the slice copy and
+    never while taking a service or buffer lock. Every pushed batch
+    carries its admission ticket (ascending per ring). ``frame`` refills
+    the merge ring from the record with the smallest ticket among the
+    ring heads, so at quiescence the rows reach the card in admission
+    order, the order of one ring; rows a straggling shard has not pushed
+    yet can be overtaken, and the merge never waits for a slow shard.
+    When a ring overflows and drops its oldest rows, the same rows are
+    trimmed off its oldest records, so tickets stay aligned with rows.
+    """
+
+    def __init__(self, specs, block_rows: int, n_blocks: int,
+                 shards: int):
+        from d4pg_tpu_torch.replay.fused_buffer import HostStagingRing
+
+        self.shards = max(1, int(shards))
+        self.block_rows = int(block_rows)
+        self._rings = [HostStagingRing(specs, block_rows, n_blocks)
+                       for _ in range(self.shards)]
+        self._ring_locks = [TieredLock("ring") for _ in range(self.shards)]
+        self._records: list[deque] = [deque() for _ in range(self.shards)]
+        self._merge = HostStagingRing(specs, block_rows, 2)
+        self._ticket = itertools.count()
+
+    def __len__(self) -> int:
+        n = len(self._merge)
+        for i in range(self.shards):
+            with self._ring_locks[i]:
+                n += len(self._rings[i])
+        return n
+
+    # -- producer side (one worker per shard) ------------------------------
+    def push(self, batch, shard: int = 0, ticket: int | None = None) -> None:
+        i = shard % self.shards
+        ring, records = self._rings[i], self._records[i]
+        REGISTRY.counter("staging.rows_pushed").inc(
+            int(np.asarray(batch.obs).shape[0]))
+        with self._ring_locks[i]:
+            t = next(self._ticket) if ticket is None else ticket
+            n = min(int(np.asarray(batch.obs).shape[0]), ring.size)
+            overflow = max(0, len(ring) + n - ring.size)
+            ring.push(batch)
+            # the ring dropped its oldest rows for these: trim the same
+            # rows off the oldest records
+            while overflow and records:
+                t0, n0 = records[0]
+                if n0 <= overflow:
+                    records.popleft()
+                    overflow -= n0
+                else:
+                    records[0] = (t0, n0 - overflow)
+                    overflow = 0
+            records.append((t, n))
+
+    # -- consumer side (learner thread) ------------------------------------
+    def _refill(self) -> None:
+        """Move rows into the merge ring, smallest head ticket first,
+        until it holds a block or the shard rings run dry."""
+        while len(self._merge) < self.block_rows:
+            best = None
+            for i in range(self.shards):
+                with self._ring_locks[i]:
+                    if self._records[i]:
+                        t = self._records[i][0][0]
+                        if best is None or t < best[0]:
+                            best = (t, i)
+            if best is None:
+                return
+            ticket, i = best
+            with self._ring_locks[i]:
+                if not self._records[i] or self._records[i][0][0] != ticket:
+                    continue  # a push overflowed the head away; look again
+                _, n = self._records[i].popleft()
+                room = self._merge.size - len(self._merge)
+                if n > room:
+                    # only part of the record fits: the rest keeps its
+                    # ticket at the head
+                    self._records[i].appendleft((ticket, n - room))
+                    n = room
+                for piece in self._rings[i].take(n):
+                    self._merge.push(piece)
+
+    def snapshot(self) -> dict:
+        """The ticket floor and the rows still staged at a (drained) cut;
+        taking one ticket to learn the floor is harmless, tickets need
+        only ascend per ring."""
+        floor = next(self._ticket)
+        return {"ticket_floor": int(floor), "staged_rows": len(self)}
+
+    def restore(self, d: dict) -> None:
+        """Seat the ticket counter above a snapshot's floor, so every push
+        after it merges after every ticket before it. Ring contents are
+        not restored: a consistent cut has none."""
+        self._ticket = itertools.count(int(d.get("ticket_floor", 0)) + 1)
+
+    def frame(self):
+        self._refill()
+        return self._merge.frame()
+
+    def pop(self, n: int) -> None:
+        self._merge.pop(n)
+
+    def take(self, n: int):
+        self._refill()
+        return self._merge.take(n)
 
 
 class PinnedBlocks:

@@ -37,13 +37,22 @@ row with, which actors and the eval read, which rides the weight
 publishes and the checkpoint (two resume refusals keep a run from mixing
 raw and normalized space). ``--serve 1`` serves remote
 ``python -m d4pg_tpu_torch.actor_main`` processes (transitions over TCP,
-v1 weight pulls, ``RemotePlanes``), and ``--actor_procs N`` spawns N of
-them on this host, supervised once per cycle.
+v1 and v2 weight pulls from one ``WeightPlaneServer`` port,
+``RemotePlanes``), and ``--actor_procs N`` spawns N of them on this
+host, supervised once per cycle. ``--ingest_shards K > 1`` runs the
+sharded ingest plane: K receiver listeners on the port, frames handed
+undecoded to the replay service's K shard workers
+(``ReplayService.add_payload``) and, on the fused path, staged into K
+staging rings that merge in admission order
+(``FusedDeviceReplay(ingest_shards=K)``); on the host-sampled path the
+commit thread inserts.
 
 Observability: ``--trace_sample f`` enables the wire-to-grad trace
-recorder (``obs/trace``); in-process adds carry no trace id, so no trace
-opens until the wire codec is ported and ``wire_to_grad_p95_ms`` stays
-absent, as in the reference's in-process run. ``--profile_dir d`` writes
+recorder (``obs/trace``). A trace opens only for a raw frame that a
+remote actor stamped (``actor_main --codec raw --trace_sample``) and
+that the sharded plane admitted on its header; in-process adds and the
+one-shard receiver, which decodes before the service sees the frame,
+carry no trace id, as in the reference. ``--profile_dir d`` writes
 a ``torch.profiler`` trace (Chrome trace JSON) of the first cycle's grad
 steps into ``d``, where the reference writes an XLA trace.
 
@@ -119,8 +128,6 @@ def _unported(cfg: ExperimentConfig) -> list[tuple[bool, str, str]]:
          "Queue 1 item 16"),
         (cfg.serve_policy, "--serve_policy 1", "Queue 1 item 13"),
         (cfg.autoscale, "--autoscale 1", "Queue 1 item 17"),
-        (cfg.ingest_shards > 1, f"--ingest_shards {cfg.ingest_shards}",
-         "Queue 1 item 12"),
         (cfg.checkpoint_replay, "--checkpoint_replay 1", "Queue 1 item 17"),
     ]
 
@@ -260,15 +267,17 @@ def norm_state_from_payload(payload: dict) -> dict:
 class RemotePlanes:
     """``--serve 1`` and ``--actor_procs N``: the transition receiver
     (frames into ``service.add``, the count flag honoured, the service's
-    generation in the greeting) and the v1 weight server, their ports
-    printed; then N spawned ``actor_main`` processes, seeded
+    generation in the greeting; with ``--ingest_shards K > 1``, K
+    listeners handing undecoded frames to ``service.add_payload``) and the
+    weight plane (``WeightPlaneServer``, v1 and v2 pullers on one port,
+    ``--weight_window`` versions kept for deltas), their ports printed;
+    then N spawned ``actor_main`` processes (v1 pullers, as the
+    reference's children are), seeded
     ``seed + 1000 * (i + 1) + 101 * respawn`` so a respawned child does not
     stream its predecessor's trajectories again. With ``--n_workers 0``
     the learner waits for them to fill the warm-up. ``supervise``, once
     per cycle, respawns a dead child and gives up on a slot after 5
-    consecutive failed cycles. The reference serves v1 and v2 weight
-    frames from one ``WeightPlaneServer`` port; this serves v1 only
-    (ROADMAP Queue 1 item 12)."""
+    consecutive failed cycles."""
 
     def __init__(self, cfg: ExperimentConfig, service: ReplayService,
                  weights: WeightStore):
@@ -282,7 +291,10 @@ class RemotePlanes:
             lambda b, aid, count: service.add(b, actor_id=aid,
                                               count_env_steps=count),
             host=cfg.serve_host, port=cfg.serve_transitions_port,
-            secret=secret, generation=lambda: service.generation)
+            secret=secret, num_shards=cfg.ingest_shards,
+            on_payload=(service.add_payload if cfg.ingest_shards > 1
+                        else None),
+            generation=lambda: service.generation)
         try:
             self._start(service, weights, secret)
         except BaseException:
@@ -292,12 +304,12 @@ class RemotePlanes:
 
     def _start(self, service: ReplayService, weights: WeightStore,
                secret: str | None) -> None:
-        from d4pg_tpu_torch.distributed.weight_server import WeightServer
+        from d4pg_tpu_torch.distributed.weight_plane import WeightPlaneServer
 
         cfg = self.cfg
-        self.weight_server = WeightServer(weights, host=cfg.serve_host,
-                                          port=cfg.serve_weights_port,
-                                          secret=secret)
+        self.weight_server = WeightPlaneServer(
+            weights, host=cfg.serve_host, port=cfg.serve_weights_port,
+            secret=secret, window=cfg.weight_window)
         print(f"serving: transitions :{self.receiver.port} weights "
               f":{self.weight_server.port}", flush=True)
         self._gen = [0] * cfg.actor_procs
@@ -410,10 +422,13 @@ def train(cfg: ExperimentConfig) -> dict:
 
     # --- replay, fed through the service ------------------------------------
     if fused:
+        # one staging ring per ingest shard: the service's shard workers
+        # stage into them directly (a lone ring would get K pushers)
         buffer = FusedDeviceReplay(cfg.memory_size, obs_dim, act_dim,
                                    alpha=cfg.per_alpha,
                                    prioritized=cfg.prioritized_replay,
-                                   device=device, obs_dtype=obs_dtype)
+                                   device=device, obs_dtype=obs_dtype,
+                                   ingest_shards=cfg.ingest_shards)
     elif cfg.prioritized_replay:
         buffer = PrioritizedReplayBuffer(cfg.memory_size, obs_dim, act_dim,
                                          alpha=cfg.per_alpha, seed=cfg.seed,
@@ -432,7 +447,8 @@ def train(cfg: ExperimentConfig) -> dict:
     # the eval read them, remote actors get them with the weights
     obs_norm = (RunningMeanStd(config.obs_dim, clip=cfg.normalize_clip)
                 if cfg.normalize_obs else None)
-    service = ReplayService(buffer, obs_norm=obs_norm)
+    service = ReplayService(buffer, obs_norm=obs_norm,
+                            num_ingest_shards=cfg.ingest_shards)
     if cfg.trace_sample > 0:
         trace_recorder.enable(cfg.trace_sample)
 

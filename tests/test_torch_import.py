@@ -51,6 +51,8 @@ HER_AND_REMOTE = {
     "d4pg_tpu_torch.distributed.transport",
     "d4pg_tpu_torch.distributed.weight_server", "d4pg_tpu_torch.actor_main",
 }
+# the v2 weight plane (the sharded ingest plane adds no module)
+WEIGHT_PLANE = {"d4pg_tpu_torch.distributed.weight_plane"}
 
 
 def test_port_imports_with_jax_blocked():
@@ -60,10 +62,11 @@ def test_port_imports_with_jax_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 66  # every module of the package was imported
+    assert n_modules >= 67  # every module of the package was imported
     imported = set(out.stdout.split("] ", 1)[1].split())
     assert HOST_PATH_AND_OBS <= imported, HOST_PATH_AND_OBS - imported
     assert HER_AND_REMOTE <= imported, HER_AND_REMOTE - imported
+    assert WEIGHT_PLANE <= imported, WEIGHT_PLANE - imported
 
 
 def test_port_sources_import_no_jax_or_reference():

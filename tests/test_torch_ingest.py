@@ -211,21 +211,36 @@ def test_service_concurrent_producers_lose_no_row():
         ids = np.sort(buf.storage.obs[:total, 0].numpy())
         np.testing.assert_array_equal(ids, np.arange(total))
         assert svc._pending == 0 and svc._rows_committed == total
-        assert svc._shard.admit_fails == 0
+        assert svc._shards[0].admit_fails == 0
     finally:
         svc.close()
 
 
 def test_service_refuses_unported_modes():
-    """Sharded ingest and shedding still raise (item 12); observation
-    normalization is ported (tests/test_torch_normalizer.py)."""
+    """The elastic admission policy, a restored generation, snapshot,
+    restore, kill and live resizing raise (item 17), and so does the
+    sample-on-ingest dealer (item 14); sharded ingest, shedding
+    (tests/test_torch_sharded_ingest.py) and observation normalization
+    (tests/test_torch_normalizer.py) are ported."""
     buf = FusedDeviceReplay(32, OBS, ACT, device="cpu")
-    for kwargs in (dict(num_ingest_shards=2), dict(shed_watermark=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kwargs in (dict(admission=object()), dict(generation=1)):
+        with pytest.raises(NotImplementedError, match="item 17"):
             ReplayService(buf, **kwargs)
-    ReplayService(buf, obs_norm=RunningMeanStd(OBS)).close()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        FusedDeviceReplay(32, OBS, ACT, device="cpu", ingest_shards=2)
+    svc = ReplayService(buf, obs_norm=RunningMeanStd(OBS),
+                        num_ingest_shards=2, shed_watermark=0.5)
+    try:
+        for call in (svc.snapshot, lambda: svc.restore({}), svc.kill,
+                     lambda: svc.set_ingest_depth(8)):
+            with pytest.raises(NotImplementedError, match="item 17"):
+                call()
+        for call in (lambda: svc.attach_dealer(None),
+                     lambda: svc.queue_writeback(None, None, None)):
+            with pytest.raises(NotImplementedError, match="item 14"):
+                call()
+    finally:
+        svc.close()
+    sharded = FusedDeviceReplay(32, OBS, ACT, device="cpu", ingest_shards=2)
+    assert sharded.ingest_shards == 2
 
 
 def test_lock_tiers_are_the_reference_tiers():

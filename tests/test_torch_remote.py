@@ -9,7 +9,11 @@ carried across, so every action a frame carries is the greedy action of
 the weights that crossed the wire: held against the other package's
 policy on the frame's observations within 1e-6. A remote goal actor with
 HER over the wire (the relabels' count flag keeps them out of env_steps),
-and the weight server's round trip. Every run has its own bounds: actors
+and the weight server's round trip. The sharded planes both ways: an
+actor of either package pulling v2 weight frames (``--weight_codec``,
+each codec) from the other package's ``WeightPlaneServer`` and streaming
+raw frames into its two-shard receiver and service, every action the
+greedy action of the codec's image of the weights. Every run has its own bounds: actors
 run a fixed number of ticks on a thread joined with a timeout, senders
 give up after ``send_timeout`` seconds, every server closes in a
 ``finally``.
@@ -24,19 +28,23 @@ import pytest
 
 from d4pg_tpu import actor_main as jactor_main
 from d4pg_tpu.config import ExperimentConfig as JaxExperimentConfig
+from d4pg_tpu.distributed import ReplayService as JaxService
 from d4pg_tpu.distributed import transport as jt
+from d4pg_tpu.distributed import weight_plane as jwp
 from d4pg_tpu.distributed import weight_server as jws
 from d4pg_tpu.distributed.weights import WeightStore as JaxStore
 from d4pg_tpu.learner import state as jstate
 from d4pg_tpu.learner.update import act_deterministic
+from d4pg_tpu.replay import ReplayBuffer as JaxBuffer
 from d4pg_tpu_torch import actor_main
 from d4pg_tpu_torch.config import ExperimentConfig
 from d4pg_tpu_torch.distributed import transport as tt
+from d4pg_tpu_torch.distributed import weight_plane as twp
 from d4pg_tpu_torch.distributed import weight_server as tws
 from d4pg_tpu_torch.distributed.replay_service import ReplayService
 from d4pg_tpu_torch.distributed.weights import WeightStore
 from d4pg_tpu_torch.envs.normalizer import RunningMeanStd
-from d4pg_tpu_torch.io.from_jax import state_from_jax
+from d4pg_tpu_torch.io.from_jax import state_from_jax, torch_layout
 from d4pg_tpu_torch.learner import state as tstate
 from d4pg_tpu_torch.learner.update import act_deterministic as t_greedy
 from d4pg_tpu_torch.replay.uniform import ReplayBuffer
@@ -215,3 +223,79 @@ def test_weight_server_client_round_trip():
         client.close()
         server.close()
 
+
+
+@pytest.mark.parametrize("codec", ["f32", "bf16", "int8"])
+def test_torch_v2_actor_feeds_a_sharded_jax_learner(codec):
+    jcfg, js, _ = _states(seed=3)
+    svc = JaxService(JaxBuffer(1000, 4, 2), num_ingest_shards=2)
+    receiver = jt.TransitionReceiver(
+        lambda *a: None, num_shards=2, on_payload=svc.add_payload,
+        generation=lambda: svc.generation)
+    store = JaxStore()
+    store.publish(js.actor_params, step=3)
+    server = jwp.WeightPlaneServer(store, host="127.0.0.1")
+    try:
+        steps = _run_thread(lambda: actor_main.run_actor(
+            ExperimentConfig(**RUN), "127.0.0.1", receiver.port,
+            server.port, actor_id="torch-v2", max_ticks=30,
+            send_timeout=10.0, codec="raw", weight_codec=codec,
+            expect_generation=True))
+        assert steps == 60 and receiver.reuseport
+        assert _wait(lambda: len(svc) >= 60)
+        svc.flush()
+        rows = svc.buffer.gather(np.arange(60))
+        assert svc.env_steps == 60
+        assert server.weight_stats()["frames_full"] >= 1
+    finally:
+        receiver.close()
+        server.close()
+        svc.close()
+    image = jwp.decode_flat(jwp.encode_flat(
+        jws._flatten(jax.tree_util.tree_map(np.asarray, js.actor_params)),
+        codec))
+    want = np.asarray(act_deterministic(jcfg, jws._unflatten(image),
+                                        rows.obs))
+    np.testing.assert_allclose(rows.action, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("codec", ["f32", "bf16", "int8"])
+def test_jax_v2_actor_feeds_a_sharded_torch_learner(codec):
+    import copy
+
+    import torch
+
+    _, _, ts = _states(seed=4)
+    svc = ReplayService(ReplayBuffer(1000, 4, 2, device="cpu"),
+                        num_ingest_shards=2)
+    receiver = tt.TransitionReceiver(
+        lambda *a: None, num_shards=2, on_payload=svc.add_payload,
+        generation=lambda: svc.generation)
+    store = WeightStore()
+    store.publish(ts.actor, step=5)
+    server = twp.WeightPlaneServer(store)
+    try:
+        steps = _run_thread(lambda: jactor_main.run_actor(
+            JaxExperimentConfig(**RUN), "127.0.0.1", receiver.port,
+            server.port, actor_id="jax-v2", max_ticks=30, send_timeout=10.0,
+            codec="raw", weight_codec=codec, expect_generation=True))
+        assert steps == 60 and receiver.reuseport
+        assert _wait(lambda: len(svc) >= 60)
+        svc.flush()
+        rows = svc.buffer.gather(np.arange(60))
+        stats = svc.ingest_stats()
+        assert svc.env_steps == 60 and stats["decode_errors"] == 0
+        assert sum(p["rows_in"] for p in stats["per_shard"]) == 60
+        assert server.weight_stats()["frames_full"] >= 1
+    finally:
+        receiver.close()
+        server.close()
+        svc.close()
+    image = twp.decode_flat(twp.encode_flat(
+        tws._flatten(ts.actor.state_dict()), codec))
+    actor = copy.deepcopy(ts.actor)
+    actor.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
+                           torch_layout(tws._unflatten(image)["params"])
+                           .items()})
+    want = t_greedy(actor, torch.as_tensor(rows.obs)).numpy()
+    np.testing.assert_allclose(rows.action, want, atol=1e-6, rtol=0)

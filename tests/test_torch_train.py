@@ -293,7 +293,6 @@ UNPORTED = [
     (dict(num_processes=2), "item 16"),
     (dict(serve_policy=True), "item 13"),
     (dict(autoscale=True), "item 17"),
-    (dict(ingest_shards=2), "item 12"),
     (dict(checkpoint_replay=True), "item 17"),
 ]
 
@@ -316,19 +315,10 @@ def _actor_main_argv(*extra):
          "--weights_port", "2", *extra])
 
 
-def _receiver(**kw):
-    from d4pg_tpu_torch.distributed.transport import TransitionReceiver
-
-    return lambda: TransitionReceiver(lambda *a: None, **kw)
-
-
 # what the remote planes' entry points still leave unported
 UNPORTED_ENTRY_POINTS = [
-    ("actor_main --weight_codec bf16",
-     _actor_main_argv("--weight_codec", "bf16"), "item 12"),
     ("actor_main --policy_port", _actor_main_argv("--policy_port", "3"),
      "item 13"),
-    ("TransitionReceiver(num_shards=2)", _receiver(num_shards=2), "item 12"),
 ]
 
 
@@ -710,6 +700,69 @@ def test_serve_trains_with_a_remote_actor_thread(tmp_path, monkeypatch):
     assert "dead_actors" in metrics
 
 
+@pytest.mark.parametrize("path", ["fused", "host"])
+def test_sharded_serve_with_a_v2_weight_puller_trains_and_resumes(
+        tmp_path, monkeypatch, path):
+    """``--serve 1 --ingest_shards 2``: two receiver listeners on one port
+    hand raw frames undecoded to the service's two shard workers (on the
+    fused path they stage into two rings), a remote ``run_actor`` on a
+    thread pulls ``--weight_codec bf16`` frames from the weight plane and
+    stamps traces; two cycles train, then a resume trains one more."""
+    from d4pg_tpu_torch import actor_main
+    from d4pg_tpu_torch.obs.trace import RECORDER
+
+    seen = {}
+
+    class Planes(ttrain.RemotePlanes):
+        def __init__(self, cfg, service, weights):
+            super().__init__(cfg, service, weights)
+            before = len(service)
+            remote = dataclasses.replace(cfg, num_envs=1, seed=77)
+            t = threading.Thread(target=lambda: seen.update(
+                steps=actor_main.run_actor(
+                    remote, "127.0.0.1", self.receiver.port,
+                    self.weight_server.port, actor_id="remote-v2",
+                    max_ticks=40, send_timeout=10.0, codec="raw",
+                    trace_sample=1.0, weight_codec="bf16")), daemon=True)
+            t.start()
+            t.join(timeout=120)
+            assert not t.is_alive()
+            assert service.wait_until(before + 35, timeout=10.0)
+            seen.setdefault("reuseport", []).append(self.receiver.reuseport)
+            seen["service"] = service
+            seen["server"] = self.weight_server
+
+    monkeypatch.setattr(ttrain, "RemotePlanes", Planes)
+    storage = (dict(FUSED) if path == "fused" else
+               dict(platform="cpu", replay_storage="host",
+                    fused_replay="off"))
+    cfg = _cfg(tmp_path, serve=True, ingest_shards=2, trace_sample=1.0,
+               **storage)
+    try:
+        metrics = ttrain.train(cfg)
+        assert np.isfinite(metrics["critic_loss"]) and seen["steps"] == 40
+        stats = seen["service"].ingest_stats()
+        assert stats["num_ingest_shards"] == 2
+        assert stats["sheds"] == stats["admit_fails"] == 0
+        assert stats["decode_errors"] == stats["order_breaks"] == 0
+        assert seen["service"].rows_by_actor()["remote-v2"] >= 35
+        staged = sum(p["staged_rows"] for p in stats["per_shard"])
+        assert (staged > 0) == (path == "fused")
+        weights = seen["server"].weight_stats()
+        assert weights["frames_full"] >= 1
+        assert weights["oracle_quant_failures"] == 0
+        assert metrics["wire_to_grad_p95_ms"] >= 0
+        assert RECORDER.orphans() == []
+        resumed = ttrain.train(dataclasses.replace(cfg, resume=True,
+                                                   n_cycles=1))
+        assert np.isfinite(resumed["critic_loss"])
+        assert resumed["env_steps"] > metrics["env_steps"]
+        assert seen["reuseport"] == [True, True]
+    finally:
+        RECORDER.disable()
+        RECORDER.reset()
+
+
 @pytest.mark.parametrize("fail_at", ["weight_server", "loop"])
 def test_remote_planes_closed_when_a_run_fails(tmp_path, monkeypatch,
                                                fail_at):
@@ -718,7 +771,7 @@ def test_remote_planes_closed_when_a_run_fails(tmp_path, monkeypatch,
     that fails in its cycle loop closes the planes on the way out."""
     import socket
 
-    from d4pg_tpu_torch.distributed import weight_server
+    from d4pg_tpu_torch.distributed import weight_plane
 
     seen = {}
 
@@ -734,7 +787,7 @@ def test_remote_planes_closed_when_a_run_fails(tmp_path, monkeypatch,
 
     monkeypatch.setattr(ttrain, "RemotePlanes", Planes)
     if fail_at == "weight_server":
-        monkeypatch.setattr(weight_server, "WeightServer", Broken)
+        monkeypatch.setattr(weight_plane, "WeightPlaneServer", Broken)
     else:
         monkeypatch.setattr(ttrain, "StepTimer", Broken)
     with pytest.raises(RuntimeError, match="the start failed"):

@@ -215,10 +215,28 @@ def test_receiver_refuses_wrong_secret_and_oversized_frames():
 
 
 def test_sharded_receiver_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tt.TransitionReceiver(lambda *a: None, num_shards=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tt.TransitionReceiver(lambda *a: None, on_payload=lambda *a: None)
+    """The sharded receiver is ported now: K listeners share one port,
+    and a frame reaches ``on_payload`` as the reference's receiver
+    forwards it, undecoded, with its shard and codec."""
+    got = []
+    recv = tt.TransitionReceiver(lambda *a: None, num_shards=2,
+                                 on_payload=lambda *a: got.append(a))
+    sender = jt.TransitionSender("127.0.0.1", recv.port, actor_id="j",
+                                 codec="raw", connect_timeout=5.0)
+    try:
+        assert recv.reuseport and len(recv._servers) == 2
+        assert {s.getsockname()[1] for s in recv._servers} == {recv.port}
+        batch = JaxBatch(**_fields())
+        assert sender.send(batch)
+        deadline = time.monotonic() + 5.0
+        while not got and time.monotonic() < deadline:
+            time.sleep(0.01)
+        (payload, shard, codec), = got
+        assert codec == "raw" and shard in (0, 1)
+        assert payload == jt.encode_raw("j", batch)[jt._HEADER.size:]
+    finally:
+        sender.close()
+        recv.close()
 
 
 DIMS = dict(obs_dim=4, act_dim=2, v_min=-10.0, v_max=0.0, n_atoms=11,
