@@ -183,8 +183,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      CPU per grad step, the weight plane's frames, bytes, delta hit
      rate and staleness, the trace latency block, the device-busy share
      of cycle 2;
- 21. a ``kernels`` JSON line (each kernel's launches on every path that
-     runs it), then the result line.
+ 21. the serving plane: (a) a ``PolicyInferenceServer(device='default')``
+     on the card at Humanoid width, 8 lanes of 32 rows, 200 requests
+     each: responses within 1e-5 of ``act_deterministic`` on the card, no
+     fallback, timeout or tear on a client; requests/s, latency p50 and
+     p99, bucket occupancy, adoptions; then the same under
+     ``ServingChaos(torn_response_rate=0.1)``: every tear rejected and
+     counted, a fallback for each, nothing torn acted on; (b)
+     ``train.main --env point --serve 1 --serve_policy 1 --n_workers 0``
+     for three cycles beside two external ``actor_main --policy_port``
+     processes with no card visible: each child's client served every
+     request (the counts it prints on SIGINT), rows from both, the arm's
+     kernels and the descent once per grad step, one compute app; own
+     grad-steps/s against 19a's, rows/s, the server's stats;
+ 22. the sample-on-ingest dealt plane: (a) the device dealer
+     (``pallas``) over a 200,000-row generation-tracked ring at Humanoid
+     width, K = 40, B = 256, for 24 ticks of 4,096-row inserts with
+     write-backs queued: every block bitwise the float32 twin's on the
+     card, and the CPU twin's in slots, rows, generations and beta
+     (weights within 1e-6 relative), one descent launch per deal, the
+     card's tree leaves the CPU twin's; the descent kernel bitwise its
+     plain version at Q = 10,240 over that tree and at the driver's Q =
+     2,560 over 2^20 leaves, timed beside the plain version and
+     ``searchsorted``, with its bound; device ms per deal and per settle;
+     (b) ``train.main --env point --fused_replay off --sample_on_ingest
+     1`` for two cycles under ``--sampler pallas``, ``scan`` and
+     ``host``, then ``auto --learners 2``: the descent once per deal
+     under ``pallas`` and never under ``scan`` or ``host``, the arm's
+     kernels once per grad step of every replica, monotone versions; own
+     grad-steps/s against phase 13's in the same call, deal-to-grad p50,
+     the replica threads' CPU ms per grad step;
+ 23. a ``kernels`` JSON line (each kernel's launches on every path that
+     runs it; the descent's time at the dealt shapes), then the result
+     line.
 """
 
 from __future__ import annotations
@@ -2728,6 +2759,685 @@ def phase_sharded_driver(card: str, hooks: DriverHooks, remote: dict) -> dict:
             "staleness_ms": staleness, "latency": latency}
 
 
+# --- the serving plane and the sample-on-ingest dealt plane (21-22) ------
+
+SERVE_LANES, SERVE_ROWS, SERVE_REQUESTS, SERVE_WARMUP = 8, 32, 200, 10
+
+
+def _serving_pass(dev, store, actor, chaos=None) -> dict:
+    """8 lanes of 32 rows, each sending ``SERVE_WARMUP`` untimed requests
+    then ``SERVE_REQUESTS`` timed ones to a ``PolicyInferenceServer`` on
+    the card (the clients share this process with the server); every
+    timed response held against ``act_deterministic`` on the card (atol
+    1e-5)."""
+    import threading
+
+    from d4pg_tpu_torch.learner.update import act_deterministic
+    from d4pg_tpu_torch.serving import (
+        ActorConfig,
+        PolicyInferenceServer,
+        RemotePolicyClient,
+    )
+
+    server = PolicyInferenceServer(
+        config("pallas_ce"), store, batch_window_s=0.002,
+        max_batch_rows=SERVE_LANES * SERVE_ROWS, device="default",
+        learner_device=dev, chaos=chaos)
+    clients = [RemotePolicyClient(
+        config("pallas_ce"), ActorConfig(), "127.0.0.1", server.port,
+        lane_id=i, seed=i, timeout=5.0, weights=store, record_ledger=True)
+        for i in range(SERVE_LANES)]
+    rng = np.random.default_rng(21)
+    obs = [rng.standard_normal((SERVE_REQUESTS, SERVE_ROWS, OBS)).astype(
+        np.float32) for _ in range(SERVE_LANES)]
+    got = [[None] * SERVE_REQUESTS for _ in range(SERVE_LANES)]
+    lat = [[] for _ in range(SERVE_LANES)]
+    start = []
+    # every lane warms up (its connection, the server's first buckets)
+    # before the timed requests start together
+    barrier = threading.Barrier(
+        SERVE_LANES, action=lambda: start.append(time.perf_counter()))
+
+    def lane(i):
+        for r in range(SERVE_WARMUP):
+            clients[i].greedy_actions(obs[i][r])
+        barrier.wait()
+        for r in range(SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            got[i][r] = clients[i].greedy_actions(obs[i][r])
+            lat[i].append(1e3 * (time.perf_counter() - t0))
+
+    try:
+        deadline = time.monotonic() + 30.0
+        while server.serving_stats()["version"] == 0:
+            check(time.monotonic() < deadline, "serving: the server adopts")
+            time.sleep(0.01)
+        threads = [threading.Thread(target=lane, args=(i,))
+                   for i in range(SERVE_LANES)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            check(not t.is_alive(), "serving: a lane finished")
+        wall = time.perf_counter() - start[0]
+        stats = server.serving_stats()
+        client_stats = [c.stats() for c in clients]
+        accepted = set().union(*[c.accepted_req_ids for c in clients])
+    finally:
+        for c in clients:
+            c.close()
+        server.close()
+    worst = 0.0
+    for i in range(SERVE_LANES):
+        want = act_deterministic(actor, torch.from_numpy(
+            obs[i].reshape(-1, OBS)).to(dev)).cpu().numpy().reshape(
+            SERVE_REQUESTS, SERVE_ROWS, ACT)
+        for r in range(SERVE_REQUESTS):
+            worst = max(worst, float(np.abs(got[i][r] - want[r]).max()))
+    flat = sorted(x for lane_ms in lat for x in lane_ms)
+    return {"stats": stats, "clients": client_stats, "wall_s": wall,
+            "requests_per_s": SERVE_LANES * SERVE_REQUESTS / wall,
+            "p50_ms": flat[len(flat) // 2],
+            "p99_ms": flat[int(0.99 * (len(flat) - 1))],
+            "max_abs_err": worst, "accepted": accepted}
+
+
+def phase_serving(dev, card: str) -> dict:
+    """21a: ``PolicyInferenceServer(device='default')`` on the card at
+    Humanoid width, 8 lanes of 32 rows: responses equal to
+    ``act_deterministic`` on the card within 1e-5, no fallback, timeout
+    or tear on any client; requests/s, client latency p50 and p99, the
+    bucket occupancy and the adoptions. Then a pass under
+    ``ServingChaos(torn_response_rate=0.1)``: each tear rejected and
+    counted, a fallback for each, nothing torn acted on."""
+    from d4pg_tpu_torch.distributed.weights import WeightStore
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.serving import ServingChaos
+
+    state = init_state(config("pallas_ce"), 0, dev)
+    store = WeightStore()
+    store.publish(state.actor, step=1)
+    out = {}
+    for tag, chaos in (("healthy", None),
+                       ("chaos", ServingChaos(torn_response_rate=0.1,
+                                              seed=3))):
+        res = _serving_pass(dev, store, state.actor, chaos)
+        st, cs = res["stats"], res["clients"]
+        torn = sum(c["torn_rejected"] for c in cs)
+        fallbacks = sum(c["fallbacks"] for c in cs)
+        if chaos is None:
+            check(res["max_abs_err"] <= 1e-5,
+                  f"serving: responses within 1e-5 of act_deterministic "
+                  f"({res['max_abs_err']})")
+            for c in cs:
+                check(c["fallbacks"] == c["timeouts"] == c["torn_rejected"]
+                      == c["wire_errors"] == 0 and c["served"]
+                      == SERVE_REQUESTS + SERVE_WARMUP,
+                      f"serving: a healthy client {c}")
+        else:
+            check(torn == chaos.torn_injected > 0 and fallbacks == torn,
+                  f"serving chaos: {torn} tears rejected of "
+                  f"{chaos.torn_injected}, {fallbacks} fallbacks")
+            check(not chaos.torn_req_ids & res["accepted"],
+                  "serving chaos: nothing torn acted on")
+            check(res["max_abs_err"] <= 1e-5, "serving chaos: fallback and "
+                  f"served actions within 1e-5 ({res['max_abs_err']})")
+        print(f"[serving {tag}] {res['requests_per_s']:.1f} requests/s "
+              f"({SERVE_LANES} lanes x {SERVE_ROWS} rows), client latency "
+              f"p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms; "
+              f"batches {st['batches']}, occupancy "
+              f"{st['batch_occupancy']}, batch rows p50 "
+              f"{st['batch_rows']['p50']}, adoptions {st['adoptions']}, "
+              f"server latency {st['latency_ms']}; tears {torn}, "
+              f"fallbacks {fallbacks}; max abs err "
+              f"{res['max_abs_err']:.3g} ({card})")
+        out[tag] = {k: v for k, v in res.items() if k != "accepted"}
+    return out
+
+
+def _interrupt(procs, timeout=60.0) -> None:
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGINT)
+    for p in procs:
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=10)
+
+
+def phase_serving_driver(card: str, hooks: DriverHooks, remote: dict | None
+                         ) -> dict:
+    """21b: ``train.main --env point --serve 1 --serve_policy 1
+    --n_workers 0`` for three cycles on fixed free ports, beside two
+    external ``actor_main --policy_port`` children (no card visible)
+    started once the policy server has adopted the learner's weights and
+    stopped before it closes. Asserted: every client served all its
+    requests (no fallback, timeout or tear), rows from both children, the
+    arm's kernels and the descent once per grad step, one compute app.
+    Printed: own grad-steps/s against 19a's in the same call, rows/s, the
+    clients' and the server's stats."""
+    import ast
+    import os
+    import shutil
+    import threading
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.ops.autotune import select_projection
+    from d4pg_tpu_torch.serving import server as server_mod
+
+    runs = ROOT / "runs" / "chip_smoke_serving"
+    shutil.rmtree(runs, ignore_errors=True)
+    runs.mkdir(parents=True)
+    ports = [_free_port() for _ in range(3)]
+    children, logs, servers, seen = [], [], [], {}
+    base = server_mod.PolicyInferenceServer
+
+    def spawn_children():
+        srv = servers[0]
+        deadline = time.monotonic() + 120.0
+        while srv.serving_stats()["version"] == 0:
+            if time.monotonic() > deadline:
+                return
+            time.sleep(0.01)
+        for i in range(2):
+            log = open(runs / f"policy_actor_{i}.log", "w")
+            logs.append(log)
+            children.append(subprocess.Popen(
+                [sys.executable, "-m", "d4pg_tpu_torch.actor_main",
+                 "--learner_host", "127.0.0.1", "--transitions_port",
+                 str(ports[0]), "--weights_port", str(ports[1]),
+                 "--policy_port", str(ports[2]), "--policy_timeout", "5.0",
+                 "--env", "point", "--actor_id", f"pol-{i}", "--seed",
+                 str(31 + i)], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT,
+                env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                     "PYTHONPATH": str(ROOT)}))
+
+    class Server(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            servers.append(self)
+            seen["apps_before"] = compute_app_pids()
+            threading.Thread(target=spawn_children, daemon=True).start()
+
+        def close(self):
+            # the children stop (and report their clients) first
+            seen["apps"] = compute_app_pids()
+            seen["stats"] = self.serving_stats()
+            _interrupt(children)
+            super().close()
+
+    class Planes(driver.RemotePlanes):
+        def __init__(self, cfg, service, weights):
+            self.service = service
+            super().__init__(cfg, service, weights)
+            self.ticks = [(time.perf_counter(), len(service))]
+
+        def supervise(self):
+            self.ticks.append((time.perf_counter(), len(self.service)))
+            super().supervise()
+
+        def close(self):
+            seen["rows"] = self.service.rows_by_actor()
+            seen["ticks"] = self.ticks
+            super().close()
+
+    cfg = ExperimentConfig(env="point").resolve()
+    arm = select_projection("auto", batch_size=cfg.batch_size,
+                            v_min=cfg.v_min, v_max=cfg.v_max,
+                            n_atoms=cfg.n_atoms,
+                            device=driver.learner_device(cfg)).selected
+    argv = ["--env", "point", "--serve", "1", "--serve_policy", "1",
+            "--n_workers", "0", "--n_cycles", "3",
+            "--serve_transitions_port", str(ports[0]),
+            "--serve_weights_port", str(ports[1]),
+            "--serve_policy_port", str(ports[2])]
+    saved = (server_mod.PolicyInferenceServer, driver.RemotePlanes)
+    server_mod.PolicyInferenceServer, driver.RemotePlanes = Server, Planes
+    try:
+        result, counts, own, cycles, wall = _driver_run(
+            hooks, driver, "serving", argv, runs)
+    finally:
+        server_mod.PolicyInferenceServer, driver.RemotePlanes = saved
+        _interrupt(children)
+        for log in logs:
+            log.close()
+    steps = 40 * len(own)
+    check(steps == 120, f"driver serving: {steps} grad steps timed")
+    want = {k: steps if k in fused_kernels(arm) else 0 for k in counts}
+    check(counts == want, f"driver serving: launches {counts}, expected "
+          f"{want}")
+    client_stats = []
+    for i in range(2):
+        text = (runs / f"policy_actor_{i}.log").read_text()
+        lines = [ln for ln in text.splitlines() if "policy client:" in ln]
+        check(len(lines) == 1, f"driver serving: child {i} reported its "
+              f"client ({text[-2000:]})")
+        client_stats.append(ast.literal_eval(lines[0].split(": ", 1)[1]))
+    for c in client_stats:
+        # the SIGINT that stops a child may land inside its last round
+        # trip: that one request is counted and never answered
+        check(c["fallbacks"] == c["timeouts"] == c["torn_rejected"] == 0
+              and c["wire_errors"] == c["warmup_fallbacks"] == 0
+              and c["requests"] - 1 <= c["served"] <= c["requests"]
+              and c["served"] > 0,
+              f"driver serving: a healthy child's client {c}")
+    check(all(seen["rows"].get(f"pol-{i}", 0) > 0 for i in range(2)),
+          f"driver serving: rows from both children ({seen['rows']})")
+    check(len(seen["apps_before"]) == 1
+          and seen["apps"] == seen["apps_before"],
+          f"driver serving: the learner and no child on the card "
+          f"({seen['apps_before']}, {seen['apps']})")
+    ticks = seen["ticks"]
+    rates = [(b[1] - a[1]) / (b[0] - a[0]) for a, b in zip(ticks, ticks[1:])]
+    base19 = (remote["runs"]["remote_point"]["own_grad_steps_per_sec"]
+              if remote else None)
+    st = seen["stats"]
+    print(f"[driver serving] {wall:.2f} s, arm {arm!r}; own grad-steps/s "
+          f"{[round(x, 2) for x in own]} (19a in this call: "
+          f"{'not run' if base19 is None else [round(x, 2) for x in base19]}"
+          f"); rows/s received per cycle {[round(x, 1) for x in rates]}; "
+          f"rows {seen['rows']}; launches {counts} ({card})")
+    print(f"[driver serving] clients {client_stats}; server: requests "
+          f"{st['requests']}, batches {st['batches']}, rows {st['rows']}, "
+          f"occupancy p50 {st['batch_occupancy']['p50']}, adoptions "
+          f"{st['adoptions']}, latency {st['latency_ms']}, staleness "
+          f"{st['staleness_s']} s, sla breaches {st['sla_breaches']} "
+          f"({card})")
+    return {"launches": counts, "own_grad_steps_per_sec": own,
+            "rows_per_sec": rates, "clients": client_stats, "server": st}
+
+
+DEAL_TICKS, DEAL_ROWS = 24, 4096
+
+
+def _descent_bytes(tree, mass) -> int:
+    """Bytes a descent of ``mass`` must move: every distinct node read on
+    the way down (4 B), the masses in and the slots out."""
+    levels = int(math.log2(tree.shape[0] // 2))
+    node = torch.ones(mass.shape, dtype=torch.int64, device=mass.device)
+    p, seen = mass.clone(), []
+    for _ in range(levels):
+        left = node << 1
+        seen.append(left)
+        go = p >= tree[left]
+        p = torch.where(go, p - tree[left], p)
+        node = torch.where(go, left | 1, left)
+    return 4 * torch.unique(torch.cat(seen)).numel() + 8 * mass.numel()
+
+
+def phase_dealer(dev, card: str) -> dict:
+    """22a: the device dealer on the card at Humanoid width: a
+    200,000-row generation-tracked ring, K = 40, B = 256, the ``pallas``
+    arm, against the float32 twin on the card (every field bitwise) and
+    on the CPU (slots, rows, generations, beta bitwise; weights within
+    1e-6 relative), over ``DEAL_TICKS`` ticks of ``DEAL_ROWS``-row
+    inserts each with the previous block's write-back queued; one
+    descent launch per deal. Then the descent kernel against its plain
+    version at Q = K * B = 10,240 over this ring's tree and at the
+    driver's Q = 40 * 64 = 2,560 over 2^20 leaves, bitwise, timed beside
+    the plain version and ``searchsorted``. Per deal and per settle: on
+    ticks of the third quarter the host's enqueue time (the call's
+    return) and the device span of the call queued behind a sleep
+    kernel (CUDA events, the host's gaps hidden); on ticks of the last
+    quarter, under one profiler session, the sum of the call's kernels
+    and copies and their count."""
+    from d4pg_tpu_torch.ops import sampler_descent as desc
+    from d4pg_tpu_torch.replay.device_sampler import DeviceSampleDealer
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+    from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+    from d4pg_tpu_torch.replay.sampler import SampleDealer
+    from d4pg_tpu_torch.replay.schedule import SharedBetaSchedule
+    from d4pg_tpu_torch.replay.staging import DealtBlockRing
+
+    t0 = time.perf_counter()
+    dbuf = FusedDeviceReplay(CAPACITY, OBS, ACT, alpha=0.6, device=dev,
+                             gen_tracked=True)
+    twins = {"card": PrioritizedReplayBuffer(CAPACITY, OBS, ACT, alpha=0.6,
+                                             storage="device", device=dev),
+             "cpu": PrioritizedReplayBuffer(CAPACITY, OBS, ACT, alpha=0.6)}
+    ring = DealtBlockRing(1)
+    dealer = DeviceSampleDealer(CAPACITY, [ring], k=K, batch_size=BATCH,
+                                beta_schedule=SharedBetaSchedule(),
+                                min_size=BATCH, seed=5, arm="pallas")
+    dealer.resync(dbuf)
+    tw = {}
+    for where, buf in twins.items():
+        r = DealtBlockRing(1)
+        d = SampleDealer(CAPACITY, [r], n_shards=1, k=K, batch_size=BATCH,
+                         beta_schedule=SharedBetaSchedule(), min_size=BATCH,
+                         seed=5, scheme="device",
+                         weights_device=dev if where == "card" else "cpu")
+        d.resync(buf)
+        tw[where] = (buf, r, d)
+    # per deal and per settle, on the commit thread's own calls (timing
+    # only: each waits for the card first). "span" ticks: host enqueue
+    # time, and the call's device span behind a 20 ms sleep kernel (kept
+    # only when the host queued the whole call before the sleep ended);
+    # "trace" ticks: a named range the profiler's kernels are summed under
+    samples = {name: {"host": [], "span": [], "device": [], "kernels": []}
+               for name in ("deal", "settle")}
+    timing = [None]
+
+    def timed(name, fn):
+        rec = samples[name]
+
+        def call(*args):
+            if timing[0] is None:
+                return fn(*args)
+            torch.cuda.synchronize()
+            if timing[0] == "trace":
+                with torch.profiler.record_function(f"dealer.{name}"):
+                    return fn(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(0.02 * 2e9))
+            start.record()
+            t = time.perf_counter()
+            out = fn(*args)
+            rec["host"].append(1e3 * (time.perf_counter() - t))
+            queued = not start.query()
+            end.record()
+            end.synchronize()
+            if queued:
+                rec["span"].append(start.elapsed_time(end))
+            return out
+        return call
+
+    def kernels_under(event) -> list:
+        found = list(event.kernels)
+        for child in event.cpu_children:
+            found += kernels_under(child)
+        return found
+
+    dealer.deal = timed("deal", dealer.deal)
+    dbuf.apply_priorities = timed("settle", dbuf.apply_priorities)
+    rng = np.random.default_rng(22)
+    wb_rng = np.random.default_rng(23)
+    launches, deals, worst_w = 0, 0, 0.0
+    weights_bitwise_cpu = True
+    pending = None
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for tick in range(DEAL_TICKS):
+        rows = random_rows(rng, DEAL_ROWS)
+        if pending is not None:
+            (idx, td, gen), twin_wb = pending
+            dealer.queue_writeback(idx, td, gen)
+            for where, (tidx, tgen) in twin_wb.items():
+                tw[where][2].queue_writeback(tidx, td, tgen)
+        zero_counts()
+        timing[0] = (None if tick < DEAL_TICKS // 2 else "span"
+                     if tick < 3 * DEAL_TICKS // 4 else "trace")
+        if tick == 3 * DEAL_TICKS // 4:
+            prof.start()
+        dealt = dealer.ingest_and_deal([(dbuf.add(rows), tick, None)], dbuf)
+        launches += launch_counts()["descent"]
+        deals += len(dealt)
+        twin_dealt = {where: d.ingest_and_deal(
+            [(buf.add(rows), tick, None)], buf)
+            for where, (buf, r, d) in tw.items()}
+        check(all(len(v) == len(dealt) for v in twin_dealt.values()),
+              f"dealer tick {tick}: deals {len(dealt)} and the twins'")
+        dealer.publish(dealt)
+        for where, (_, _, d) in tw.items():
+            d.publish(twin_dealt[where])
+        pending = None
+        if not dealt:
+            continue
+        blk = ring.pop(timeout=0)
+        idx, gen = blk.idx.cpu().numpy(), blk.gen.cpu().numpy()
+        twin_wb = {}
+        for where, (buf, r, d) in tw.items():
+            tb = r.pop(timeout=0)
+            check(np.array_equal(idx, tb.idx) and np.array_equal(gen, tb.gen)
+                  and blk.beta == tb.beta and blk.step == tb.step,
+                  f"dealer tick {tick}: slots, generations and beta "
+                  f"bitwise the {where} twin's")
+            for a, b in zip(blk.batches, tb.batches):
+                b = b if isinstance(b, torch.Tensor) else torch.from_numpy(b)
+                check(torch.equal(a.cpu(), b.cpu()),
+                      f"dealer tick {tick}: rows bitwise the {where} twin's")
+            w = blk.weights.cpu().numpy()
+            if where == "card":
+                check(np.array_equal(w, tb.weights),
+                      f"dealer tick {tick}: weights bitwise the card twin's")
+            else:
+                weights_bitwise_cpu &= bool(np.array_equal(w, tb.weights))
+                rel = float(np.abs(w - tb.weights).max() / np.abs(
+                    tb.weights).max())
+                worst_w = max(worst_w, rel)
+                check(rel <= 1e-6, f"dealer tick {tick}: weights within "
+                      f"1e-6 of the CPU twin's ({rel})")
+            twin_wb[where] = (tb.idx, tb.gen)
+        td = wb_rng.uniform(0.05, 3.0, idx.shape)
+        pending = ((idx, td, gen), twin_wb)
+    torch.cuda.synchronize()
+    prof.stop()
+    for event in prof.events():
+        name = event.name.removeprefix("dealer.")
+        if event.device_type == DeviceType.CPU and event.name != name:
+            found = kernels_under(event)
+            samples[name]["device"].append(
+                sum(k.duration for k in found) / 1e3)
+            samples[name]["kernels"].append(len(found))
+    check(deals >= DEAL_TICKS - 1 and launches == deals,
+          f"dealer: {launches} descent launches in {deals} deals")
+    cap = dbuf.trees.capacity
+    check(np.array_equal(dbuf.trees.sum_tree[cap:].cpu().numpy(),
+                         tw["cpu"][2]._trees.get(np.arange(cap)).astype(
+                             np.float32)),
+          "dealer: the card's tree leaves are the CPU twin's")
+    times = {}
+    for name, rec in samples.items():
+        check(rec["host"], f"dealer: no timed {name} calls")
+        times[name] = {
+            key: (float(np.median(rec[src])) if any(rec[src]) else None)
+            for key, src in (("host_ms", "host"), ("span_ms", "span"),
+                             ("device_ms", "device"),
+                             ("kernels", "kernels"))}
+
+    def fmt(t):
+        def num(key, unit=" ms", spec=".4f"):
+            return ("not measured" if t[key] is None
+                    else f"{t[key]:{spec}}{unit}")
+        return (f"host enqueue {num('host_ms')}, device span behind a "
+                f"sleep {num('span_ms')}, profiler {num('device_ms')} in "
+                f"{num('kernels', '', '.0f')} kernels and copies")
+
+    print(f"[dealer] {deals} deals of K={K} x B={BATCH} over a "
+          f"{CAPACITY}-row ring ({dbuf.size} rows) in "
+          f"{time.perf_counter() - t0:.2f} s: bitwise the card twin, slots "
+          f"rows generations beta bitwise the CPU twin, weights "
+          f"{'bitwise' if weights_bitwise_cpu else f'within {worst_w:.3g}'}"
+          f"; descent launches per deal {launches / deals:.3f}; per deal "
+          f"{fmt(times['deal'])}; per settle (set_leaves of {K * BATCH} "
+          f"slots over two {2 * cap}-node trees) {fmt(times['settle'])} "
+          f"({card})")
+    # the descent kernel at the dealt shapes, against its plain version
+    tree = dbuf.trees.sum_tree
+    gen_t = torch.Generator(device=dev).manual_seed(22)
+    mass = (torch.rand(K * BATCH, generator=gen_t, device=dev)
+            * tree[1]).contiguous()
+    tree20, _ = _tree_with_zero_runs(dev, gen_t, DRIVER_CAP)
+    mass20 = (torch.rand(K * DRIVER_BATCH, generator=gen_t, device=dev)
+              * tree20[1]).contiguous()
+    out = {"deal": times["deal"], "settle": times["settle"], "deals": deals,
+           "launches": launches, "weights_rel_err_cpu": worst_w,
+           "weights_bitwise_cpu": weights_bitwise_cpu}
+    for tag, t, m in (("q10240", tree, mass), ("q2560", tree20, mass20)):
+        got, want = desc.descend(t, m), desc.descend_plain(t, m)
+        check(torch.equal(got, want), f"descent at {tag}: bitwise")
+        ms, _ = device_ms(lambda: desc.descend(t, m), calls=100)
+        plain_ms, _ = device_ms(lambda: desc.descend_plain(t, m), calls=2)
+        leaves = t[t.shape[0] // 2:]
+        cumsum = torch.cumsum(leaves, 0)
+        lib_ms, _ = device_ms(
+            lambda: torch.searchsorted(cumsum, m, right=True), calls=100)
+        levels = int(math.log2(t.shape[0] // 2))
+        b_ms, b_by = bound_ms(_descent_bytes(t, m), 2 * m.numel() * levels)
+        print(f"[dealer] descent {tag} ({m.numel()} queries, {levels} "
+              f"levels): kernel {ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f}"
+              f" us, searchsorted {lib_ms * 1e3:.3f} us, bound "
+              f"{b_ms * 1e3:.4f} us ({b_by}) ({card})")
+        out[tag] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": b_ms, "bound_by": b_by}
+    dealer.close()
+    for _, _, d in tw.values():
+        d.close()
+    return out
+
+
+def phase_dealt_driver(card: str, hooks: DriverHooks,
+                       host: dict | None) -> dict:
+    """22b: ``train.main --env point --fused_replay off --sample_on_ingest
+    1`` for two cycles under ``--sampler pallas``, ``scan`` and ``host``,
+    then ``auto`` with ``--learners 2``. Per run: the descent once per
+    deal under ``pallas`` (or ``auto`` when it picks it) and never under
+    ``scan`` and ``host``; the arm's kernels once per grad step of every
+    replica; own grad-steps/s against phase 13's host path in this call;
+    the deal-to-grad p50 (a block's push into its ring to its write-back
+    after the grad steps); the CPU ms per grad step of the replica
+    threads, which run the grad steps (and of the main thread, as 20c
+    measures it)."""
+    import shutil
+    import threading
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.learner.replica import LearnerReplica
+    from d4pg_tpu_torch.ops.autotune import select_projection, select_sampler
+    from d4pg_tpu_torch.replay.staging import DealtBlockRing
+
+    runs = ROOT / "runs" / "chip_smoke_dealt"
+    shutil.rmtree(runs, ignore_errors=True)
+    cfg = ExperimentConfig(env="point").resolve()
+    arm = select_projection("auto", batch_size=cfg.batch_size,
+                            v_min=cfg.v_min, v_max=cfg.v_max,
+                            n_atoms=cfg.n_atoms,
+                            device=driver.learner_device(cfg)).selected
+    # ``auto``'s race times both descents (its launches are not the
+    # driver's): resolved here first, the driver reads the cached choice
+    auto = select_sampler("auto", capacity=cfg.memory_size,
+                          k=cfg.updates_per_dispatch,
+                          batch_size=cfg.batch_size,
+                          device=driver.learner_device(cfg))
+    print(f"[driver dealt] sampler 'auto' on the card: {auto.selected!r}, "
+          f"timings {auto.timings_ms} ms ({card})")
+    offered, popped, d2g, cpu, planes = {}, threading.local(), [], [], []
+    lock = threading.Lock()
+    offer, pop = DealtBlockRing.offer, DealtBlockRing.pop
+    writeback, run_round = (ReplayService.queue_writeback,
+                            LearnerReplica.run_round)
+    plane = driver.learner_plane
+
+    def offering(ring, block):
+        with lock:
+            offered[id(block)] = time.perf_counter()
+        return offer(ring, block)
+
+    def popping(ring, timeout=None):
+        block = pop(ring, timeout)
+        popped.block = block
+        return block
+
+    def writing_back(service, idx, td, gen):
+        out = writeback(service, idx, td, gen)
+        block = getattr(popped, "block", None)
+        if block is not None:
+            with lock:
+                d2g.append(1e3 * (time.perf_counter()
+                                  - offered.pop(id(block))))
+        return out
+
+    def rounding(replica, n, generation=None):
+        t0 = time.thread_time()
+        try:
+            return run_round(replica, n, generation)
+        finally:
+            with lock:
+                cpu.append(time.thread_time() - t0)
+
+    def capture(*args, **kwargs):
+        reps, agg = plane(*args, **kwargs)
+        planes.append((reps, agg, reps[0]._service))
+        return reps, agg
+
+    (DealtBlockRing.offer, DealtBlockRing.pop, ReplayService.queue_writeback,
+     LearnerReplica.run_round, driver.learner_plane) = (
+        offering, popping, writing_back, rounding, capture)
+    out = {"launches": {}, "runs": {}}
+    try:
+        for tag, argv in (
+                ("pallas", ["--sampler", "pallas"]),
+                ("scan", ["--sampler", "scan"]),
+                ("host", ["--sampler", "host"]),
+                ("auto_learners2", ["--sampler", "auto", "--learners", "2"])):
+            d2g.clear()
+            cpu.clear()
+            result, counts, own, cycles, wall = _driver_run(
+                hooks, driver, f"dealt {tag}",
+                ["--env", "point", "--fused_replay", "off",
+                 "--sample_on_ingest", "1", "--n_cycles", "2", *argv],
+                runs / tag)
+            ((reps, agg, service),) = planes
+            planes.clear()
+            dealer = service._dealer
+            sampler = getattr(dealer, "arm", "host")
+            grad_steps = sum(r.steps_done for r in reps)
+            deals = dealer.dealt_blocks
+            want = {k: grad_steps if k in ARM_KERNELS[arm] else 0
+                    for k in counts}
+            want["descent"] = deals if sampler == "pallas" else 0
+            check(counts == want, f"driver dealt {tag}: launches {counts}, "
+                  f"expected {want} ({deals} deals, {grad_steps} grad steps,"
+                  f" sampler {sampler})")
+            check(grad_steps >= 80 and deals >= 2 and agg.ledger_monotone(),
+                  f"driver dealt {tag}: {grad_steps} grad steps, {deals} "
+                  "deals, monotone versions")
+            check(dealer.deals_dropped == 0,
+                  f"driver dealt {tag}: no dealt block dropped")
+            for k, c in counts.items():
+                out["launches"][k] = out["launches"].get(k, 0) + c
+            rep_cpu_ms = 1e3 * sum(cpu) / grad_steps
+            main_cpu_ms = [1e3 * c / 40 for c in hooks.cpu_spans]
+            # every replica's grad steps over each cycle's span (at N = 2
+            # each replica takes one 40-step block per cycle)
+            own_all = [grad_steps / len(own) / s for s in hooks.spans]
+            p50 = float(np.median(d2g)) if d2g else None
+            print(f"[driver dealt {tag}] {wall:.2f} s, sampler {sampler}, "
+                  f"arm {arm!r}; own grad-steps/s {[round(x, 2) for x in own]}"
+                  f", all replicas' {[round(x, 2) for x in own_all]}"
+                  f" (host path of phase 13 in this call: "
+                  f"{'not run' if host is None else [round(x, 2) for x in host['fused_off']['own_grad_steps_per_sec']]}"
+                  f"); {deals} deals, {grad_steps} grad steps over "
+                  f"{len(reps)} replicas; deal-to-grad p50 "
+                  f"{'not measured' if p50 is None else round(p50, 3)} ms "
+                  f"over {len(d2g)} blocks; CPU per grad step: replica "
+                  f"threads {rep_cpu_ms:.2f} ms, main thread "
+                  f"{[round(x, 2) for x in main_cpu_ms]} ms; launches "
+                  f"{counts} ({card})")
+            out["runs"][tag] = {"own_grad_steps_per_sec": own,
+                                "all_grad_steps_per_sec": own_all,
+                                "auto_timings_ms": auto.timings_ms,
+                                "sampler": sampler, "deals": deals,
+                                "grad_steps": grad_steps,
+                                "deal_to_grad_p50_ms": p50,
+                                "replica_cpu_ms_per_grad_step": rep_cpu_ms,
+                                "main_cpu_ms_per_grad_step": main_cpu_ms,
+                                "launches": counts}
+    finally:
+        (DealtBlockRing.offer, DealtBlockRing.pop,
+         ReplayService.queue_writeback, LearnerReplica.run_round,
+         driver.learner_plane) = (offer, pop, writeback, run_round, plane)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2782,6 +3492,10 @@ def main() -> int:
     phase_sharded_ingest(dev)
     plane = phase_weight_plane(dev, card)
     sharded = phase_sharded_driver(card, hooks, remote)
+    serving = phase_serving(dev, card)
+    serving_drv = phase_serving_driver(card, hooks, remote)
+    dealer = phase_dealer(dev, card)
+    dealt = phase_dealt_driver(card, hooks, drv_host)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -2807,6 +3521,19 @@ def main() -> int:
         kern["remote_driver_launches"] = remote["launches"][kern["name"]]
         # the sharded driver run of phase 20c (120 grad steps)
         kern["sharded_driver_launches"] = sharded["launches"][kern["name"]]
+        # this slice: the serving driver (21b, 120 grad steps) and the
+        # dealt drivers (22b: pallas, scan, host, auto with 2 learners)
+        kern["serving_driver_launches"] = \
+            serving_drv["launches"][kern["name"]]
+        kern["dealt_driver_launches"] = dealt["launches"][kern["name"]]
+        if kern["name"] == "descent":
+            # the dealt plane's shape: one launch per deal over Q = K * B
+            # flat queries (22a), and the driver's Q = 40 * 64 at 2^20
+            kern["dealt_launches"] = dealer["launches"]
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by"):
+                kern[f"dealt_{key}"] = dealer["q10240"][key]
+                kern[f"dealt_driver_{key}"] = dealer["q2560"][key]
     for arm, result in arms.items():
         print(f"[{arm}] grad_steps_per_s {result['grad_steps_per_s']:.1f} "
               f"on {card}")
@@ -2869,6 +3596,31 @@ def main() -> int:
           f" weight frames bf16 full / delta bytes "
           f"{plane['bf16']['full_bytes']} / {plane['bf16']['delta_bytes']} "
           f"on {card}")
+    for tag, res in serving.items():
+        print(f"[serving {tag}] {res['requests_per_s']:.1f} requests/s, "
+              f"p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms on "
+              f"{card}")
+    print(f"[driver serving] own grad-steps/s "
+          f"{[round(x, 2) for x in serving_drv['own_grad_steps_per_sec']]}"
+          f", rows/s {[round(x, 1) for x in serving_drv['rows_per_sec']]}"
+          f" against 19a's "
+          f"{[round(x, 2) for x in remote['runs']['remote_point']['own_grad_steps_per_sec']]}"
+          f" on {card}")
+    for name in ("deal", "settle"):
+        t = dealer[name]
+        print(f"[dealer {name}] host enqueue {t['host_ms']} ms, device span "
+              f"{t['span_ms']} ms, profiler {t['device_ms']} ms in "
+              f"{t['kernels']} kernels and copies on {card}")
+    print(f"[dealer] descent at Q = {K * BATCH} "
+          f"{dealer['q10240']['ms'] * 1e3:.3f} us, at Q = "
+          f"{K * DRIVER_BATCH} over 2^20 {dealer['q2560']['ms'] * 1e3:.3f}"
+          f" us on {card}")
+    for tag, run in dealt["runs"].items():
+        print(f"[driver dealt {tag}] own grad-steps/s "
+              f"{[round(x, 2) for x in run['own_grad_steps_per_sec']]}, "
+              f"deal-to-grad p50 {run['deal_to_grad_p50_ms']} ms, replica "
+              f"CPU {run['replica_cpu_ms_per_grad_step']:.2f} ms per grad "
+              f"step on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,13 @@ originals and their HER relabels streamed with the count flag (relabels
 off), the normalizer statistics adopted from the weight frames. Without
 it an ``EnvPool`` of ``--num_envs`` envs runs an ``ActorWorker``.
 
-Not ported yet, raising ``NotImplementedError``: ``--policy_port`` (the
-serving plane, ROADMAP Queue 1 item 13).
+``--policy_port P`` acts through the learner's serving plane
+(``train.py --serve_policy 1``): greedy actions come from its
+``PolicyInferenceServer`` over the serving wire
+(``serving/client.RemotePolicyClient``, lane id the CRC32 of the actor id,
+``--policy_timeout`` per request), the noise stays here, and the weight
+puller only backs the client's cached-params fallback. Not with ``--her
+1``, as in the reference (the goal actor acts locally).
 
 Spawned children (``train.py --actor_procs N``, through
 ``run_local_actor_process``) act on the CPU and never create a CUDA
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import zlib
 
 from d4pg_tpu_torch.config import ExperimentConfig
 from d4pg_tpu_torch.distributed.actor import ActorWorker, GoalActorWorker
@@ -43,7 +49,7 @@ from d4pg_tpu_torch.distributed.weight_plane import WeightPlaneClient
 from d4pg_tpu_torch.distributed.weight_server import WeightClient
 from d4pg_tpu_torch.envs.vector import EnvPool
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
-from d4pg_tpu_torch.serving.client import ActorConfig
+from d4pg_tpu_torch.serving.client import ActorConfig, RemotePolicyClient
 from d4pg_tpu_torch.train import infer_dims, make_env_fn
 
 
@@ -63,13 +69,6 @@ class RemoteReplayClient:
         return self._sender.send(batch, count_env_steps=count_env_steps)
 
 
-def _refuse_unported(policy_port: int | None) -> None:
-    if policy_port is not None:
-        raise NotImplementedError(
-            "--policy_port selects the serving plane, which the PyTorch "
-            "port does not have yet (ROADMAP Queue 1 item 13)")
-
-
 def run_actor(
     cfg: ExperimentConfig,
     learner_host: str,
@@ -87,11 +86,11 @@ def run_actor(
     weight_codec: str | None = None,
     weight_delta: bool = True,
     policy_port: int | None = None,
+    policy_timeout: float = 0.5,
 ) -> int:
     """Act until ``max_ticks`` pool ticks (HER: env steps) are done, or
     forever; returns the env steps taken. ``weight_codec`` selects the v2
-    weight puller (None: v1)."""
-    _refuse_unported(policy_port)
+    weight puller (None: v1); ``policy_port`` the serving plane."""
     cfg = cfg.resolve()
     obs_dim, act_dim, obs_dtype = infer_dims(cfg)
     # acting needs the networks' shapes only: the projection arm is
@@ -132,9 +131,16 @@ def run_actor(
     else:
         pool = EnvPool([make_env_fn(cfg, seed=cfg.seed + i)
                         for i in range(cfg.num_envs)], seed=cfg.seed)
+        policy = None
+        if policy_port is not None:
+            policy = RemotePolicyClient(
+                config, actor_cfg, learner_host, policy_port, secret=secret,
+                lane_id=zlib.crc32(actor_id.encode()) & 0xFFF,
+                seed=cfg.seed, timeout=policy_timeout, weights=weights)
         actor = ActorWorker(actor_id, config, actor_cfg, pool,
                             RemoteReplayClient(sender), weights,
-                            seed=cfg.seed, obs_dtype=obs_dtype)
+                            seed=cfg.seed, obs_dtype=obs_dtype,
+                            policy=policy)
     try:
         done = 0
         while max_ticks is None or done < max_ticks:
@@ -155,6 +161,10 @@ def run_actor(
             print(f"actor {actor_id} shed {sender.frames_dropped} frames "
                   f"({sender.retries} transport retries) under "
                   "backpressure", flush=True)
+        if policy_port is not None and not cfg.her:
+            # the degradation ladder's counts, rung by rung
+            print(f"actor {actor_id} policy client: "
+                  f"{actor.policy.stats()}", flush=True)
         sender.close()
         weights.close()
         if pool is not None:
@@ -246,13 +256,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "last accepted version when the server still "
                         "holds it; 0 always pulls full frames")
     p.add_argument("--policy_port", type=int, default=None,
-                   help="the serving plane (not ported yet: raises)")
+                   help="query greedy actions from the learner's policy "
+                        "server on this port (train.py --serve_policy 1); "
+                        "on a timeout or a torn response the actor acts "
+                        "from its cached weights, counted (gaussian noise "
+                        "only)")
+    p.add_argument("--policy_timeout", type=float, default=0.5,
+                   help="seconds per serving request before the "
+                        "cached-params fallback")
     return p
 
 
 def main(argv=None) -> int:
     ns = build_parser().parse_args(argv)
-    _refuse_unported(ns.policy_port)
     if ns.actor_device == "cpu":
         # acting on the host: keep this process off the card entirely
         os.environ["CUDA_VISIBLE_DEVICES"] = ""
@@ -270,7 +286,9 @@ def main(argv=None) -> int:
                       codec=ns.codec, trace_sample=ns.trace_sample,
                       expect_generation=bool(ns.expect_generation),
                       weight_codec=ns.weight_codec,
-                      weight_delta=bool(ns.weight_delta))
+                      weight_delta=bool(ns.weight_delta),
+                      policy_port=ns.policy_port,
+                      policy_timeout=ns.policy_timeout)
     print(f"collected {steps} env steps")
     return steps
 

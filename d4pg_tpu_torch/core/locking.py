@@ -28,6 +28,13 @@ from d4pg_tpu_torch.obs.flight import record_event
 HIERARCHY: dict[str, int] = {
     "service": 50,  # ReplayService._lock (heartbeats, pending, env_steps)
     "buffer": 40,   # ReplayService._buffer_lock (all replay-state access)
+    # Multi-learner plane (replica -> aggregator -> store): a replica may
+    # hold its control lock while submitting (replica -> agg descends),
+    # and the aggregator publishes into the WeightStore under its own
+    # condition (agg -> wstore). A replica never holds its lock across a
+    # replay sample: buffer sits above replica.
+    "replica": 36,  # LearnerReplica._replica_lock (epoch, counters)
+    "agg": 34,      # Aggregator._agg_cond (merge state, sync barrier)
     "commit": 30,   # ReplayService._commit_cond (ordered-merge state)
     # Weight-distribution plane (learner -> actors; disjoint from the
     # ingest tiers above, so its band sits between commit and the leaf
@@ -36,8 +43,16 @@ HIERARCHY: dict[str, int] = {
     # store under the cache lock (wserve -> wstore) — both descend.
     "wrelay": 28,   # WeightRelay._relay_lock (generation swap + counters)
     "wserve": 26,   # WeightServer._frame_lock (version window + frame memo)
+    # Serving plane: the inference server's pending queue and adopted
+    # params; its refresher reads the store outside it
+    "pserve": 25,   # PolicyInferenceServer._pserve_cond (pending + params)
     "wstore": 24,   # WeightStore._store_lock (published params + version)
     "shard": 20,    # _IngestShard.cond (admission deque + counters)
+    # Sample-on-ingest plane: the dealer's trees, write-back queues and
+    # counters. The commit thread reaches it holding the buffer lock
+    # (buffer -> sampler); replicas enqueue write-backs under it alone;
+    # dealt blocks enter the rings after it is released.
+    "sampler": 15,  # SampleDealer._sampler_lock (slice trees + queues)
     "ring": 10,     # MultiRingStaging._ring_locks[i] (staging ring slices)
 }
 

@@ -5,13 +5,13 @@ magic, header ``struct``, flag bit and payload cap of the reference's
 wire planes is declared here once, with the same values, so a frame the
 port encodes is byte for byte the frame the reference encodes and each
 side decodes the other's. The port's planes (``distributed/transport``,
-``distributed/weight_server``) import from here. The port speaks the
-ingest frames (v1 npz, v2 raw with the count, trace and generation
-extensions, the generation greeting) and the v1 weight frames; the v2
-weight plane, the update plane, the serving frames and the replay
-sidecar are declared for completeness and wait for ROADMAP Queue 1 items
-12, 13 and 17. The reference's static mirror of this table (its lint
-pass) is not ported.
+``distributed/weight_server``, ``distributed/weight_plane``,
+``serving/protocol``) import from here. The port speaks the ingest
+frames (v1 npz, v2 raw with the count, trace and generation extensions,
+the generation greeting), the v1 and v2 weight frames and the serving
+frames; the update plane and the replay sidecar are declared for
+completeness and wait for ROADMAP Queue 1 items 15 and 17. The
+reference's static mirror of this table (its lint pass) is not ported.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ Counterpart of ``ActorWorker`` and ``GoalActorWorker`` in
 client (``serving/client.LocalPolicyClient``: weight pulls, noise,
 epsilon) and a lane (``serving/lane.VectorActorLane``: the pool, the
 n-step folder and the sends), sharing one stop event.
-``GoalActorWorker`` drives the same client through whole episodes of a
+``policy=`` puts another client in place of the local one (the remote
+actor's ``serving/client.RemotePolicyClient``, ``actor_main
+--policy_port``). ``GoalActorWorker`` drives the local client through
+whole episodes of a
 goal-conditioned dict-obs env and streams the originals plus their HER
 relabels (``envs/her.her_relabel``). Both stream raw observations: the
 replay service normalizes at insert, and the policy input goes through
@@ -45,15 +48,16 @@ class ActorWorker:
         learner_device=None,
         obs_dtype=None,
         obs_norm=None,
+        policy=None,
     ):
         self.actor_id = actor_id
         self.config = config
         self.cfg = actor_cfg
         self.service = service
         self.weights = weights
-        self.policy = LocalPolicyClient(config, actor_cfg, weights, seed=seed,
-                                        learner_device=learner_device,
-                                        obs_norm=obs_norm)
+        self.policy = policy if policy is not None else LocalPolicyClient(
+            config, actor_cfg, weights, seed=seed,
+            learner_device=learner_device, obs_norm=obs_norm)
         self.pool = pool
         self._stop = threading.Event()
         self._lane = VectorActorLane(actor_id, config, actor_cfg, pool,

@@ -75,10 +75,23 @@ moves stale actors to an evicted set that a heartbeat or a streamed
 batch re-admits. A crash of an ingest thread is counted
 (``obs.containment.contained_crash``), after which ``flush`` times out.
 
+Sample-on-ingest (``attach_dealer``): with a ``replay/sampler.
+SampleDealer`` (or the device dealer of ``replay/device_sampler.py``)
+attached, every ordered commit hands its inserts to the dealer inside
+its buffer-lock window (``ingest_and_deal``: mirror, settle write-backs,
+draw), and the dealt blocks enter the per-replica rings after every
+service lock is released; with no group to commit, the commit loop runs
+an idle deal tick (settle and top up) about every 0.1 s, or at once when
+a replica's pop frees ring room (``_kick_commit``). Replicas write
+priorities back through ``queue_writeback`` (the ``sampler`` tier only,
+never the buffer lock); each shard's worker drains the queues of its own
+slices. Shed, tombstoned and stale tickets are reported to the dealer
+for its audit.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: the elastic ``admission`` policy, a ``generation`` other than 0,
 ``snapshot``/``restore``/``kill`` and ``set_ingest_depth`` (Queue 1 item
-17), and ``attach_dealer``/``queue_writeback`` (item 14).
+17).
 """
 
 from __future__ import annotations
@@ -216,6 +229,9 @@ class ReplayService:
         # the ordered merge, under _commit_cond: per-shard outputs (ticket
         # ascending), tombstoned tickets, the next ticket to commit
         self._commit_cond = TieredCondition("commit")
+        # the sample-on-ingest dealer (attach_dealer): written under the
+        # buffer lock, read without a lock (set once)
+        self._dealer = None
         self._out: list[deque] = [deque() for _ in self._shards]
         self._skip: set[int] = set()
         self._next_seq = 0
@@ -361,6 +377,8 @@ class ReplayService:
                 _tracer.terminal_shed(trace[0])
         if shed_seqs:
             self._tombstone(shed_seqs)
+            if self._dealer is not None:
+                self._dealer.mark_dead_seqs(shed_seqs)
             record_event("shed", shard=s.idx, batches=len(shed_seqs),
                          seqs=shed_seqs[:8])
             for tid in shed_tids:
@@ -432,10 +450,31 @@ class ReplayService:
                                               generation=generation)
 
     def attach_dealer(self, dealer) -> None:
-        raise _unported("the sample-on-ingest dealer", "item 14")
+        """Wire a sample-on-ingest dealer into the commit path (see the
+        module docstring). A replica's pop that frees ring room wakes the
+        commit loop for a top-up deal; the kick runs on the replica's
+        thread with no lock held."""
+        with self._buffer_lock:
+            dealer.resync(self.buffer)
+            self._dealer = dealer
+        for ring in dealer.rings:
+            ring.on_room = self._kick_commit
 
-    def queue_writeback(self, idx, priorities, generation) -> None:
-        raise _unported("the sample-on-ingest dealer", "item 14")
+    def _kick_commit(self) -> None:
+        with self._commit_cond:
+            self._commit_cond.notify_all()
+
+    def queue_writeback(self, idx: np.ndarray, priorities: np.ndarray,
+                        generation: np.ndarray) -> None:
+        """A replica's priority write-back on the dealt path: queued under
+        the ``sampler`` tier, applied by the owning shard's worker or the
+        commit thread's settle, fenced by the generations as
+        ``update_priorities`` is."""
+        dealer = self._dealer
+        if dealer is None:
+            raise RuntimeError("queue_writeback requires an attached "
+                               "dealer (attach_dealer)")
+        dealer.queue_writeback(idx, priorities, generation)
 
     def drain_device(self) -> int:
         """Flush every staged row of a fused buffer onto the device (cycle
@@ -596,6 +635,10 @@ class ReplayService:
 
     def _worker_loop(self, s: _IngestShard) -> None:
         while not self._stop.is_set():
+            dealer = self._dealer
+            if dealer is not None:
+                # this shard's slices' write-back queues, at top level
+                dealer.drain_writebacks_for_shard(s.idx)
             with self._commit_cond:
                 while self._out[s.idx] and not self._stop.is_set():
                     self._commit_cond.wait(timeout=0.1)
@@ -644,6 +687,8 @@ class ReplayService:
                     self._skip.update(dead)
                 self._commit_cond.notify_all()
             if dead:
+                if self._dealer is not None:
+                    self._dealer.mark_dead_seqs(dead)
                 record_event("decode_error", shard=s.idx, tickets=dead[:8],
                              n=len(dead))
                 for tid in dead_tids:
@@ -659,6 +704,7 @@ class ReplayService:
         shard's worker forever; the caller settles its accounting and
         sheds the traces collected into ``shed_tids``."""
         stale = 0
+        stale_seqs: list[int] = []
         while len(group) < self._COALESCE:
             while self._next_seq in self._skip:
                 self._skip.discard(self._next_seq)
@@ -669,6 +715,7 @@ class ReplayService:
                     item = dq.popleft()
                     self.order_breaks += 1
                     stale += 1
+                    stale_seqs.append(item[0])
                     if item[5] is not None:
                         shed_tids.append(item[5])
                 if dq and dq[0][0] == self._next_seq:
@@ -678,6 +725,8 @@ class ReplayService:
                 break
             group.append(found)
             self._next_seq += 1
+        if stale_seqs and self._dealer is not None:
+            self._dealer.mark_dead_seqs(stale_seqs)
         return stale
 
     def _commit_loop(self) -> None:
@@ -736,8 +785,18 @@ class ReplayService:
                 if advanced:
                     record_event("order_break", kind_detail="floor_advance")
                 last_progress = time.monotonic()
+            dealer = self._dealer
+            if not group and dealer is not None:
+                # the idle deal tick: settle write-backs and top the rings
+                # up while ingest is quiet, in one buffer-lock window
+                with self._buffer_lock:
+                    dealt = dealer.ingest_and_deal((), self.buffer)
+                if dealt:
+                    dealer.publish(dealt)
 
     def _insert_group(self, group: list) -> None:
+        dealer = self._dealer
+        dealt: list = []
         try:
             if self.obs_norm is not None:
                 # fold, then normalize, batch by batch in ticket order:
@@ -753,9 +812,16 @@ class ReplayService:
                         next_obs=norm.normalize(batch.next_obs)),
                         rows, cnt, tid)
             with self._buffer_lock:
-                for _seq, _aid, batch, _rows, _cnt, _tid in group:
-                    if batch is not None:  # None: direct-staged already
-                        self.buffer.add(batch)
+                if dealer is None:
+                    for _seq, _aid, batch, _rows, _cnt, _tid in group:
+                        if batch is not None:  # None: direct-staged already
+                            self.buffer.add(batch)
+                else:
+                    # insert, mirror, settle and draw in the one window
+                    inserts = [(self.buffer.add(batch), seq, tid)
+                               for seq, _aid, batch, _rows, _cnt, tid in group
+                               if batch is not None]
+                    dealt = dealer.ingest_and_deal(inserts, self.buffer)
         finally:
             committed = 0
             with self._lock:
@@ -770,6 +836,9 @@ class ReplayService:
             REGISTRY.counter("ingest.rows_committed").inc(committed)
             _tracer.mark_committed(
                 [tid for *_rest, tid in group if tid is not None])
+        if dealt:
+            # ring pushes and deal spans after every service lock
+            dealer.publish(dealt)
 
     def flush(self, timeout: float = 5.0) -> None:
         """Block until every accepted batch has been committed."""
@@ -785,9 +854,12 @@ class ReplayService:
                         "item 17")
 
     def close(self) -> None:
-        """Flush, then stop the ingest threads."""
+        """Flush, then stop the ingest threads (and close the dealer,
+        whose closed rings wake any replica waiting on a pop)."""
         self.flush()
         REGISTRY.unregister_provider("ingest", self.ingest_stats)
+        if self._dealer is not None:
+            self._dealer.close()
         self._stop.set()
         for s in self._shards:
             with s.cond:

@@ -38,14 +38,15 @@ from d4pg_tpu_torch.core.locking import TieredLock
 
 def copy_params(params: Any, to_host: bool = True) -> dict[str, torch.Tensor]:
     """Detached copies of ``params`` (an ``nn.Module`` or a mapping of
-    name -> tensor): on the CPU, or on each tensor's own device with
+    name -> tensor, or of name -> such a mapping, as the aggregator's
+    tree): on the CPU, or on each tensor's own device with
     ``to_host=False``."""
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
-    if to_host:
-        return {name: t.detach().to("cpu", copy=True)
-                for name, t in params.items()}
-    return {name: t.detach().clone() for name, t in params.items()}
+    return {name: copy_params(t, to_host) if isinstance(t, dict)
+            else (t.detach().to("cpu", copy=True) if to_host
+                  else t.detach().clone())
+            for name, t in params.items()}
 
 
 class WeightStore:

@@ -1,6 +1,8 @@
-"""The fused training loop.
+"""The training loops a learner replica drives: fused chunks and dealt
+blocks.
 
-Counterpart of ``d4pg_tpu/learner/loop.py::FusedLoop``: ``run`` cuts
+Counterpart of ``d4pg_tpu/learner/loop.py`` (``FusedLoop``,
+``DealtLoop``). ``FusedLoop.run`` cuts
 ``n`` grad steps into chunks of K and calls the fused chunk
 (``learner/fused.py``) for each, the last chunk shorter when K does not
 divide ``n``. The chunk functions are cached per chunk length. The state
@@ -21,18 +23,30 @@ Without one (``service=None``) it runs against a buffer filled between
 runs. After each chunk the trace recorder's ``mark_grad`` stamps the
 traces whose rows committed before it (``obs/trace``; a no-op when none
 is pending).
+
+``DealtLoop`` is the consumer half of the sample-on-ingest plane
+(``replay/sampler.py``): per block it pops the replica's ring (a
+leaf-tier wait, never the buffer lock), runs K grad steps on the block's
+rows with the dealer's IS weights, and queues the TD priorities back
+through ``service.queue_writeback`` (the ``sampler`` tier). Host blocks
+(numpy rows) are copied to the learner's device; device blocks (the
+device dealer's gathers, on the default stream the update runs on) go
+in as they are. The write-back is the loop's one host sync: the [K, B]
+TD errors, slots and generations, never the rows.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from d4pg_tpu_torch.learner.fused import make_fused_chunk
 from d4pg_tpu_torch.learner.pipeline import IngestOverlap
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
 from d4pg_tpu_torch.obs.trace import RECORDER as trace_recorder
+from d4pg_tpu_torch.replay.uniform import TransitionBatch
 
 
 class FusedLoop:
@@ -126,3 +140,56 @@ class FusedLoop:
         consumer can claim it."""
         if self.ingest is not None:
             self.ingest.release()
+
+
+class DealtLoop:
+    """Drives dealt blocks from a ``DealtBlockRing`` through
+    ``update_fn(state, batches, weights) -> metrics`` (in place, stacked
+    [K] metrics with ``td_error`` [K, B]). ``stop`` (an ``Event``) lets the
+    owning replica abandon a waiting pop."""
+
+    def __init__(self, update_fn, ring, service, *, device,
+                 stop=None, pop_timeout: float = 0.2):
+        self._update = update_fn
+        self._ring = ring
+        self._service = service
+        self._device = torch.device(device)
+        self._stop = stop
+        self._pop_timeout = float(pop_timeout)
+        self.steps_done = 0
+        self.blocks = 0
+
+    def run(
+        self,
+        state: D4PGState,
+        n: int,
+        on_chunk: Callable[[D4PGState, int], None] | None = None,
+    ) -> dict[str, torch.Tensor] | None:
+        """At least ``n`` grad steps from dealt blocks (a block carries K,
+        so the last may overshoot); returns the last block's stacked
+        metrics (``None`` when nothing was consumed: a closed ring)."""
+        dev = self._device
+        metrics = None
+        done = 0
+        while done < n and (self._stop is None or not self._stop.is_set()):
+            block = self._ring.pop(timeout=self._pop_timeout)
+            if block is None:
+                if self._ring.closed:
+                    break
+                continue
+            batches = TransitionBatch(*[torch.as_tensor(f, device=dev)
+                                        for f in block.batches])
+            metrics = self._update(state, batches,
+                                   torch.as_tensor(block.weights, device=dev))
+            td = np.abs(metrics["td_error"].cpu().numpy()) + 1e-6
+            idx = np.asarray(torch.as_tensor(block.idx).cpu())
+            gen = np.asarray(torch.as_tensor(block.gen).cpu())
+            self._service.queue_writeback(idx, td, gen)
+            trace_recorder.mark_grad()
+            k = int(idx.shape[0])
+            done += k
+            self.steps_done += k
+            self.blocks += 1
+            if on_chunk is not None:
+                on_chunk(state, k)
+        return metrics

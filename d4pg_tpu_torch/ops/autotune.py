@@ -1,8 +1,9 @@
-"""Startup micro-autotuner for the categorical-projection implementation.
+"""Startup micro-autotuner: the categorical-projection implementation and
+the sample-on-ingest sampler.
 
-Counterpart of the projection surface of ``d4pg_tpu/ops/autotune.py``
-(``select_projection``, ``autotune_projection``, the shared
-``autotune_block`` record). ``projection="auto"`` times the candidates
+Counterpart of ``d4pg_tpu/ops/autotune.py`` (``select_projection``,
+``autotune_projection``, ``select_sampler``, ``autotune_sampler``, the
+shared ``autotune_block`` record). ``projection="auto"`` times the candidates
 on the real shape and picks the winner; an explicit ``einsum``,
 ``pallas`` or ``pallas_ce`` passes through untouched.
 
@@ -25,6 +26,18 @@ quietly lose the race. Results are cached per (batch, support, mesh,
 card): the card is the device type and its index, with ``cuda``
 resolved to the current index, so ``cuda`` and ``cuda:0`` share one
 race, as the reference keys by backend.
+
+The sampler surface (``select_sampler``, ``--sampler``): arms ``scan``
+(the plain torch descent on the card), ``pallas`` (the CUDA descent
+kernel, ``ops/sampler_descent``) and ``host`` (the host dealer).
+Explicit flags pass through. ``auto`` applies the reference's policy
+with the card in the TPU's place: on the CPU it resolves to ``host``
+without timing, as the reference's non-TPU backends do; on the card it
+times the two device descents at the real [K * B] queries over the
+tree's capacity and picks the faster (``host`` is never auto-selected
+there: it would ship the sampled rows to the card again). The CUDA
+kernel reads the tree from device memory, so no residency budget (the
+Pallas kernel's VMEM) applies.
 """
 
 from __future__ import annotations
@@ -202,3 +215,86 @@ def select_projection(flag: str, *, batch_size: int, v_min: float,
         print(f"[autotune] projection='{result.selected}' "
               f"({result.reason}){timed}", flush=True)
     return _record("projection", result)
+
+
+SAMPLER_ARMS = ("scan", "pallas", "host")
+
+
+def autotune_sampler(capacity: int, k: int, batch_size: int,
+                     repeats: int = 3, iters: int = 20,
+                     device: str | torch.device | None = None,
+                     ) -> AutotuneResult:
+    """Time the two device descents (``scan``: the plain torch descent;
+    ``pallas``: the CUDA kernel) on ``device`` at [K * B] stratified
+    queries over a tree of random positive priorities at ``capacity``
+    (rounded up to a power of two); return the faster."""
+    from d4pg_tpu_torch.ops.sampler_descent import descend, descend_plain
+    from d4pg_tpu_torch.replay import device_per as dper
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    trees = dper.init(capacity, dev)
+    n = trees.capacity
+    trees = dper.set_leaves(
+        trees, torch.arange(n, device=dev),
+        torch.from_numpy(rng.random(n).astype(np.float32) + 1e-3).to(dev))
+    q = k * batch_size
+    mass = torch.from_numpy(
+        (rng.random(q) * float(trees.sum_tree[1])).astype(np.float32)
+    ).to(dev)
+
+    def _time(fn) -> float:
+        fn()  # warm-up (the first CUDA call builds the kernels)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        best = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            best = min(best, (time.perf_counter() - t0) / iters)
+        return best * 1e3
+
+    timings = {
+        "scan": round(_time(lambda: descend_plain(trees.sum_tree, mass)), 4),
+        "pallas": round(_time(lambda: descend(trees.sum_tree, mass)), 4)}
+    best = min(timings, key=timings.get)
+    return AutotuneResult(best, "measured fastest descent at "
+                          f"[{q}] queries over {n} slots on {dev.type}",
+                          timings)
+
+
+def select_sampler(flag: str, *, capacity: int, k: int, batch_size: int,
+                   device: str | torch.device | None = None,
+                   ) -> AutotuneResult:
+    """Resolve a ``--sampler`` flag to an arm (see the module docstring).
+    ``device`` defaults to ``cuda`` and raises without one."""
+    if flag != "auto":
+        if flag not in SAMPLER_ARMS:
+            raise ValueError(f"unknown --sampler arm {flag!r} "
+                             f"(want one of {('auto',) + SAMPLER_ARMS})")
+        return _record("sampler",
+                       AutotuneResult(flag, "explicit --sampler override"))
+    dev = resolve_device(device)
+    key = ("sampler", int(capacity), int(k), int(batch_size), card_key(dev))
+    if key not in _CACHE:
+        if dev.type != "cuda":
+            result = AutotuneResult(
+                "host", f"{dev.type} device: the descent arms would run "
+                "their plain versions on the commit thread; the host "
+                "dealer is the arm here (force --sampler scan/pallas to "
+                "override)")
+        else:
+            result = autotune_sampler(capacity, k, batch_size, device=dev)
+        _CACHE[key] = result
+    result = _CACHE[key]
+    log_key = (key, result.selected)
+    if log_key not in _LOGGED:
+        _LOGGED.add(log_key)
+        timed = (f" timings_ms={result.timings_ms}"
+                 if result.timings_ms else "")
+        print(f"[autotune] sampler='{result.selected}' "
+              f"({result.reason}){timed}", flush=True)
+    return _record("sampler", result)

@@ -121,10 +121,13 @@ def update_from_td(trees: PerTrees, idx: torch.Tensor,
 
 def strata_mass(u: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
     """Stratified prefix masses: stratum ``i`` draws
-    ``(i + u_i) * (total / B)``."""
+    ``(i + u_i) * (total / B)``, in float32. ``B`` is a 0-dim tensor on
+    ``u``'s device: CUDA multiplies by the reciprocal of a CPU scalar
+    divisor, an ulp off the quotient the CPU and numpy compute."""
     b = u.shape[-1]
     i = torch.arange(b, dtype=torch.float32, device=u.device)
-    return (i + u) * (total / b)
+    return (i + u) * (total / torch.full((), float(b), dtype=torch.float32,
+                                         device=u.device))
 
 
 def sample_from_uniforms(trees: PerTrees, u: torch.Tensor,
@@ -155,6 +158,32 @@ def is_weights(trees: PerTrees, idx: torch.Tensor, beta: float,
     max_weight = (p_min * n) ** (-beta)
     p = trees.sum_tree[trees.capacity + idx.to(torch.int64)] / total
     return (p * n) ** (-beta) / max_weight
+
+
+def block_weights(total: torch.Tensor, min_root: torch.Tensor,
+                  leaf_p: torch.Tensor, beta: float,
+                  size: int) -> torch.Tensor:
+    """IS weights of a dealt block from its tree scalars (0-dim float32
+    tensors ``total`` and ``min_root``) and its gathered leaf priorities
+    ``leaf_p`` ([K, B] float32): ``z = min_root / total * N``, then
+    ``(p / total * N) ** -beta / z ** -beta``, all in float32 on
+    ``leaf_p``'s device.
+
+    One function for the device dealer and its float32 host twin
+    (``replay/sampler.SampleDealer(scheme='device')``): float32 ``**`` is
+    not bitwise portable between libraries, so both call this one on
+    the same device and compare exactly. ``beta`` and ``N`` enter as
+    0-dim float32 tensors made on that device (a Python scalar exponent
+    would send a few betas to special-cased kernels, and a CPU scalar
+    divisor is a multiply by its reciprocal on CUDA)."""
+    dev = leaf_p.device
+    n = torch.full((), float(size), dtype=torch.float32, device=dev)
+    neg_beta = torch.full((), -float(np.float32(beta)), dtype=torch.float32,
+                          device=dev)
+    z = min_root / total * n
+    max_weight = torch.pow(z, neg_beta)
+    p = leaf_p / total
+    return torch.pow(p * n, neg_beta) / max_weight
 
 
 def beta_schedule(step: int, beta0: float, beta_steps: int) -> float:

@@ -1,7 +1,7 @@
 """Replay buffer for the fused device path: ring + PER trees on the card.
 
-Counterpart of ``d4pg_tpu/replay/fused_buffer.py`` without generation
-tracking. ``add`` (any thread, under the service's buffer lock) only
+Counterpart of ``d4pg_tpu/replay/fused_buffer.py``. ``add`` (any thread,
+under the service's buffer lock) only
 copies host rows into a preallocated column-major staging ring; every
 device write happens on the learner thread, which owns the ring and the
 trees. With ``ingest_shards=K > 1`` the staging is a
@@ -37,6 +37,19 @@ synchronous drain, whatever ``add`` does while a block is in flight.
 insert: the oracle the block path is held to, bitwise. The unified
 registry counts ``fused.rows_staged``, ``fused.rows_committed`` and
 ``fused.blocks_committed``.
+
+Generation-tracked mode (``gen_tracked=True``, the device-dealt plane of
+``replay/device_sampler.DeviceSampleDealer``): ``add`` pre-assigns and
+returns the rows' ring slots and bumps a host int64 generation mirror;
+the dealer drains every staged row inside the same buffer-lock window,
+so assignment order is commit order (an ``add`` that would overflow the
+staging ring raises rather than drop rows). The commit lands the rows,
+their entry priority and a bump of the device int32 generation array
+``gen`` together. The entry priority ``max_priority ** alpha`` is
+computed on the host in float64 and cast to float32 (the host scalar
+``max_priority`` is the dealer's), so the device trees hold the float32
+host twin's leaf bits. ``apply_priorities`` scatters settled write-backs
+into the trees (duplicate slots: the last wins, ``device_per.set_leaves``).
 """
 
 from __future__ import annotations
@@ -127,7 +140,8 @@ class FusedDeviceReplay:
                  alpha: float = 0.6, prioritized: bool = True,
                  device: str | torch.device | None = None,
                  block_rows: int | None = None, staging_blocks: int = 8,
-                 ingest_shards: int = 1, obs_dtype=None):
+                 ingest_shards: int = 1, obs_dtype=None,
+                 gen_tracked: bool = False):
         self.device = resolve_device(device)
         self.capacity = int(capacity)
         self.alpha = float(alpha)
@@ -140,6 +154,20 @@ class FusedDeviceReplay:
                       if self.prioritized else None)
         self.size = 0
         self.head = 0
+        self.gen_tracked = bool(gen_tracked)
+        if self.gen_tracked:
+            if not self.prioritized:
+                raise ValueError("gen_tracked needs prioritized=True (it "
+                                 "serves the PER dealt plane)")
+            if int(ingest_shards) > 1:
+                raise ValueError(
+                    "gen_tracked needs ingest_shards=1: direct-staged "
+                    "shard rows bypass add(), which assigns the slots")
+            self.max_priority = 1.0
+            self.generation = np.zeros(self.capacity, np.int64)
+            self.gen = torch.zeros(self.capacity, dtype=torch.int32,
+                                   device=self.device)
+            self._next_slot = 0
         n_blocks = min(int(staging_blocks),
                        -(-self.capacity // self.block_rows))
         specs = field_layouts(obs_dim, act_dim, obs_dtype)
@@ -166,11 +194,27 @@ class FusedDeviceReplay:
         self._consumed = None  # event: the last commit has read the block
         self._inflight = 0  # rows of the staged, uncommitted block
 
-    def add(self, batch: TransitionBatch) -> None:
+    def add(self, batch: TransitionBatch):
         """Stage host rows (numpy arrays); no device work. Sharded, the
-        rows go to shard 0's ring."""
-        if np.asarray(batch.obs).shape[0]:
-            self._staging.push(batch)
+        rows go to shard 0's ring. Generation-tracked, returns the ring
+        slots the rows will land in (see the module docstring)."""
+        n = np.asarray(batch.obs).shape[0]
+        if not self.gen_tracked:
+            if n:
+                self._staging.push(batch)
+            return None
+        if n == 0:
+            return np.empty(0, np.int64)
+        if len(self._staging) + n > self._staging.size:
+            raise RuntimeError(
+                "gen_tracked staging overflow: the dealer must drain every "
+                f"add within its buffer-lock window (backlog "
+                f"{len(self._staging)} + {n} > {self._staging.size})")
+        slots = (self._next_slot + np.arange(n)) % self.capacity
+        self._next_slot = int((self._next_slot + n) % self.capacity)
+        self.generation[slots] += 1
+        self._staging.push(batch)
+        return slots
 
     def add_sharded(self, batch: TransitionBatch, shard: int,
                     ticket: int | None = None) -> None:
@@ -232,7 +276,19 @@ class FusedDeviceReplay:
         if self._copied is not None:
             torch.cuda.current_stream(self.device).wait_event(self._copied)
         self._store.write_block(self.head, self._dev_block, n)
-        if self.prioritized:
+        if self.gen_tracked:
+            idx = (self.head + torch.arange(n, device=self.device)
+                   ) % self.capacity
+            # host float64 pow, float32 cast: the trees see host-rounded
+            # values only
+            p_ins = float(np.float32(self.max_priority ** self.alpha))
+            trees = dper.set_leaves(self.trees, idx, torch.full(
+                (n,), p_ins, dtype=torch.float32, device=self.device))
+            self.trees = trees._replace(max_priority=torch.full(
+                (), self.max_priority, dtype=torch.float32,
+                device=self.device))
+            self.gen[idx] += 1  # a block's slots are distinct
+        elif self.prioritized:
             idx = (self.head + torch.arange(n, device=self.device)
                    ) % self.capacity
             self.trees = dper.insert(self.trees, idx, self.alpha)
@@ -245,6 +301,13 @@ class FusedDeviceReplay:
         REGISTRY.counter("fused.rows_committed").inc(n)
         REGISTRY.counter("fused.blocks_committed").inc()
         return n
+
+    def apply_priorities(self, idx: torch.Tensor,
+                         p_alpha: torch.Tensor) -> None:
+        """Scatter settled write-back priorities (already ``** alpha``,
+        float32, on the device) into the trees; duplicate slots keep the
+        last value. The commit thread is the one caller."""
+        self.trees = dper.set_leaves(self.trees, idx, p_alpha)
 
     def drain(self) -> int:
         """Move every staged row to the device, one block per stage and

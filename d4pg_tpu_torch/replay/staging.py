@@ -24,13 +24,19 @@ through. On the CPU the numpy leaves become tensors without a copy.
 ``MultiRingStaging`` is the host half of the sharded ingest plane: K
 private column-major staging rings (one per ingest shard, so K workers
 copy rows at once) whose rows merge back, in admission-ticket order, into
-the one frame stream ``FusedDeviceReplay.stage_block`` reads. The
-reference's ``DealtBlockRing`` waits for ROADMAP Queue 1 item 14.
+the one frame stream ``FusedDeviceReplay.stage_block`` reads.
+
+``DealtBlockRing`` is a bounded queue of dealt blocks from the
+sample-on-ingest dealer (``replay/sampler.py``) to one learner replica.
+Its blocks may hold tensors on the card: the ring holds their only
+references, so dropping a block returns its memory to torch's caching
+allocator (stream-ordered, so a kernel still queued on it is safe).
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 from collections import deque
 from typing import Callable
 
@@ -38,7 +44,7 @@ import numpy as np
 import torch
 
 from d4pg_tpu_torch import resolve_device
-from d4pg_tpu_torch.core.locking import TieredLock
+from d4pg_tpu_torch.core.locking import TieredCondition, TieredLock
 from d4pg_tpu_torch.obs.registry import REGISTRY
 from d4pg_tpu_torch.replay.uniform import torch_dtype
 
@@ -293,3 +299,89 @@ class DeviceStager:
     def invalidate(self) -> None:
         """Drop the in-flight sample; the next ``next()`` samples fresh."""
         self._inflight = None
+
+
+class DealtBlockRing:
+    """Bounded ring of ready-to-train dealt blocks for one learner replica.
+
+    One producer (the commit thread's dealer, which reserves room with
+    ``room()`` under its ``sampler`` lock and pushes after releasing it,
+    so a reserved push fails only on a closed ring) and one consumer (the
+    replica). All queue state is under one ``ring``-tier condition, the
+    bottom tier, so the replica's blocking ``pop`` holds nothing above it
+    and never the buffer lock.
+
+    ``on_room`` (set by ``ReplayService.attach_dealer``) is called after
+    a pop or a clear frees room, with the ring condition released, so it
+    may take the commit condition at top level: it wakes the commit loop
+    for a top-up deal, or a consumer faster than the commit cadence would
+    starve on an empty ring."""
+
+    def __init__(self, capacity: int = 4):
+        self.capacity = max(1, int(capacity))
+        self._cond = TieredCondition("ring")
+        self._q: deque = deque()
+        self._closed = False
+        self.on_room: Callable[[], None] | None = None
+
+    @property
+    def closed(self) -> bool:
+        with self._cond:
+            return self._closed
+
+    def room(self) -> int:
+        with self._cond:
+            return 0 if self._closed else max(0, self.capacity - len(self._q))
+
+    def depth(self) -> int:
+        with self._cond:
+            return len(self._q)
+
+    def offer(self, block) -> bool:
+        """Producer push; False when closed or full."""
+        with self._cond:
+            if self._closed or len(self._q) >= self.capacity:
+                return False
+            self._q.append(block)
+            self._cond.notify_all()
+            return True
+
+    def pop(self, timeout: float | None = None):
+        """The next block, waiting up to ``timeout`` seconds (forever when
+        None); None on timeout or close."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while not self._q:
+                if self._closed:
+                    return None
+                if deadline is None:
+                    self._cond.wait()
+                else:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return None
+                    self._cond.wait(remaining)
+            block = self._q.popleft()
+            self._cond.notify_all()
+        kick = self.on_room
+        if kick is not None:
+            kick()
+        return block
+
+    def clear(self) -> int:
+        """Drop every queued block (a respawned consumer must not train on
+        blocks dealt to its predecessor); returns how many."""
+        with self._cond:
+            n = len(self._q)
+            self._q.clear()
+            self._cond.notify_all()
+        kick = self.on_room
+        if n and kick is not None:
+            kick()
+        return n
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+

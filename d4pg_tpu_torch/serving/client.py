@@ -1,11 +1,13 @@
-"""The in-process policy client: the query half of acting.
+"""Policy clients: the query half of acting, behind one interface.
 
-Counterpart of ``ActorConfig``, ``resolve_act_device`` and
-``LocalPolicyClient`` in ``d4pg_tpu/serving/client.py``. The client pulls
-published actor weights from a ``WeightStore`` into its own copy of the
-actor network and answers noisy exploration actions (``actions``) or
-greedy ones (``greedy_actions``); it owns the exploration noise and the
-epsilon schedule. Interface, as in the reference:
+Counterpart of ``d4pg_tpu/serving/client.py`` (``ActorConfig``,
+``resolve_act_device``, ``LocalPolicyClient``, ``RemotePolicyClient``).
+The local client pulls published actor weights from a ``WeightStore``
+into its own copy of the actor network and answers noisy exploration
+actions (``actions``) or greedy ones (``greedy_actions``); it owns the
+exploration noise and the epsilon schedule. The remote client asks a
+``serving.server.PolicyInferenceServer`` for greedy actions over the
+serving wire and adds its own noise. Interface, as in the reference:
 
     pull() -> bool            refresh params if a newer version exists
     actions(obs) -> [B, A]    noisy exploration actions (numpy)
@@ -19,7 +21,10 @@ epsilon schedule. Interface, as in the reference:
 Random draws: the reference holds a JAX key; the client here owns a
 ``torch.Generator`` seeded from ``seed`` (uniform warm-up actions before
 the first publish, Gaussian or OU noise after), and keeps the reference's
-numpy generator at ``seed + 17`` for the ``random_eps`` branch.
+numpy generator at ``seed + 17`` for the ``random_eps`` branch. The
+remote client draws all its noise from numpy generators, the reference's
+(``seed + 17``, ``seed + 29``), so given the same served actions it acts
+as the reference's client does.
 
 Where acting runs (``ActorConfig.device``) keeps the reference's flag
 and meaning: ``cpu``, the default, runs the policy forward on the host
@@ -27,21 +32,36 @@ CPU, because the card belongs to the learner and a per-tick round trip
 costs more than a small MLP forward (the reference's production shape);
 ``default`` follows the learner's device. This is that flag, chosen by
 the caller, not a fallback: nothing here moves to the CPU because a card
-is missing. The remote client waits for the serving slice of the port.
+is missing.
+
+The remote client's degradation ladder is the reference's, every rung
+counted in ``stats()``: (1) served greedy actions; (2) on a timeout, a
+torn (CRC) response, a wire error or EOF the connection is dropped (the
+protocol is in order per connection, so a late reply must never match a
+newer request); (3) then ``act_deterministic`` on the client's acting
+device against the params cached from an optional ``weights`` handle;
+(4) with no params anywhere, uniform warm-up actions. The env loop never
+blocks past ``timeout`` per request.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import socket
+import threading
+import time
 
 import numpy as np
 import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.core.noise import ou
+from d4pg_tpu_torch.distributed import transport
 from d4pg_tpu_torch.envs.normalizer import FrozenNormalizer, RunningMeanStd
 from d4pg_tpu_torch.learner.state import D4PGConfig
 from d4pg_tpu_torch.learner.update import act, act_deterministic, act_ou
+from d4pg_tpu_torch.obs.trace import new_trace_id
+from d4pg_tpu_torch.serving import protocol
 
 
 @dataclasses.dataclass
@@ -139,14 +159,7 @@ class LocalPolicyClient:
             return False
         self._version, params = got
         self._adopt(params)
-        # a remote store (WeightClient) hands over the learner's statistics
-        # with the weights; a live in-process RunningMeanStd stays in charge
-        ns = getattr(self.weights, "norm_stats", None)
-        if ns is not None and not isinstance(self.obs_norm, RunningMeanStd):
-            if self.obs_norm is None:
-                self.obs_norm = FrozenNormalizer(*ns)
-            else:
-                self.obs_norm.set(*ns)
+        self.obs_norm = adopt_norm_stats(self.weights, self.obs_norm)
         return True
 
     def snapshot_pull(self) -> tuple[int, int]:
@@ -219,3 +232,254 @@ class LocalPolicyClient:
 
     def close(self) -> None:
         pass
+
+
+def adopt_norm_stats(weights, obs_norm):
+    """The normalizer view a client acts with after a pull: a remote
+    store (``WeightClient``) hands over the learner's statistics with the
+    weights; a live in-process ``RunningMeanStd`` stays in charge."""
+    ns = getattr(weights, "norm_stats", None)
+    if ns is None or isinstance(obs_norm, RunningMeanStd):
+        return obs_norm
+    if obs_norm is None:
+        return FrozenNormalizer(*ns)
+    obs_norm.set(*ns)
+    return obs_norm
+
+
+class RemotePolicyClient:
+    """Policy queries over the serving wire protocol with the counted
+    degradation ladder of the module docstring. Exploration noise stays
+    on the client (the server computes greedy actions only), so one
+    shared server never correlates exploration across lanes. One lane,
+    one client: the request counter, the socket and the generators are
+    not shared."""
+
+    def __init__(
+        self,
+        config: D4PGConfig,
+        actor_cfg: ActorConfig,
+        host: str,
+        port: int,
+        *,
+        secret: str | None = None,
+        lane_id: int = 0,
+        seed: int = 0,
+        timeout: float = 0.5,
+        connect_timeout: float = 1.0,
+        reconnect_backoff: float = 0.05,
+        weights=None,
+        obs_norm=None,
+        trace_sample: float = 0.0,
+        record_ledger: bool = False,
+        learner_device: str | torch.device | None = None,
+    ):
+        if actor_cfg.noise != "gaussian":
+            raise ValueError("RemotePolicyClient supports gaussian noise only")
+        self.config = config
+        self.cfg = actor_cfg
+        self.host, self.port = host, int(port)
+        self.secret = secret
+        self.lane_id = int(lane_id)
+        self.weights = weights
+        self.obs_norm = obs_norm
+        self.timeout = float(timeout)
+        self.connect_timeout = float(connect_timeout)
+        self.reconnect_backoff = float(reconnect_backoff)
+        self.device = resolve_act_device(actor_cfg.device, learner_device)
+        self._epsilon = actor_cfg.epsilon_0
+        self._episodes = 0
+        self._explore_rng = np.random.default_rng(seed + 17)
+        self._noise_rng = np.random.default_rng(seed + 29)
+        self._req_counter = 0
+        self._sock: socket.socket | None = None
+        self._next_connect = 0.0
+        self._version = 0
+        self._generation = 0
+        # rung 3: the actor network of the last pulled params (None until
+        # a pull brings some)
+        self._fallback_actor = None
+        self._fallback_version = 0
+        self._trace_sample = float(trace_sample)
+        self._trace_rng = np.random.default_rng((seed << 8) ^ 0xD4E2)
+        # req_ids whose responses this client acted on: intersected with
+        # a ServingChaos ledger, it shows torn responses are rejected
+        self.accepted_req_ids: set[int] | None = set() if record_ledger else None
+        self.stats_lock = threading.Lock()
+        self._stats = {
+            "requests": 0, "served": 0, "timeouts": 0, "torn_rejected": 0,
+            "wire_errors": 0, "no_params": 0, "overload_rejected": 0,
+            "fallbacks": 0, "warmup_fallbacks": 0, "reconnects": 0,
+        }
+
+    @property
+    def epsilon(self) -> float:
+        return self._epsilon
+
+    @property
+    def version(self) -> int:
+        """Version of the params that last acted for this lane (the
+        server's snapshot, or the cached fallback's)."""
+        return self._version
+
+    @property
+    def generation(self) -> int:
+        return self._generation
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self.stats_lock:
+            self._stats[key] += n
+
+    def stats(self) -> dict:
+        with self.stats_lock:
+            return dict(self._stats)
+
+    # -- connection ---------------------------------------------------------
+    def _ensure_conn(self) -> socket.socket | None:
+        if self._sock is not None:
+            return self._sock
+        now = time.monotonic()
+        if now < self._next_connect:
+            return None
+        try:
+            s = socket.create_connection((self.host, self.port),
+                                         timeout=self.connect_timeout)
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            transport.client_handshake(s, self.secret)
+            s.settimeout(self.timeout)
+            self._sock = s
+            self._count("reconnects")
+            return s
+        except (OSError, transport.ProtocolError):
+            self._next_connect = now + self.reconnect_backoff
+            return None
+
+    def _drop_conn(self) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+
+    # -- weight pulls (the fallback cache) ----------------------------------
+    def pull(self) -> bool:
+        """Refresh the fallback params (and the normalizer view) from the
+        optional weights handle; the server feeds itself."""
+        if self.weights is None:
+            return False
+        got = self.weights.get_if_newer(self._fallback_version)
+        if got is None:
+            return False
+        self._fallback_version, params = got
+        if self._fallback_actor is None:
+            self._fallback_actor = self.config.build_actor(
+                torch.Generator().manual_seed(0)).to(self.device)
+            self._fallback_actor.requires_grad_(False)
+        self._fallback_actor.load_state_dict(params)
+        self.obs_norm = adopt_norm_stats(self.weights, self.obs_norm)
+        return True
+
+    # -- the request path ---------------------------------------------------
+    def _request_mu(self, obs: np.ndarray) -> np.ndarray | None:
+        """One round trip; None on any failure (each counted)."""
+        sock = self._ensure_conn()
+        if sock is None:
+            return None
+        self._req_counter += 1
+        req_id = ((self.lane_id & 0xFFF) << 20) | (self._req_counter & 0xFFFFF)
+        trace = None
+        if self._trace_sample > 0.0 and \
+                self._trace_rng.random() < self._trace_sample:
+            trace = (new_trace_id(self.lane_id), time.monotonic())
+        self._count("requests")
+        try:
+            sock.sendall(protocol.encode_request(req_id, obs, trace=trace))
+            body = protocol.read_frame(sock, protocol.MAGIC_RESPONSE,
+                                       transport._recv_exact)
+            if body is None:
+                raise ConnectionError("server closed")
+            rsp = protocol.decode_response(body)
+        except protocol.TornFrameError:
+            self._count("torn_rejected")
+            self._drop_conn()
+            return None
+        except (TimeoutError, socket.timeout):
+            self._count("timeouts")
+            self._drop_conn()
+            return None
+        except (OSError, protocol.ProtocolError, ConnectionError):
+            self._count("wire_errors")
+            self._drop_conn()
+            return None
+        if rsp["req_id"] != req_id:
+            # in-order protocol: this connection no longer lines up with
+            # our requests
+            self._count("wire_errors")
+            self._drop_conn()
+            return None
+        if rsp["status"] != protocol.STATUS_OK:
+            self._count("overload_rejected"
+                        if rsp["status"] == protocol.STATUS_OVERLOAD
+                        else "no_params")
+            return None
+        self._count("served")
+        self._generation = rsp["generation"]
+        self._version = rsp["version"]
+        if self.accepted_req_ids is not None:
+            self.accepted_req_ids.add(req_id)
+        return rsp["actions"]
+
+    def _fallback_mu(self, obs: np.ndarray) -> np.ndarray | None:
+        if self._fallback_actor is None:
+            self.pull()
+        if self._fallback_actor is None:
+            return None
+        self._count("fallbacks")
+        self._version = self._fallback_version
+        return act_deterministic(
+            self._fallback_actor,
+            torch.as_tensor(obs, device=self.device)).cpu().numpy()
+
+    def actions(self, obs: np.ndarray) -> np.ndarray:
+        obs = np.asarray(obs, np.float32)
+        mu = self._request_mu(obs)
+        if mu is None:
+            mu = self._fallback_mu(obs)
+        if mu is None:
+            # rung 4: uniform warm-up, already maximal exploration
+            self._count("warmup_fallbacks")
+            return self._noise_rng.uniform(
+                -1.0, 1.0, (obs.shape[0], self.config.act_dim)
+            ).astype(np.float32)
+        noise = self._noise_rng.standard_normal(mu.shape).astype(np.float32)
+        actions = np.clip(mu + self._epsilon * noise, -1.0, 1.0)
+        if self.cfg.random_eps > 0.0:
+            rng = self._explore_rng
+            mask = rng.random(actions.shape[0]) < self.cfg.random_eps
+            if mask.any():
+                actions[mask] = rng.uniform(
+                    -1.0, 1.0, (int(mask.sum()), actions.shape[1])
+                ).astype(actions.dtype)
+        return actions
+
+    def greedy_actions(self, obs: np.ndarray) -> np.ndarray:
+        obs = np.asarray(obs, np.float32)
+        mu = self._request_mu(obs)
+        if mu is None:
+            mu = self._fallback_mu(obs)
+        if mu is None:
+            raise RuntimeError("no server response and no cached params")
+        return mu
+
+    def reset_noise(self, done_mask: np.ndarray) -> None:
+        pass  # gaussian noise is memoryless
+
+    def decay_epsilon(self) -> None:
+        self._episodes += 1
+        c = self.cfg
+        self._epsilon = c.min_epsilon + (c.epsilon_0 - c.min_epsilon) * float(
+            np.exp(-5.0 * self._episodes / c.epsilon_horizon))
+
+    def close(self) -> None:
+        self._drop_conn()

@@ -28,6 +28,24 @@ them (``resolve_storage``):
 ``--platform cpu`` with the default flags resolves to the host-sampled
 path (``auto`` storage on the CPU is ``host``).
 
+The learner plane (``--learners N > 1`` or ``--sample_on_ingest 1``, on
+the host-sampled path): N ``learner/replica.LearnerReplica`` threads,
+each with its own copy of the state, run one round per cycle (basis,
+``ceil(n / N)`` grad steps, submit) and the in-process
+``learner/aggregator.Aggregator`` (``--agg_mode``, ``--agg_clip``)
+merges them into the one weight stream; a crashed replica is fenced and
+respawned, up to 5 cycles in a row. ``--sample_on_ingest 1`` deals PER
+blocks from the replay service's commit thread into one ring per replica
+(``--sampler``, resolved by ``ops/autotune.select_sampler``: ``host``,
+the host dealer over the PER buffer; ``scan`` or ``pallas``, the device
+dealer over a generation-tracked ``FusedDeviceReplay`` on the learner's
+device, ``pallas`` launching the descent kernel once per deal).
+``--serve_policy 1`` serves greedy actions to remote actors
+(``actor_main --policy_port``) from a ``serving.PolicyInferenceServer``
+that adopts the published weights (it acts on the host CPU, as the
+reference's driver's does); with ``--n_workers 0`` and no in-process or
+spawned actor, the learner waits for remote actors to fill the warm-up.
+
 The HER recipe: ``--her 1`` runs ``GoalActorWorker``s on a
 goal-conditioned env (``fake-goal``, or a gymnasium_robotics id such as
 ``FetchReach-v4``) whole episodes at a time, streaming originals and
@@ -103,15 +121,17 @@ from d4pg_tpu_torch.envs.vector import EnvPool
 from d4pg_tpu_torch.io.checkpoint import CheckpointManager
 from d4pg_tpu_torch.io.metrics import CsvLogger, MetricsBus, TensorBoardSink
 from d4pg_tpu_torch.io.profiling import StepTimer
+from d4pg_tpu_torch.learner.aggregator import Aggregator
 from d4pg_tpu_torch.learner.loop import FusedLoop
 from d4pg_tpu_torch.learner.pipeline import ChunkPipeline
+from d4pg_tpu_torch.learner.replica import LearnerReplica, replica_state
 from d4pg_tpu_torch.learner.state import init_state
 from d4pg_tpu_torch.learner.update import multi_update_step, update_step
 from d4pg_tpu_torch.obs.containment import contained_crash
 from d4pg_tpu_torch.obs.trace import RECORDER as trace_recorder
 from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
 from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
-from d4pg_tpu_torch.replay.schedule import LinearSchedule
+from d4pg_tpu_torch.replay.schedule import LinearSchedule, SharedBetaSchedule
 from d4pg_tpu_torch.replay.uniform import ReplayBuffer, TransitionBatch
 from d4pg_tpu_torch.serving.client import ActorConfig
 
@@ -119,14 +139,17 @@ from d4pg_tpu_torch.serving.client import ActorConfig
 def _unported(cfg: ExperimentConfig) -> list[tuple[bool, str, str]]:
     """(selected, flag value, ROADMAP item) for each unported path."""
     return [
-        (cfg.learners > 1, f"--learners {cfg.learners}", "Queue 1 item 15"),
-        (cfg.sample_on_ingest, "--sample_on_ingest 1", "Queue 1 item 14"),
+        (cfg.agg_transport == "collective",
+         "--agg_transport collective (the mesh-native merge)",
+         "Queue 1 item 15"),
+        (cfg.learners > 1 and cfg.data_parallel > 1,
+         f"--learners {cfg.learners} with a mesh (--data_parallel "
+         f"{cfg.data_parallel})", "Queue 1 item 15"),
         (cfg.data_parallel > 1, f"--data_parallel {cfg.data_parallel}",
          "Queue 1 item 16"),
         (bool(cfg.coordinator) or cfg.num_processes > 1,
          "--coordinator / --num_processes > 1 (multi-host)",
          "Queue 1 item 16"),
-        (cfg.serve_policy, "--serve_policy 1", "Queue 1 item 13"),
         (cfg.autoscale, "--autoscale 1", "Queue 1 item 17"),
         (cfg.checkpoint_replay, "--checkpoint_replay 1", "Queue 1 item 17"),
     ]
@@ -417,11 +440,25 @@ def train(cfg: ExperimentConfig) -> dict:
 
     storage, fused = resolve_storage(cfg, obs_dim, act_dim, device,
                                      obs_dtype)
+    K = max(1, cfg.updates_per_dispatch)
+    dealt_arm = resolve_dealt_arm(cfg, K, device)
+    if dealt_arm in ("scan", "pallas"):
+        # the replicas consume dealt blocks: no learner-side fused loop;
+        # the service's buffer is the generation-tracked device ring
+        fused = False
     config = cfg.learner_config(obs_dim, act_dim, device=device)
     state = init_state(config, cfg.seed, device)
 
     # --- replay, fed through the service ------------------------------------
-    if fused:
+    if dealt_arm in ("scan", "pallas"):
+        # slots pre-assigned on the host; rows, entry priorities and
+        # generations landed by the commit thread's dealer, which samples
+        # on the device
+        buffer = FusedDeviceReplay(cfg.memory_size, obs_dim, act_dim,
+                                   alpha=cfg.per_alpha, prioritized=True,
+                                   device=device, obs_dtype=obs_dtype,
+                                   gen_tracked=True)
+    elif fused:
         # one staging ring per ingest shard: the service's shard workers
         # stage into them directly (a lone ring would get K pushers)
         buffer = FusedDeviceReplay(cfg.memory_size, obs_dim, act_dim,
@@ -439,8 +476,8 @@ def train(cfg: ExperimentConfig) -> dict:
                               seed=cfg.seed, storage=storage, device=device,
                               obs_dtype=obs_dtype)
     if cfg.debug:
-        print(f"replay storage: {storage} (fused={fused}) on {device}",
-              flush=True)
+        print(f"replay storage: {storage} (fused={fused}) on {device}"
+              + (f", sampler {dealt_arm}" if dealt_arm else ""), flush=True)
     beta = LinearSchedule(cfg.per_beta_steps, 1.0, cfg.per_beta0)
     # the service's commit thread owns the statistics: it folds every
     # ingested row into them and inserts the rows normalized; actors and
@@ -537,7 +574,9 @@ def train(cfg: ExperimentConfig) -> dict:
     # ``lstep`` is the learner step on the host (the chunks report how
     # many updates they ran), so nothing waits on the card for it
     lstep = state.step
-    K = max(1, cfg.updates_per_dispatch)
+    replicas, aggregator = learner_plane(cfg, config, state, service,
+                                         weights, fused, dealt_arm, K,
+                                         norm_snapshot)
     fused_loop = (FusedLoop(
         config, buffer, k=K, batch_size=cfg.batch_size, generator=generator,
         prioritized=cfg.prioritized_replay, alpha=cfg.per_alpha,
@@ -545,6 +584,8 @@ def train(cfg: ExperimentConfig) -> dict:
         if fused else None)
 
     def publish():
+        if replicas:
+            return  # the aggregator owns the version stream (one writer)
         weights.publish(state.actor, step=lstep, norm_stats=norm_snapshot())
 
     def train_steps_fused(n: int):
@@ -585,7 +626,7 @@ def train(cfg: ExperimentConfig) -> dict:
         chunk_update, sample_chunk,
         write_back=per_write_back if cfg.prioritized_replay else None,
         device=device, use_weights=cfg.prioritized_replay)
-        if K > 1 and not fused else None)
+        if K > 1 and not fused and not replicas else None)
 
     def on_pipeline_chunk(chunk_state):
         nonlocal lstep
@@ -616,9 +657,55 @@ def train(cfg: ExperimentConfig) -> dict:
             lstep += 1
         return metrics
 
+    replica_failures: dict[int, int] = {}
+
+    def train_steps_multi(n: int):
+        """The cycle's n grad steps across the replicas: each runs one
+        round of ``ceil(n / N)`` steps on its own thread. A crashed replica
+        is fenced (its in-flight submission bounces) and respawned at the
+        next epoch; 5 failed cycles in a row end the run."""
+        nonlocal state, lstep
+        per = -(-n // len(replicas))
+        failed: dict[int, str] = {}
+
+        def run_replica(r):
+            try:
+                r.run_round(per)
+            except Exception as e:  # noqa: BLE001 — the supervisor decides
+                failed[r.replica_id] = traceback.format_exc()
+                contained_crash(f"learner.replica{r.replica_id}", e)
+
+        threads = [threading.Thread(target=run_replica, args=(r,),
+                                    daemon=True, name=f"replica-{i}")
+                   for i, r in enumerate(replicas)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for r in replicas:
+            if r.replica_id in failed:
+                fails = replica_failures.get(r.replica_id, 0) + 1
+                replica_failures[r.replica_id] = fails
+                print(f"learner replica {r.replica_id} crashed ({fails} "
+                      f"consecutive):\n{failed[r.replica_id]}", flush=True)
+                if fails >= 5:
+                    raise RuntimeError(
+                        f"learner replica {r.replica_id} failed {fails} "
+                        "cycles in a row; giving up")
+                r.respawn()
+            else:
+                replica_failures[r.replica_id] = 0
+        # replica 0's state stands in for the checkpoint and the eval lag;
+        # the published params are the aggregate's
+        state = replicas[0].state
+        lstep = max([lstep] + [r.state.step for r in replicas])
+        return replicas[0].last_metrics
+
     def train_steps(n: int):
         """n grad steps on the resolved path; the last step's scalars."""
-        if fused:
+        if replicas:
+            metrics = train_steps_multi(n)
+        elif fused:
             metrics = train_steps_fused(n)
         else:
             metrics = None
@@ -672,8 +759,27 @@ def train(cfg: ExperimentConfig) -> dict:
     # --- remote actors over TCP (actor_main) -------------------------------
     remote = RemotePlanes(cfg, service, weights) if (
         cfg.serve or cfg.actor_procs > 0) else None
+    policy_server = None
 
     try:
+        if cfg.serve_policy:
+            # greedy actions for --policy_port actors, one forward per
+            # batching window, from the weights this store publishes
+            from d4pg_tpu_torch.serving.server import PolicyInferenceServer
+
+            policy_server = PolicyInferenceServer(
+                config, weights, host=cfg.serve_host,
+                port=cfg.serve_policy_port, secret=cfg.serve_secret or None,
+                batch_window_s=cfg.serve_policy_window_s,
+                max_batch_rows=cfg.serve_policy_max_rows,
+                sla_staleness_s=cfg.serve_policy_sla_s)
+            print(f"serving: policy :{policy_server.port}", flush=True)
+        if (remote is not None and cfg.n_workers == 0
+                and cfg.actor_procs == 0 and len(service) < cfg.warmup):
+            # remote actors only: they fill the warm-up
+            if not service.wait_until(cfg.warmup, timeout=300.0):
+                raise RuntimeError("remote actors did not reach warmup")
+
         if obs_norm is not None:
             # the warm-up just filled the statistics; remote actors built
             # their normalizer from the pre-warm-up publish: publish again
@@ -773,6 +879,8 @@ def train(cfg: ExperimentConfig) -> dict:
                         saved["obs_norm"] = norm_payload(obs_norm)
                     ckpt.save(state, extra=saved, generator=generator)
     finally:
+        if policy_server is not None:
+            policy_server.close()
         if remote is not None:
             remote.close()
     stop_actors.set()
@@ -792,12 +900,105 @@ def train(cfg: ExperimentConfig) -> dict:
             bus.log(lstep, last_metrics)
     ckpt.wait()
     bus.close()
+    for r in replicas:
+        r.close()
+    if aggregator is not None:
+        aggregator.close()
     if fused_loop is not None:
         fused_loop.close()
     service.close()
     for actor in actors:
         actor.close()
     return last_metrics
+
+
+def resolve_dealt_arm(cfg: ExperimentConfig, k: int,
+                      device: torch.device) -> str | None:
+    """The ``--sampler`` arm of ``--sample_on_ingest 1`` with PER (None
+    otherwise), resolved before the buffer is built: ``scan`` and
+    ``pallas`` change what the service owns."""
+    if not (cfg.sample_on_ingest and cfg.prioritized_replay):
+        return None
+    from d4pg_tpu_torch.ops.autotune import select_sampler
+
+    arm = select_sampler(cfg.sampler, capacity=cfg.memory_size, k=k,
+                         batch_size=cfg.batch_size, device=device).selected
+    if arm in ("scan", "pallas"):
+        if cfg.ingest_shards != 1:
+            raise ValueError(
+                "--sampler scan/pallas needs --ingest_shards 1: the "
+                "generation-tracked ring pre-assigns slots under the one "
+                "commit thread (shard it with --sampler host instead)")
+        if cfg.fused_replay == "on":
+            raise ValueError(
+                "--fused_replay on (the FusedLoop learner) conflicts with "
+                "--sample_on_ingest: the device-dealt arm owns the commit "
+                "itself; drop --fused_replay on")
+    return arm
+
+
+def learner_plane(cfg: ExperimentConfig, config, state, service, weights,
+                  fused: bool, dealt_arm: str | None, k: int,
+                  norm_snapshot):
+    """``(replicas, aggregator)`` of ``--learners N > 1`` or
+    ``--sample_on_ingest 1`` (``([], None)`` otherwise): the dealer, when
+    there is one, attached to the service with one ring per replica, the
+    in-process aggregator and N replicas on their own state copies."""
+    if not (cfg.learners > 1 or cfg.sample_on_ingest):
+        return [], None
+    if fused:
+        raise ValueError(
+            "--learners > 1 / --sample_on_ingest need the host-sampled "
+            "replay path (the FusedLoop learner is single-consumer: pass "
+            "--fused_replay off; device sampling under --sample_on_ingest "
+            "is --sampler scan/pallas)")
+    if cfg.sample_on_ingest and not cfg.prioritized_replay:
+        raise ValueError(
+            "--sample_on_ingest is the PER dealer: it needs --p_replay "
+            "(dealt blocks carry IS weights)")
+    n_learners = max(1, cfg.learners)
+    # one anneal clock for every sampler in the process
+    beta_sched = SharedBetaSchedule(beta0=cfg.per_beta0,
+                                    beta_steps=cfg.per_beta_steps)
+    rings: list = []
+    if cfg.sample_on_ingest:
+        from d4pg_tpu_torch.replay.staging import DealtBlockRing
+
+        rings = [DealtBlockRing(4) for _ in range(n_learners)]
+        if dealt_arm in ("scan", "pallas"):
+            from d4pg_tpu_torch.replay.device_sampler import (
+                DeviceSampleDealer)
+
+            dealer = DeviceSampleDealer(
+                cfg.memory_size, rings, k=k, batch_size=cfg.batch_size,
+                alpha=cfg.per_alpha, beta_schedule=beta_sched,
+                min_size=max(1, cfg.batch_size), seed=cfg.seed,
+                arm=dealt_arm)
+        else:
+            from d4pg_tpu_torch.replay.sampler import SampleDealer
+
+            dealer = SampleDealer(
+                cfg.memory_size, rings, n_shards=cfg.ingest_shards, k=k,
+                batch_size=cfg.batch_size, alpha=cfg.per_alpha,
+                beta_schedule=beta_sched, min_size=max(1, cfg.batch_size),
+                seed=cfg.seed)
+        service.attach_dealer(dealer)
+    aggregator = Aggregator(
+        weights, mode=cfg.agg_mode, clip=cfg.agg_clip,
+        # actors pull acting params; the four-field tree stays between
+        # the replicas and the aggregator
+        extract=lambda tree: tree["actor_params"], norm_stats=norm_snapshot)
+    replicas = [LearnerReplica(
+        i, config, aggregator, replica_state(state, i, cfg.seed), k=k,
+        batch_size=cfg.batch_size, prioritized=cfg.prioritized_replay,
+        alpha=cfg.per_alpha, beta0=cfg.per_beta0,
+        beta_steps=cfg.per_beta_steps, service=service,
+        dealt_ring=rings[i] if rings else None, beta_schedule=beta_sched)
+        for i in range(n_learners)]
+    print(f"learner plane: {n_learners} replicas, mode={cfg.agg_mode} "
+          f"clip={cfg.agg_clip} sample_on_ingest={cfg.sample_on_ingest}"
+          + (f" sampler={dealt_arm}" if dealt_arm else ""), flush=True)
+    return replicas, aggregator
 
 
 def profiled(profile_dir: str, device: torch.device, fn, *args):

@@ -53,6 +53,13 @@ HER_AND_REMOTE = {
 }
 # the v2 weight plane (the sharded ingest plane adds no module)
 WEIGHT_PLANE = {"d4pg_tpu_torch.distributed.weight_plane"}
+# the serving plane, the sample-on-ingest dealt plane and the in-process
+# learner plane
+SERVING_DEALT_LEARNERS = {
+    "d4pg_tpu_torch.serving.protocol", "d4pg_tpu_torch.serving.server",
+    "d4pg_tpu_torch.replay.sampler", "d4pg_tpu_torch.replay.device_sampler",
+    "d4pg_tpu_torch.learner.aggregator", "d4pg_tpu_torch.learner.replica",
+}
 
 
 def test_port_imports_with_jax_blocked():
@@ -62,11 +69,13 @@ def test_port_imports_with_jax_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 67  # every module of the package was imported
+    assert n_modules >= 73  # every module of the package was imported
     imported = set(out.stdout.split("] ", 1)[1].split())
     assert HOST_PATH_AND_OBS <= imported, HOST_PATH_AND_OBS - imported
     assert HER_AND_REMOTE <= imported, HER_AND_REMOTE - imported
     assert WEIGHT_PLANE <= imported, WEIGHT_PLANE - imported
+    assert SERVING_DEALT_LEARNERS <= imported, \
+        SERVING_DEALT_LEARNERS - imported
 
 
 def test_port_sources_import_no_jax_or_reference():

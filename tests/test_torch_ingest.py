@@ -218,10 +218,11 @@ def test_service_concurrent_producers_lose_no_row():
 
 def test_service_refuses_unported_modes():
     """The elastic admission policy, a restored generation, snapshot,
-    restore, kill and live resizing raise (item 17), and so does the
-    sample-on-ingest dealer (item 14); sharded ingest, shedding
-    (tests/test_torch_sharded_ingest.py) and observation normalization
-    (tests/test_torch_normalizer.py) are ported."""
+    restore, kill and live resizing raise (item 17); sharded ingest,
+    shedding (tests/test_torch_sharded_ingest.py), observation
+    normalization (tests/test_torch_normalizer.py) and the
+    sample-on-ingest dealer (tests/test_torch_sampler.py) are ported: a
+    write-back before any dealer is attached is a usage error."""
     buf = FusedDeviceReplay(32, OBS, ACT, device="cpu")
     for kwargs in (dict(admission=object()), dict(generation=1)):
         with pytest.raises(NotImplementedError, match="item 17"):
@@ -233,10 +234,8 @@ def test_service_refuses_unported_modes():
                      lambda: svc.set_ingest_depth(8)):
             with pytest.raises(NotImplementedError, match="item 17"):
                 call()
-        for call in (lambda: svc.attach_dealer(None),
-                     lambda: svc.queue_writeback(None, None, None)):
-            with pytest.raises(NotImplementedError, match="item 14"):
-                call()
+        with pytest.raises(RuntimeError, match="attach_dealer"):
+            svc.queue_writeback(None, None, None)
     finally:
         svc.close()
     sharded = FusedDeviceReplay(32, OBS, ACT, device="cpu", ingest_shards=2)

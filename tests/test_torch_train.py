@@ -13,8 +13,12 @@ the reference's errors for those flags' misuse, the HER recipe
 cycles and a resume with the statistics restored; the reference's two
 resume refusals), ``--serve 1`` with a remote actor on a thread,
 ``--actor_procs`` (marked ``slow``, as the reference's
-``tests/test_actor_procs.py``), the refusal of every flag value and
-entry point that still selects an unported path, and whole-slice parity on both paths: with the same
+``tests/test_actor_procs.py``), ``--serve_policy 1`` with an actor acting
+through ``--policy_port`` on a thread, ``--sample_on_ingest 1`` under
+each ``--sampler`` arm and ``--learners 2`` (each training and
+publishing monotone versions through the aggregator), the refusal of
+every flag value that still selects an unported path, and whole-slice
+parity on both paths: with the same
 initial weights carried across and exploration off, the rows both
 drivers hold in replay when the first grad step starts match within atol
 1e-5 (and on the host path the first chunk's slots and IS weights are
@@ -286,12 +290,11 @@ def test_fused_on_with_host_storage_raises(tmp_path):
 
 
 UNPORTED = [
-    (dict(learners=2), "item 15"),
-    (dict(sample_on_ingest=True), "item 14"),
+    (dict(agg_transport="collective"), "item 15"),
+    (dict(learners=2, data_parallel=2), "item 15"),
     (dict(data_parallel=2), "item 16"),
     (dict(coordinator="localhost:9999"), "item 16"),
     (dict(num_processes=2), "item 16"),
-    (dict(serve_policy=True), "item 13"),
     (dict(autoscale=True), "item 17"),
     (dict(checkpoint_replay=True), "item 17"),
 ]
@@ -307,28 +310,13 @@ def test_unported_flag_values_raise(tmp_path, kw, item):
     assert not list(Path(tmp_path).rglob("*.pt"))
 
 
-def _actor_main_argv(*extra):
+def test_actor_main_parses_the_serving_flags():
     from d4pg_tpu_torch import actor_main
 
-    return lambda: actor_main.main(
-        ["--learner_host", "127.0.0.1", "--transitions_port", "1",
-         "--weights_port", "2", *extra])
-
-
-# what the remote planes' entry points still leave unported
-UNPORTED_ENTRY_POINTS = [
-    ("actor_main --policy_port", _actor_main_argv("--policy_port", "3"),
-     "item 13"),
-]
-
-
-@pytest.mark.parametrize("call,item", [(c, i) for _, c, i in
-                                       UNPORTED_ENTRY_POINTS],
-                         ids=[n for n, _, _ in UNPORTED_ENTRY_POINTS])
-def test_unported_entry_point_values_raise(call, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        call()
-    assert item in str(err.value)
+    ns = actor_main.build_parser().parse_args(
+        ["--learner_host", "h", "--transitions_port", "1", "--weights_port",
+         "2", "--policy_port", "3", "--policy_timeout", "0.25"])
+    assert (ns.policy_port, ns.policy_timeout) == (3, 0.25)
 
 
 @pytest.mark.parametrize("platform", ["auto", "accel"])
@@ -473,9 +461,9 @@ def test_family_flag_misuse_raises_as_in_the_reference(tmp_path, kw, match):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(serve_policy=True, env="Pendulum-v1"), "item 13"),
-    (dict(learners=2, env="pixel-point"), "item 15")],
-    ids=["serve_policy-Pendulum", "learners-pixels"])
+    (dict(agg_transport="collective", env="Pendulum-v1"), "item 15"),
+    (dict(learners=2, data_parallel=2, env="pixel-point"), "item 15")],
+    ids=["agg_transport-Pendulum", "learners-mesh-pixels"])
 def test_unported_flags_raise_before_the_env_is_built(tmp_path, monkeypatch,
                                                       kw, item):
     """An unported flag names its ROADMAP item before ``make_env_fn``
@@ -835,3 +823,144 @@ def test_spawned_actor_process_respawned_on_death(tmp_path, capfd):
     assert "supervisor: restarting actor process 0" in capfd.readouterr().out
     assert "dead_actors" in result
     assert np.isfinite(result["critic_loss"])
+
+
+# --- the serving plane and the learner plane --------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_serve_policy_trains_with_a_policy_port_actor(tmp_path, monkeypatch):
+    """``--serve 1 --serve_policy 1 --n_workers 0``: the learner waits for
+    a remote actor that acts through the policy server (``run_actor``
+    with ``policy_port``) to fill the warm-up, then trains; the actor's
+    client was served every request (no fallback, no timeout, no tear)."""
+    from d4pg_tpu_torch import actor_main
+    from d4pg_tpu_torch.serving import server as tserver
+
+    servers, clients, seen = [], [], {}
+
+    class Server(tserver.PolicyInferenceServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            servers.append(self)
+
+        def close(self):
+            # the actor's last request is served before the server goes
+            seen["thread"].join(timeout=120)
+            super().close()
+
+    class Client(actor_main.RemotePolicyClient):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            clients.append(self)
+
+    class Planes(ttrain.RemotePlanes):
+        def __init__(self, cfg, service, weights):
+            super().__init__(cfg, service, weights)
+            remote = dataclasses.replace(cfg, num_envs=1, seed=99)
+
+            def act():
+                deadline = time.monotonic() + 60.0
+                while not (servers and servers[0].serving_stats()["version"]):
+                    assert time.monotonic() < deadline
+                    time.sleep(0.01)
+                seen["steps"] = actor_main.run_actor(
+                    remote, "127.0.0.1", self.receiver.port,
+                    self.weight_server.port, actor_id="policy-0",
+                    max_ticks=150, send_timeout=10.0,
+                    policy_port=servers[0].port, policy_timeout=5.0)
+
+            seen["thread"] = threading.Thread(target=act, daemon=True)
+            seen["thread"].start()
+
+    monkeypatch.setattr(tserver, "PolicyInferenceServer", Server)
+    monkeypatch.setattr(actor_main, "RemotePolicyClient", Client)
+    monkeypatch.setattr(ttrain, "RemotePlanes", Planes)
+    cfg = _cfg(tmp_path, serve=True, serve_policy=True, n_workers=0,
+               serve_policy_port=_free_port())
+    metrics = ttrain.train(cfg)
+    assert not seen["thread"].is_alive() and seen["steps"] == 150
+    assert np.isfinite(metrics["critic_loss"])
+    (client,) = clients
+    st = client.stats()
+    assert st["served"] == st["requests"] > 0
+    assert st["fallbacks"] == st["timeouts"] == st["torn_rejected"] == 0
+    assert st["warmup_fallbacks"] == 0
+    stats = servers[0].serving_stats()
+    assert stats["adoptions"] >= 1 and stats["responses_ok"] == st["served"]
+
+
+def _capture_plane(monkeypatch):
+    seen = {}
+    plane = ttrain.learner_plane
+
+    def capture(*args, **kwargs):
+        seen["replicas"], seen["aggregator"] = plane(*args, **kwargs)
+        return seen["replicas"], seen["aggregator"]
+
+    monkeypatch.setattr(ttrain, "learner_plane", capture)
+    return seen
+
+
+@pytest.mark.parametrize("sampler", ["scan", "pallas", "host"])
+def test_sample_on_ingest_trains_under_each_sampler(tmp_path, monkeypatch,
+                                                    sampler):
+    from d4pg_tpu_torch.replay.device_sampler import DeviceSampleDealer
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+
+    seen = _capture_plane(monkeypatch)
+    cfg = _cfg(tmp_path, platform="cpu", fused_replay="off",
+               sample_on_ingest=True, sampler=sampler, n_cycles=3)
+    metrics = ttrain.train(cfg)
+    assert np.isfinite(metrics["critic_loss"])
+    (rep,) = seen["replicas"]
+    agg = seen["aggregator"]
+    assert rep.mode == "dealt" and rep.steps_done >= 3 * 6
+    service = rep._service
+    dealer = service._dealer
+    assert isinstance(dealer, DeviceSampleDealer) == (sampler != "host")
+    assert isinstance(service.buffer, FusedDeviceReplay) == (
+        sampler != "host")
+    if sampler != "host":
+        assert dealer.arm == sampler
+    assert dealer.dealt_blocks >= 5 and dealer.writeback_dropped_stale >= 0
+    versions = [v for _g, v in agg.ledger()]
+    assert versions == list(range(2, 2 + len(versions)))  # 1 was init
+    assert agg.ledger_monotone() and len(versions) == 3
+
+
+def test_learners_two_train_and_resume(tmp_path, monkeypatch):
+    seen = _capture_plane(monkeypatch)
+    cfg = _cfg(tmp_path, platform="cpu", replay_storage="host",
+               fused_replay="off", learners=2, agg_mode="async")
+    metrics = ttrain.train(cfg)
+    assert np.isfinite(metrics["critic_loss"])
+    reps, agg = seen["replicas"], seen["aggregator"]
+    assert [r.mode for r in reps] == ["host", "host"]
+    assert all(r.steps_done == 2 * 3 for r in reps)
+    assert agg.counters()["applied"] == 4 and agg.ledger_monotone()
+    resumed = ttrain.train(dataclasses.replace(cfg, resume=True, n_cycles=1))
+    assert np.isfinite(resumed["critic_loss"])
+    assert all(r.state.step == 2 * 3 + 3 for r in seen["replicas"])
+
+
+def test_learner_plane_misuse_raises_as_in_the_reference(tmp_path):
+    with pytest.raises(ValueError, match="host-sampled"):
+        ttrain.train(_cfg(tmp_path, learners=2))
+    with pytest.raises(ValueError, match="p_replay"):
+        ttrain.train(_cfg(tmp_path, platform="cpu", fused_replay="off",
+                          sample_on_ingest=True, prioritized_replay=False))
+    with pytest.raises(ValueError, match="ingest_shards 1"):
+        ttrain.train(_cfg(tmp_path, platform="cpu", fused_replay="off",
+                          sample_on_ingest=True, sampler="scan",
+                          ingest_shards=2))
+    with pytest.raises(ValueError, match="fused_replay on"):
+        ttrain.train(_cfg(tmp_path, sample_on_ingest=True,
+                          sampler="pallas"))
