@@ -213,7 +213,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      kernels once per grad step of every replica, monotone versions; own
      grad-steps/s against phase 13's in the same call, deal-to-grad p50,
      the replica threads' CPU ms per grad step;
- 23. a ``kernels`` JSON line (each kernel's launches on every path that
+ 23. crash recovery and the learner update plane: (a) a 200,000-row
+     generation-tracked PER ring at Humanoid width filled through a
+     ``ReplayService``, three K = 40 chunks, ``snapshot`` (its buffer-lock
+     hold, and the ring's device-to-host copy beside the same bytes into
+     pinned memory), the sidecar written and read, ``restore`` into a
+     fresh service and buffer: rows, both trees, ``max_priority``,
+     generations, head and size bitwise, the generation one on; one K =
+     40 chunk from each buffer with the same uniforms: slots bitwise,
+     params, TD errors and trees bitwise (else reported, rtol 1e-5); (b)
+     ``train.main --env point --checkpoint_replay 1
+     --checkpoint_replay_every 1`` for two cycles, then ``--resume 1``:
+     the sidecar's rows, leaves and ``max_priority`` bitwise in the
+     service at generation 1, the resumed cycle's own grad-steps/s beside
+     phase 11's learner-only resume, a flipped byte giving a learner-only
+     resume that says so; (c) host-sampled replicas at Humanoid width
+     submitting through ``UpdateClient`` to an ``AggregatorServer``: N =
+     1 bitwise the in-process ``Aggregator`` over 3 rounds; N = 2 under
+     f32, bf16 and int8 (rounds/s, submit round trip p50 and p99, frame
+     bytes); a replica fenced mid-update, its submit and its replayed
+     frame fenced;
+ 24. a ``kernels`` JSON line (each kernel's launches on every path that
      runs it; the descent's time at the dealt shapes), then the result
      line.
 """
@@ -244,6 +264,8 @@ CAP = 262_144  # next_pow2(CAPACITY): the sum tree's leaf count
 LEVELS = 18  # log2(CAP): levels per descent
 # the driver's defaults: a 1,000,000-row ring (2^20 leaves), batch 64, K 40
 DRIVER_CAP, DRIVER_LEVELS, DRIVER_BATCH = 1 << 20, 20, 64
+# phase 23c: seconds of N = 2 rounds per update codec (a p99 over ~100+)
+UPDATE_WINDOW_S = 30.0
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1181,8 +1203,8 @@ def phase_driver(card: str, hooks: DriverHooks) -> dict:
     default_rates = [m["grad_steps_per_sec"] for m in cycles]
     env_rates = [m["env_steps_per_sec"] for m in cycles]
 
-    counts, _, logged, _, _ = drive("default", "--n_cycles", "1",
-                                    "--resume", "1")
+    counts, _, logged, _, own_resume = drive("default", "--n_cycles", "1",
+                                             "--resume", "1")
     check(sorted(set(logged)) == [steps + per_cycle],
           f"driver resume: goes on from step {steps} (rows {logged})")
     check(ckpt.latest_step == steps + per_cycle, "driver resume: checkpoint")
@@ -1237,6 +1259,7 @@ def phase_driver(card: str, hooks: DriverHooks) -> dict:
     return {"grad_steps_per_sec": default_rates,
             "own_grad_steps_per_sec": own_default,
             "own_grad_steps_per_sec_sync_eval": own_sync,
+            "own_grad_steps_per_sec_resume": own_resume,
             "env_steps_per_sec": env_rates, "auto": choice.selected,
             "device_busy_share": shares,
             "launches": {"projection": arms["pallas"]["projection"],
@@ -3438,6 +3461,492 @@ def phase_dealt_driver(card: str, hooks: DriverHooks,
     return out
 
 
+
+# --- crash recovery and the learner update plane (phase 23) --------------
+
+def phase_recovery(dev, card: str) -> dict:
+    """23a: the snapshot round trip at the slice's width: a 200,000-row
+    generation-tracked PER ring (Humanoid width) filled through a
+    ``ReplayService``, 3 chunks of K = 40 (``pallas_ce``) so the leaves
+    differ, then ``snapshot`` (its buffer-lock hold timed), the sidecar
+    written and read back, ``restore`` into a fresh service and buffer:
+    rows, both trees, ``max_priority``, generations, head and size
+    bitwise, the service one generation on; then one K = 40 chunk from
+    each buffer on copies of one state with the same injected uniforms:
+    slots bitwise, params, TD errors and trees bitwise (else reported and
+    held to rtol 1e-5). The device-to-host copy the cut makes is timed
+    beside the same bytes into pinned memory."""
+    import shutil
+
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.io.checkpoint import (load_replay_sidecar,
+                                              replay_sidecar_path,
+                                              save_replay_sidecar)
+    from d4pg_tpu_torch.learner.fused import fused_chunk_step
+    from d4pg_tpu_torch.learner.loop import FusedLoop
+    from d4pg_tpu_torch.learner.replica import replica_state
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+
+    arm = "pallas_ce"
+    cfg = config(arm)
+    run_dir = ROOT / "runs" / "chip_smoke_recovery" / "sidecar"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+
+    def ring():
+        return FusedDeviceReplay(CAPACITY, OBS, ACT, alpha=0.6, device=dev,
+                                 gen_tracked=True)
+
+    src = ReplayService(ring())
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    for start in range(0, CAPACITY, FILL_BLOCK):
+        src.add(random_rows(rng, min(FILL_BLOCK, CAPACITY - start)),
+                actor_id="fill")
+        src.flush(timeout=30.0)
+        src.drain_device()
+    buf = src.buffer
+    torch.cuda.synchronize()
+    check(buf.size == CAPACITY and buf.head == 0,
+          f"recovery ring full: size {buf.size}, head {buf.head}")
+    print(f"[recovery] ring filled through the service: {buf.size} rows "
+          f"in {time.perf_counter() - t0:.2f} s")
+    state = init_state(cfg, seed=0, device=dev)
+    loop = FusedLoop(cfg, buf, k=K, batch_size=BATCH,
+                     generator=torch.Generator(device=dev).manual_seed(23))
+    loop.run(state, 3 * K)
+    loop.close()
+    torch.cuda.synchronize()
+
+    # the cut: how long the snapshot holds the buffer lock
+    lock_s = []
+    cut = buf.snapshot
+
+    def timed_cut():
+        t = time.perf_counter()
+        out = cut()
+        lock_s.append(time.perf_counter() - t)
+        return out
+
+    buf.snapshot = timed_cut
+    t0 = time.perf_counter()
+    snap = src.snapshot()
+    snap_s = time.perf_counter() - t0
+    del buf.snapshot
+    gen_before = src.generation
+    ring_bytes = sum(a[:buf.size].numel() * a.element_size()
+                     for a in buf.storage)
+    # the same bytes into pinned host memory (allocation timed apart)
+    t0 = time.perf_counter()
+    pinned = [torch.empty(a[:buf.size].shape, dtype=a.dtype,
+                          pin_memory=True) for a in buf.storage]
+    alloc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for p, a in zip(pinned, buf.storage):
+        p.copy_(a[:buf.size])
+    torch.cuda.synchronize()
+    pinned_s = time.perf_counter() - t0
+    del pinned
+    t0 = time.perf_counter()
+    pageable = [a[:buf.size].to("cpu", copy=True) for a in buf.storage]
+    pageable_s = time.perf_counter() - t0
+    del pageable
+
+    t0 = time.perf_counter()
+    path = save_replay_sidecar(str(run_dir), 0, 3 * K, snap)
+    write_s = time.perf_counter() - t0
+    side_bytes = Path(path).stat().st_size
+    check(Path(path) == Path(replay_sidecar_path(str(run_dir), 0)),
+          "recovery: the sidecar's path")
+    del snap
+    t0 = time.perf_counter()
+    loaded, step = load_replay_sidecar(str(run_dir), 0)
+    read_s = time.perf_counter() - t0
+    check(step == 3 * K, f"recovery: sidecar step {step}")
+
+    dst = ReplayService(ring())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dst.restore(loaded)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del loaded
+    new = dst.buffer
+    check(dst.generation == gen_before + 1,
+          f"recovery: service generation {dst.generation} == "
+          f"{gen_before} + 1")
+    check((new.head, new.size) == (buf.head, buf.size),
+          f"recovery: head/size {(new.head, new.size)} vs "
+          f"{(buf.head, buf.size)}")
+    for name, a, b in zip(buf.storage._fields, buf.storage, new.storage):
+        check(torch.equal(a[:buf.size], b[:buf.size]),
+              f"recovery: rows of {name} bitwise")
+    for name, a, b in (("sum tree", buf.trees.sum_tree, new.trees.sum_tree),
+                       ("min tree", buf.trees.min_tree, new.trees.min_tree)):
+        check(torch.equal(a, b), f"recovery: {name} bitwise (every node)")
+    check(new.max_priority == buf.max_priority
+          and float(new.trees.max_priority) == float(buf.max_priority),
+          "recovery: max_priority")
+    check(np.array_equal(new.generation, buf.generation)
+          and torch.equal(new.gen, buf.gen),
+          "recovery: generations bitwise (host mirror and device)")
+    print(f"[recovery] snapshot {snap_s:.4f} s (buffer lock held "
+          f"{lock_s[0]:.4f} s); ring {ring_bytes} B to the host: pageable "
+          f"{pageable_s:.4f} s, pinned {pinned_s:.4f} s (+{alloc_s:.4f} s "
+          f"to allocate); sidecar {side_bytes} B written in {write_s:.4f} "
+          f"s, read in {read_s:.4f} s; restore with the tree rebuild "
+          f"{restore_s:.4f} s ({card})")
+
+    # one chunk from each buffer: same state, same uniforms
+    u = torch.from_numpy(np.random.default_rng(24).random(
+        (K, BATCH)).astype(np.float32)).to(dev)
+    twin = replica_state(state, 0, 0)
+    zero_counts()
+    out = []
+    for b, st in ((buf, state), (new, twin)):
+        trees, m = fused_chunk_step(cfg, st, b.trees, b.storage, b.size,
+                                    k=K, batch_size=BATCH, u=u)
+        out.append((trees, m, st))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {n: 2 * K if n in fused_kernels(arm) else 0 for n in counts}
+    check(counts == want, f"recovery chunks: launches {counts}, "
+          f"expected {want}")
+    (t_a, m_a, s_a), (t_b, m_b, s_b) = out
+    check(torch.equal(m_a["idx"], m_b["idx"]),
+          "recovery: the descent's slots after the restore, bitwise")
+    # same kernels on the same inputs: everything the chunk wrote back
+    # is held bitwise, not to a tolerance
+    check(torch.equal(m_a["td_error"], m_b["td_error"]),
+          "recovery: TD errors after the restore, bitwise")
+    check(torch.equal(t_a.sum_tree, t_b.sum_tree),
+          "recovery: the write-back sum tree after the restore, bitwise")
+    for m in ("actor", "critic"):
+        for (n, p), q in zip(getattr(s_a, m).named_parameters(),
+                             getattr(s_b, m).parameters()):
+            check(torch.equal(p, q),
+                  f"recovery: {m} param {n} after the restore, bitwise")
+    print(f"[recovery] one K = {K} chunk from each buffer: slots, params, "
+          f"TD errors and write-back trees bitwise; launches {counts} "
+          f"({card})")
+    src.close()
+    dst.close()
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return {"snapshot_s": snap_s, "lock_s": lock_s[0],
+            "ring_bytes": ring_bytes, "pageable_s": pageable_s,
+            "pinned_s": pinned_s, "pinned_alloc_s": alloc_s,
+            "sidecar_bytes": side_bytes, "write_s": write_s,
+            "read_s": read_s, "restore_s": restore_s, "launches": counts}
+
+
+class _Tee:
+    """Standard output copied into a buffer (the driver's own words)."""
+
+    def __init__(self):
+        import io
+
+        self.buf, self._out = io.StringIO(), sys.stdout
+
+    def write(self, s):
+        self.buf.write(s)
+        return self._out.write(s)
+
+    def flush(self):
+        self._out.flush()
+
+
+def phase_recovery_driver(card: str, hooks: DriverHooks,
+                          resume_rates: list | None) -> dict:
+    """23b: ``train.main --env point`` at the default widths (phase 11's
+    config: hidden 256x3, 51 atoms, batch 64, K = 40, a 1,000,000-row
+    ring) with ``--checkpoint_replay 1 --checkpoint_replay_every 1`` for
+    two cycles, then ``--resume 1`` for one: the restored service holds
+    the sidecar's rows, leaves and ``max_priority`` bitwise at generation
+    1, the resumed cycle trains (the arm's kernels and the descent once
+    per grad step), its own grad-steps/s beside phase 11's learner-only
+    resume; then a sidecar with one byte flipped gives a learner-only
+    resume that says so."""
+    import contextlib
+    import shutil
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.io.checkpoint import (load_replay_sidecar,
+                                              replay_sidecar_path)
+    from d4pg_tpu_torch.ops.autotune import select_projection
+
+    runs = ROOT / "runs" / "chip_smoke_recovery" / "driver"
+    shutil.rmtree(runs, ignore_errors=True)
+    cfg = ExperimentConfig(env="point").resolve()
+    arm = select_projection("auto", batch_size=cfg.batch_size,
+                            v_min=cfg.v_min, v_max=cfg.v_max,
+                            n_atoms=cfg.n_atoms,
+                            device=driver.learner_device(cfg)).selected
+    argv = ["--env", "point", "--checkpoint_replay", "1",
+            "--checkpoint_replay_every", "1"]
+    _driver_run(hooks, driver, "recovery", [*argv, "--n_cycles", "2"], runs)
+    run_dir = runs / cfg.run_name()
+    snap, step = load_replay_sidecar(str(run_dir), 0)
+    check(step == 2 * cfg.train_steps_per_cycle,
+          f"driver recovery: sidecar at step {step}")
+    held = {}
+    restore = driver._restore_replay
+
+    def restoring(service, snap_, env_steps):
+        restore(service, snap_, env_steps)
+        held["state"] = service.replay_state()
+        held["generation"] = service.generation
+
+    driver._restore_replay = restoring
+    try:
+        result, counts, own, cycles, wall = _driver_run(
+            hooks, driver, "recovery resume",
+            [*argv, "--n_cycles", "1", "--resume", "1"], runs)
+        got, want = held["state"], snap["buffer"]
+        check(held["generation"] == snap["generation"] + 1 == 1,
+              f"driver recovery: generation {held['generation']}")
+        check((got["head"], got["size"]) == (want["head"], want["size"]),
+              "driver recovery: head and size")
+        for f in want["rows"]:
+            check(np.array_equal(got["rows"][f], want["rows"][f])
+                  and got["rows"][f].dtype == want["rows"][f].dtype,
+                  f"driver recovery: sidecar rows of {f} bitwise")
+        check(np.array_equal(got["leaf_priorities"],
+                             want["leaf_priorities"])
+              and got["max_priority"] == want["max_priority"],
+              "driver recovery: leaves and max_priority bitwise")
+        steps = cfg.train_steps_per_cycle
+        expect = {n: steps if n in fused_kernels(arm) else 0
+                  for n in counts}
+        check(counts == expect, f"driver recovery resume: launches "
+              f"{counts}, expected {expect}")
+        print(f"[driver recovery] resumed with {want['size']} rows from "
+              f"the sidecar at generation {held['generation']}: own "
+              f"grad-steps/s {[round(x, 2) for x in own]} against phase "
+              f"11's learner-only resume "
+              f"{'not run' if resume_rates is None else [round(x, 2) for x in resume_rates]}"
+              f" in this call; {wall:.2f} s; launches {counts} ({card})")
+
+        path = replay_sidecar_path(str(run_dir), 0)
+        blob = bytearray(Path(path).read_bytes())
+        blob[len(blob) // 2] ^= 0x01
+        Path(path).write_bytes(bytes(blob))
+        held.clear()
+        tee = _Tee()
+        with contextlib.redirect_stdout(tee):
+            _driver_run(hooks, driver, "recovery corrupt",
+                        [*argv, "--n_cycles", "1", "--resume", "1"], runs)
+        said = tee.buf.getvalue()
+        check(held == {} and "corrupt" in said and "learner-only" in said,
+              "driver recovery: a flipped byte gives a learner-only resume "
+              "that says so")
+        print("[driver recovery] one flipped byte: learner-only resume, "
+              "the run said so")
+    finally:
+        driver._restore_replay = restore
+    return {"own_grad_steps_per_sec": own, "launches": counts,
+            "sidecar_rows": int(want["size"])}
+
+
+def phase_update_plane(dev, card: str) -> dict:
+    """23c: the update plane on the card. Host-sampled ``LearnerReplica``s
+    at the slice's width (``pallas``) over a 50,000-row PER ring on the
+    card; an ``AggregatorServer`` on loopback. (i) N = 1, f32: 3 rounds of
+    40 grad steps through an ``UpdateClient`` against the same rounds
+    through the in-process ``Aggregator`` over a twin service (same seed,
+    same state): verdicts, replica states and aggregates bitwise; (ii) N
+    = 2 on threads, rounds for ``UPDATE_WINDOW_S`` under each of f32,
+    bf16 and int8: rounds/s, the submit round trip's p50, p99 and max
+    with its n, frame bytes; (iii) a replica
+    fenced after its round's grad steps, before its submission: its own
+    submit and the replay of its last frame come back ``fenced``, no
+    dead-epoch update merged, the version stream monotone."""
+    import threading
+
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.distributed.update_plane import (AggregatorServer,
+                                                         UpdateClient)
+    from d4pg_tpu_torch.distributed.weights import WeightStore
+    from d4pg_tpu_torch.learner.aggregator import Aggregator
+    from d4pg_tpu_torch.learner.replica import (PARAM_FIELDS,
+                                                LearnerReplica,
+                                                replica_state)
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+    from d4pg_tpu_torch.replay.schedule import SharedBetaSchedule
+
+    arm, cap, rounds = "pallas", 50_000, 3
+    cfg = config(arm)
+    rng = np.random.default_rng(25)
+    rows = [random_rows(rng, FILL_BLOCK) for _ in range(cap // FILL_BLOCK)]
+
+    def service():
+        svc = ReplayService(PrioritizedReplayBuffer(
+            cap, OBS, ACT, alpha=0.6, seed=7, storage="device", device=dev))
+        for r in rows:
+            svc.add(r, actor_id="fill")
+        svc.flush(timeout=60.0)
+        return svc
+
+    state = init_state(cfg, seed=0, device=dev)
+    zero_counts()
+    sides = []
+    for wire in (False, True):
+        svc, agg = service(), Aggregator(WeightStore())
+        server = AggregatorServer(agg) if wire else None
+        client = UpdateClient("127.0.0.1", server.port) if wire else None
+        rep = LearnerReplica(0, cfg, agg, replica_state(state, 0, 0), k=K,
+                             batch_size=BATCH, service=svc,
+                             beta_schedule=SharedBetaSchedule(0.4, 100_000),
+                             updates=client)
+        sides.append((svc, agg, server, client, rep))
+    for _ in range(rounds):
+        got = [side[4].run_round(K) for side in sides]
+        check(got[0] == got[1] and got[0]["status"] == "applied",
+              f"update plane N = 1: verdicts {got}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    a, b = sides[0][4].state, sides[1][4].state
+    for m in ("actor", "critic", "target_actor", "target_critic"):
+        for (n, p), q in zip(getattr(a, m).state_dict().items(),
+                             getattr(b, m).state_dict().values()):
+            check(torch.equal(p, q), f"update plane N = 1: {m}.{n} "
+                  "bitwise through the wire and in process")
+    (v0, cur0), (v1, cur1) = (side[1].current() for side in sides)
+    check(v0 == v1 == rounds and all(
+        torch.equal(t, cur1[f][k]) for f in PARAM_FIELDS
+        for k, t in cur0[f].items()),
+        "update plane N = 1: aggregates bitwise")
+    want = {n: 2 * rounds * K if n in ARM_KERNELS[arm] else 0
+            for n in counts}
+    check(counts == want, f"update plane N = 1: launches {counts}, "
+          f"expected {want}")
+    print(f"[update plane] N = 1, f32: {rounds} rounds of {K} grad steps "
+          f"bitwise through UpdateClient and in process; launches {counts}"
+          f" ({card})")
+    for svc, agg, server, client, rep in sides:
+        rep.close()
+        if client is not None:
+            client.close()
+            server.close()
+        agg.close()
+    sides[0][0].close()
+    svc_wire = sides[1][0]  # the N = 2 runs go on over its ring
+
+    out = {"launches": dict(counts), "codecs": {}}
+    for codec in ("f32", "bf16", "int8"):
+        agg = Aggregator(WeightStore())
+        server = AggregatorServer(agg)
+        clients = [UpdateClient("127.0.0.1", server.port, codec=codec)
+                   for _ in range(2)]
+        rtt, frames = [], []
+        lock = threading.Lock()
+        for c in clients:
+            submit = c.submit
+
+            def timed(*args, _submit=submit, _c=c, **kw):
+                t = time.perf_counter()
+                res = _submit(*args, **kw)
+                with lock:
+                    rtt.append(1e3 * (time.perf_counter() - t))
+                    frames.append(len(_c.last_frame))
+                return res
+
+            c.submit = timed
+        sched = SharedBetaSchedule(0.4, 100_000)
+        reps = [LearnerReplica(i, cfg, agg, replica_state(state, i, 0), k=K,
+                               batch_size=BATCH, service=svc_wire,
+                               beta_schedule=sched, updates=clients[i])
+                for i in range(2)]
+        # each replica runs rounds until the window closes: a p99 needs
+        # its hundred-odd submits, not a handful
+        ran = [0, 0]
+        zero_counts()
+        t0 = time.perf_counter()
+        deadline = t0 + UPDATE_WINDOW_S
+
+        def rounds_until(i, r):
+            while time.perf_counter() < deadline:
+                r.run_round(K)
+                ran[i] += 1
+
+        threads = [threading.Thread(target=rounds_until, args=(i, r))
+                   for i, r in enumerate(reps)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        check(all(r.applied == n for r, n in zip(reps, ran))
+              and agg.ledger_monotone(),
+              f"update plane N = 2 {codec}: every round applied, "
+              "monotone versions")
+        for n, c in counts.items():
+            out["launches"][n] += c
+        res = {"rounds": sum(ran), "wall_s": wall,
+               "rounds_per_s": sum(ran) / wall,
+               "grad_steps_per_s": sum(ran) * K / wall,
+               "submits": len(rtt),
+               "rtt_p50_ms": float(np.percentile(rtt, 50)),
+               "rtt_p99_ms": float(np.percentile(rtt, 99)),
+               "rtt_max_ms": float(max(rtt)),
+               "frame_bytes": int(np.median(frames))}
+        out["codecs"][codec] = res
+        print(f"[update plane] N = 2, {codec}: {res['rounds']} rounds in "
+              f"{wall:.2f} s, {res['rounds_per_s']:.3f} rounds/s "
+              f"({res['grad_steps_per_s']:.1f} grad-steps/s over both), "
+              f"submit round trip over n = {res['submits']} submits: p50 "
+              f"{res['rtt_p50_ms']:.2f} ms, p99 {res['rtt_p99_ms']:.2f} "
+              f"ms, max {res['rtt_max_ms']:.2f} ms; frame "
+              f"{res['frame_bytes']} B; launches {counts} ({card})")
+
+        if codec == "f32":
+            # a replica killed mid-update: fenced once its round's grad
+            # steps are done, before its submission leaves
+            victim = reps[1]
+            applied0 = agg.counters()["applied"]
+            steps = victim._host_steps
+            version = []
+
+            def steps_then_killed(n):
+                steps(n)
+                agg.fence_replica(1)
+                version.append(agg.version)
+
+            victim._host_steps = steps_then_killed
+            out["killed_round"] = victim.run_round(K)
+            version = version[0]
+            probe = UpdateClient("127.0.0.1", server.port)
+            replay = probe.submit_frame(clients[1].last_frame)
+            probe.close()
+            check(out["killed_round"]["status"] == "fenced"
+                  and replay["status"] == "fenced"
+                  and agg.version == version
+                  and agg.counters()["applied"] == applied0
+                  and agg.ledger_monotone(),
+                  f"update plane: the killed replica's submit "
+                  f"{out['killed_round']['status']} and its replayed frame "
+                  f"{replay['status']}, no dead-epoch update merged")
+            # the killed round's grad steps launched too
+            for n, c in launch_counts().items():
+                out["launches"][n] += c - counts[n]
+            print(f"[update plane] killed mid-update: its submit and the "
+                  f"replay of its last frame came back fenced; "
+                  f"{server.stats()['fenced_header']} header fences, 0 "
+                  f"dead-epoch updates merged ({card})")
+        for r in reps:
+            r.close()
+        for c in clients:
+            c.close()
+        server.close()
+        agg.close()
+    svc_wire.close()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3496,6 +4005,10 @@ def main() -> int:
     serving_drv = phase_serving_driver(card, hooks, remote)
     dealer = phase_dealer(dev, card)
     dealt = phase_dealt_driver(card, hooks, drv_host)
+    recovery = phase_recovery(dev, card)
+    recovery_drv = phase_recovery_driver(
+        card, hooks, drv["own_grad_steps_per_sec_resume"])
+    updates = phase_update_plane(dev, card)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -3526,6 +4039,15 @@ def main() -> int:
         kern["serving_driver_launches"] = \
             serving_drv["launches"][kern["name"]]
         kern["dealt_driver_launches"] = dealt["launches"][kern["name"]]
+        # this slice: the two K = 40 chunks after the restore (23a), the
+        # resumed driver cycle (23b, 40 grad steps) and the replicas'
+        # rounds through the update plane (23c: 6 rounds of 40, the
+        # rounds of three windows of UPDATE_WINDOW_S and the killed
+        # replica's)
+        kern["recovery_launches"] = recovery["launches"][kern["name"]]
+        kern["recovery_driver_launches"] = \
+            recovery_drv["launches"][kern["name"]]
+        kern["update_plane_launches"] = updates["launches"][kern["name"]]
         if kern["name"] == "descent":
             # the dealt plane's shape: one launch per deal over Q = K * B
             # flat queries (22a), and the driver's Q = 40 * 64 at 2^20
@@ -3621,6 +4143,22 @@ def main() -> int:
               f"deal-to-grad p50 {run['deal_to_grad_p50_ms']} ms, replica "
               f"CPU {run['replica_cpu_ms_per_grad_step']:.2f} ms per grad "
               f"step on {card}")
+    print(f"[recovery] snapshot {recovery['snapshot_s']:.4f} s (lock "
+          f"{recovery['lock_s']:.4f} s), sidecar "
+          f"{recovery['sidecar_bytes']} B (write {recovery['write_s']:.4f} "
+          f"s, read {recovery['read_s']:.4f} s), restore "
+          f"{recovery['restore_s']:.4f} s; resumed driver cycle own "
+          f"grad-steps/s "
+          f"{[round(x, 2) for x in recovery_drv['own_grad_steps_per_sec']]}"
+          f" against the learner-only resume "
+          f"{[round(x, 2) for x in drv['own_grad_steps_per_sec_resume']]} "
+          f"on {card}")
+    for codec, res in updates["codecs"].items():
+        print(f"[update plane {codec}] {res['rounds_per_s']:.3f} rounds/s "
+              f"over {res['wall_s']:.2f} s, round trip over n = "
+              f"{res['submits']}: p50 {res['rtt_p50_ms']:.2f} ms, p99 "
+              f"{res['rtt_p99_ms']:.2f} ms, max {res['rtt_max_ms']:.2f} ms, "
+              f"frame {res['frame_bytes']} B on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,14 @@ thread-local list, cheap next to the lock itself) and raises
 ``LockHierarchyError`` on an inversion.
 
 Each violation is also recorded on the flight recorder
-(``obs.flight``, a ``lock_violation`` event) before it raises.
+(``obs.flight``, a ``lock_violation`` event) and counted
+(``violation_count``, the learner chaos drill's lock oracle) before it
+raises.
 
 Only the tiers of the ported components are declared. Left out: the
 reference's debug switch and contention counters (``enable_debug``,
 ``lock_stats``) and the ``locks`` registry provider built on them, which
-its fleet harness reads (ROADMAP Queue 1 item 17).
+its fleet harness reads (ROADMAP Queue 1 item 17c).
 """
 
 from __future__ import annotations
@@ -67,6 +69,20 @@ class _TLS(threading.local):
 
 
 _tls = _TLS()
+_violations_lock = threading.Lock()  # outside the hierarchy: a leaf
+_violations = 0
+
+
+def violation_count() -> int:
+    """Hierarchy violations raised in this process so far."""
+    with _violations_lock:
+        return _violations
+
+
+def _count_violation() -> None:
+    global _violations
+    with _violations_lock:
+        _violations += 1
 
 
 class _Tiered:
@@ -89,6 +105,7 @@ class _Tiered:
                    f"(tier {self.tier}) while holding [{chain}]; declared "
                    f"order is monotone descent "
                    f"({', '.join(f'{k}={v}' for k, v in HIERARCHY.items())})")
+            _count_violation()
             record_event("lock_violation", msg=msg)
             raise LockHierarchyError(msg)
         held.append((self.tier, self.tier_name))

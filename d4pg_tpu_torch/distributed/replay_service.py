@@ -88,10 +88,22 @@ never the buffer lock); each shard's worker drains the queues of its own
 slices. Shed, tombstoned and stale tickets are reported to the dealer
 for its audit.
 
+Crash recovery: ``snapshot`` takes a quiesced cut (``flush``, then the
+buffer's rows and PER state under the buffer lock, the ticket floor under
+the commit condition and the row ledger under the service lock: three
+locks one after another, never nested) as a dict of numpy arrays and
+Python scalars; ``restore`` lands one in a fresh service (rows and trees,
+ticket floor, ledger) and moves the service ``generation`` past the
+snapshot's, so a raw frame a sender encoded against the dead service is
+fenced at admission; with a dealer attached it drops the blocks dealt
+before the restore (``clear_rings``) and then re-derives the dealer's
+state from the restored buffer (``resync``). ``kill`` stops the ingest
+threads without a flush, as a crash would. ``io/checkpoint``'s sidecars
+carry the snapshot to disk.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the elastic ``admission`` policy, a ``generation`` other than 0,
-``snapshot``/``restore``/``kill`` and ``set_ingest_depth`` (Queue 1 item
-17).
+item: the elastic ``admission`` policy and ``set_ingest_depth`` (Queue 1
+item 17b).
 """
 
 from __future__ import annotations
@@ -180,10 +192,7 @@ class ReplayService:
         admission=None,
     ):
         if admission is not None:
-            raise _unported("the elastic admission policy", "item 17")
-        if int(generation) != 0:
-            raise _unported("a service generation other than 0 (restore)",
-                            "item 17")
+            raise _unported("the elastic admission policy", "item 17b")
         self.buffer = buffer
         self.obs_norm = obs_norm
         self.num_ingest_shards = max(1, int(num_ingest_shards))
@@ -194,7 +203,10 @@ class ReplayService:
             raise ValueError(
                 f"buffer.ingest_shards={buf_shards} must be 1 or match "
                 f"num_ingest_shards={self.num_ingest_shards}")
-        self._generation = 0
+        # a raw frame stamped with an older generation is fenced at
+        # admission; restore() moves it past the snapshot's, and a
+        # supervisor restarting without a snapshot passes it explicitly
+        self._generation = int(generation)
         self._fenced_frames = 0
         self._fenced_rows = 0
         self._env_steps = 0
@@ -505,20 +517,77 @@ class ReplayService:
         with self._buffer_lock:
             return stage()
 
+    def replay_state(self) -> dict:
+        """The buffer's rows and PER state as host numpy (its
+        ``state_dict``)."""
+        with self._buffer_lock:
+            return self.buffer.state_dict()
+
+    def load_replay_state(self, d: dict) -> None:
+        with self._buffer_lock:
+            self.buffer.load_state_dict(d)
+
     def snapshot(self, quiesce_timeout: float = 10.0) -> dict:
-        raise _unported("the replay service's snapshot", "item 17")
+        """The serving state at a quiesced cut (see the module docstring):
+        ``buffer`` (a fused buffer's ``snapshot``, its staging drained
+        into the cut; else ``state_dict``), ``next_seq``, ``env_steps``,
+        ``rows_committed`` and ``generation``."""
+        self.flush(timeout=quiesce_timeout)
+        cut = getattr(self.buffer, "snapshot", self.buffer.state_dict)
+        with self._buffer_lock:
+            buf = cut()
+        with self._commit_cond:
+            next_seq = self._next_seq
+        with self._lock:
+            return {
+                "schema": 1,
+                "buffer": buf,
+                "next_seq": next_seq,
+                "env_steps": self._env_steps,
+                "rows_committed": self._rows_committed,
+                "generation": self._generation,
+            }
 
     def restore(self, snap: dict) -> None:
-        raise _unported("the replay service's restore", "item 17")
+        """Load a ``snapshot`` into this fresh (or quiesced) service: the
+        buffer, the ticket floor (admission resumes above every committed
+        ticket), the row ledger, and a generation past the snapshot's
+        that never goes below this service's own."""
+        if not isinstance(snap, dict) or "buffer" not in snap:
+            raise ValueError("not a replay service snapshot (no buffer cut)")
+        load = getattr(self.buffer, "restore", self.buffer.load_state_dict)
+        with self._buffer_lock:
+            load(snap["buffer"])
+        floor = int(snap.get("next_seq", 0))
+        with self._commit_cond:
+            self._next_seq = floor
+            self._seq = itertools.count(floor)
+            self._skip.clear()
+            for dq in self._out:
+                dq.clear()
+            self._commit_cond.notify_all()
+        with self._lock:
+            self._env_steps = int(snap.get("env_steps", 0))
+            self._rows_committed = int(snap.get("rows_committed", 0))
+            self._generation = max(self._generation,
+                                   int(snap.get("generation", 0)) + 1)
+        dealer = self._dealer
+        if dealer is not None:
+            # blocks dealt against the old state must not train; queued
+            # write-backs die with the resync (the generation bump fences
+            # them anyway)
+            dealer.clear_rings()
+            with self._buffer_lock:
+                dealer.resync(self.buffer)
 
     def set_ingest_depth(self, capacity: int) -> None:
         raise _unported("resizing the ingest deques (set_ingest_depth)",
-                        "item 17")
+                        "item 17b")
 
     @property
     def generation(self) -> int:
         """The service generation the transition receiver greets senders
-        with (0: no restore has advanced it)."""
+        with (a restore moves it past the snapshot's)."""
         with self._lock:
             return self._generation
 
@@ -849,14 +918,16 @@ class ReplayService:
                     return
             time.sleep(0.005)
 
-    def kill(self) -> None:
-        raise _unported("killing the replay service without a flush",
-                        "item 17")
-
     def close(self) -> None:
-        """Flush, then stop the ingest threads (and close the dealer,
-        whose closed rings wake any replica waiting on a pop)."""
+        """Flush, then stop the ingest threads (``kill``)."""
         self.flush()
+        self.kill()
+
+    def kill(self) -> None:
+        """Stop the ingest threads without a flush, as a crash would:
+        accepted batches not yet committed are lost, and the dealer is
+        closed, whose closed rings wake any replica waiting on a pop.
+        Safe to call twice."""
         REGISTRY.unregister_provider("ingest", self.ingest_stats)
         if self._dealer is not None:
             self._dealer.close()

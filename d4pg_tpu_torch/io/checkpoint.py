@@ -15,21 +15,107 @@ Layout: ``<directory>/<step>.pt``, written to a temporary name and
 renamed, so a crash mid-save leaves the previous checkpoint whole; the
 oldest beyond ``max_to_keep`` are deleted after each save. Saves are
 synchronous, so ``wait`` has nothing to wait for. Reading the reference's
-Orbax checkpoints and its replay sidecars waits for ROADMAP Queue 1
-item 17.
+Orbax checkpoints is not ported.
+
+Replay sidecars (``--checkpoint_replay``): the replay service's snapshot
+travels next to the checkpoint, not inside it, in the reference's frame
+(``core/wire.py``'s ``sidecar`` row): ``[b"D4RS"][u8 version][u32
+crc32]`` then a pickle of ``{"step", "snap"}``, the CRC over the pickle,
+written to a temporary name and renamed. A torn or rotted file is refused
+with ``SnapshotCorruptError``; a bare pickle (a sidecar from before the
+frame) still loads. The snapshot holds numpy arrays and Python scalars
+only, never torch tensors (a pickled tensor would tie the file to torch
+and to a device), so either package reads the other's sidecars.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
+import zlib
 from typing import Any
 
 import torch
 
+from d4pg_tpu_torch.core.wire import SIDECAR_HEAD, SIDECAR_MAGIC, SIDECAR_VERSION
 from d4pg_tpu_torch.learner.state import D4PGState
 
 _MODULES = ("actor", "critic", "target_actor", "target_critic")
 _OPTIMIZERS = ("actor_opt", "critic_opt")
+
+
+class SnapshotCorruptError(RuntimeError):
+    """A replay sidecar that fails the integrity check (bad magic, unknown
+    version, CRC mismatch, an undecodable body). Callers treat it as a
+    missing sidecar, loudly: a torn snapshot must never reach the
+    buffer."""
+
+
+def replay_sidecar_path(run_dir: str, process_index: int) -> str:
+    return os.path.join(run_dir, f"replay_p{process_index}.pkl")
+
+
+def _numpy_only(node, where: str = "snap") -> None:
+    """Refuse a torch tensor anywhere in a snapshot (see the module
+    docstring)."""
+    if isinstance(node, torch.Tensor):
+        raise TypeError(f"{where} is a torch tensor; a replay snapshot "
+                        "holds numpy arrays and Python scalars only")
+    if isinstance(node, dict):
+        for k, v in node.items():
+            _numpy_only(v, f"{where}[{k!r}]")
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _numpy_only(v, f"{where}[{i}]")
+
+
+def save_replay_sidecar(run_dir: str, process_index: int, step: int,
+                        snap: dict) -> str:
+    """Write one host's replay snapshot, stamped with the learner step of
+    its cut, in the CRC frame (write, then rename). Returns the path."""
+    _numpy_only(snap)
+    payload = pickle.dumps({"step": int(step), "snap": snap},
+                           protocol=pickle.HIGHEST_PROTOCOL)
+    head = SIDECAR_HEAD.pack(SIDECAR_MAGIC, SIDECAR_VERSION,
+                             zlib.crc32(payload) & 0xFFFFFFFF)
+    path = replay_sidecar_path(run_dir, process_index)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(head + payload)
+    os.replace(tmp, path)
+    return path
+
+
+def load_replay_sidecar(run_dir: str,
+                        process_index: int) -> tuple[dict, int] | None:
+    """``(snap, snap_step)`` of one host's sidecar, or None when there is
+    none. Raises ``SnapshotCorruptError`` on any integrity failure; a bare
+    pickle without the frame loads as it is."""
+    path = replay_sidecar_path(run_dir, process_index)
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:4] == SIDECAR_MAGIC:
+        if len(blob) < SIDECAR_HEAD.size:
+            raise SnapshotCorruptError(f"{path}: truncated sidecar header")
+        _magic, version, crc = SIDECAR_HEAD.unpack_from(blob, 0)
+        if version != SIDECAR_VERSION:
+            raise SnapshotCorruptError(
+                f"{path}: unknown sidecar version {version}")
+        payload = blob[SIDECAR_HEAD.size:]
+        if zlib.crc32(payload) & 0xFFFFFFFF != crc:
+            raise SnapshotCorruptError(
+                f"{path}: CRC mismatch (a torn write or bit rot); refusing "
+                "the snapshot")
+    else:
+        payload = blob  # a sidecar from before the frame: a bare pickle
+    try:
+        d = pickle.loads(payload)
+        snap, step = d["snap"], int(d.get("step", -1))
+    except Exception as e:  # noqa: BLE001 — any undecodable body is corrupt
+        raise SnapshotCorruptError(f"{path}: undecodable sidecar ({e})")
+    return snap, step
 
 
 class CheckpointManager:

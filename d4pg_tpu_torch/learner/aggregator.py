@@ -287,6 +287,12 @@ class Aggregator:
 
     # -- oracles and obs -----------------------------------------------------
     @property
+    def generation(self) -> int:
+        """The store's generation: a submission stamped with another is
+        fenced."""
+        return self._store.generation
+
+    @property
     def version(self) -> int:
         with self._agg_cond:
             return self._version

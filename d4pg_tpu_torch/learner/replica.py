@@ -35,6 +35,14 @@ Three sampling modes, chosen by what the replica is given:
   (``learner/loop.DealtLoop``). Host blocks and device blocks ride the
   same ring and loop.
 
+Submitting over TCP (``updates=`` a ``distributed/update_plane.
+UpdateClient``): registration, fencing and basis pulls stay with the
+in-process aggregator ``agg``, and each round's submission travels as an
+update frame to the ``AggregatorServer`` in front of it, stamped with the
+store's generation. Either way a round copies the networks to the host
+once (``params_of``; the frame reads those CPU tensors without another
+copy) and copies an adopted basis to the device once.
+
 PER beta: pass one shared ``replay/schedule.SharedBetaSchedule`` so every
 replica reads the same global clock; without it a private clock gives
 one replica the plain loop's anneal.
@@ -117,7 +125,8 @@ def replica_state(state: D4PGState, replica: int, seed: int) -> D4PGState:
 
 class LearnerReplica:
     """See the module docstring. ``agg`` has the ``Aggregator`` duck type
-    (register, basis, submit, fence_replica)."""
+    (register, basis, submit, fence_replica, generation); ``updates``,
+    when given, submits in its place."""
 
     def __init__(
         self,
@@ -137,6 +146,7 @@ class LearnerReplica:
         dealt_ring=None,
         beta_schedule: SharedBetaSchedule | None = None,
         generator: torch.Generator | None = None,
+        updates=None,
     ):
         if buffer is None and service is None:
             raise ValueError(
@@ -155,6 +165,7 @@ class LearnerReplica:
         self.replica_id = int(replica_id)
         self._config = config
         self._agg = agg
+        self._updates = updates
         self._state = state
         self._device = state.device
         if buffer is not None:
@@ -255,9 +266,15 @@ class LearnerReplica:
             self._dealt_steps(n)
         else:
             self._host_steps(n)
-        result = self._agg.submit(
-            self.replica_id, self.epoch, params_of(self._state),
-            basis_version, step=self.steps_done, generation=generation)
+        submit = self._agg.submit
+        if self._updates is not None:
+            # a frame always carries a generation: the store's by default
+            submit = self._updates.submit
+            if generation is None:
+                generation = self._agg.generation
+        result = submit(self.replica_id, self.epoch, params_of(self._state),
+                        basis_version, step=self.steps_done,
+                        generation=generation)
         with self._replica_lock:
             self.rounds += 1
             self.last_status = result["status"]

@@ -50,9 +50,26 @@ computed on the host in float64 and cast to float32 (the host scalar
 ``max_priority`` is the dealer's), so the device trees hold the float32
 host twin's leaf bits. ``apply_priorities`` scatters settled write-backs
 into the trees (duplicate slots: the last wins, ``device_per.set_leaves``).
+
+Checkpoints and crash recovery: ``state_dict`` drains the staging, then
+copies the live rows, the live leaves of the sum tree (they hold
+``priority ** alpha``) and ``max_priority`` to the host as numpy, one
+device-to-host copy per field; ``load_state_dict`` writes them back into
+a fresh buffer and rebuilds both trees with one ``device_per.set_leaves``
+over the live slots (the leaves are written as they are, not raised to
+alpha again), which gives the trees' every node the bits the running
+buffer held. Generation-tracked, ``max_priority`` is the host scalar
+(write-back settles raise it between commits; the device copy refreshes
+only at the next commit), and a load opens a fresh generation epoch:
+live slots at 1, the rest 0, host mirror and device array alike, so a
+block dealt before the load carries generations that no longer match
+and is fenced at its settle. ``snapshot`` and ``restore`` add the
+sharded staging plane's ticket floor (``staging.MultiRingStaging``).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -316,6 +333,81 @@ class FusedDeviceReplay:
         while self.stage_block():
             total += self.commit_staged()
         return total
+
+    def state_dict(self) -> dict:
+        """The ring and trees as host numpy (see the module docstring).
+        Learner thread (or under the service's buffer lock)."""
+        from d4pg_tpu_torch.replay.uniform import pack_rows
+
+        self.drain()
+        # a copy even on the CPU, where .cpu() would alias the ring
+        rows = TransitionBatch(*[
+            arr[:self.size].to("cpu", copy=True).numpy()
+            for arr in self.storage])
+        d = pack_rows(rows, self.head, self.size, self.capacity)
+        if self.trees is not None:
+            cap = self.trees.capacity
+            d["leaf_priorities"] = self.trees.sum_tree[
+                cap:cap + self.size].to("cpu", copy=True).numpy()
+            d["max_priority"] = (float(self.max_priority) if self.gen_tracked
+                                 else float(self.trees.max_priority))
+        return d
+
+    @torch.no_grad()
+    def load_state_dict(self, d: dict) -> None:
+        """Load a ``state_dict`` into this buffer (same capacity): rows,
+        head and size, both trees rebuilt over the live slots, and
+        generation-tracked, a fresh generation epoch."""
+        from d4pg_tpu_torch.replay.uniform import unpack_rows
+
+        batch, head, size = unpack_rows(d, self.capacity)
+        if batch is not None:
+            with warnings.catch_warnings():
+                # rows unpickled from a sidecar view its read-only bytes;
+                # copy_ only reads them
+                warnings.filterwarnings("ignore", "The given NumPy array is "
+                                        "not writable")
+                for arr, v in zip(self.storage, batch):
+                    arr[:size].copy_(torch.from_numpy(
+                        np.ascontiguousarray(v)))
+        self.size = size
+        self.head = head
+        if self.trees is not None:
+            trees = dper.init(self.capacity, self.device)
+            if size:
+                trees = dper.set_leaves(
+                    trees, torch.arange(size, device=self.device),
+                    torch.as_tensor(np.asarray(d["leaf_priorities"],
+                                               np.float32),
+                                    device=self.device))
+            self.trees = trees._replace(max_priority=torch.full(
+                (), float(d.get("max_priority", 1.0)), dtype=torch.float32,
+                device=self.device))
+        if self.gen_tracked:
+            self.max_priority = float(d.get("max_priority", 1.0))
+            self._next_slot = self.head
+            self.generation = np.zeros(self.capacity, np.int64)
+            self.generation[:self.size] = 1
+            self.gen = torch.as_tensor(self.generation.astype(np.int32),
+                                       device=self.device)
+
+    def snapshot(self) -> dict:
+        """``state_dict`` plus the sharded staging plane's ticket floor:
+        the drain inside ``state_dict`` lands every staged row, so the cut
+        holds no row in flight."""
+        d = self.state_dict()
+        stg = getattr(self._staging, "snapshot", None)
+        if stg is not None:
+            d["staging"] = stg()
+        return d
+
+    def restore(self, d: dict) -> None:
+        """Load a ``snapshot`` into this (fresh) buffer, the staging
+        plane's ticket floor included."""
+        self.load_state_dict(d)
+        stg = getattr(self._staging, "restore", None)
+        if stg is not None and "staging" in d:
+            stg(d["staging"])
 
     def drain_per_row(self) -> int:
         """Land every staged row one at a time: a ring write and a tree

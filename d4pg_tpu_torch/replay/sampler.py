@@ -475,6 +475,12 @@ class SampleDealer:
                 while len(self._dead_fifo) > _DEAD_SEQ_BOUND:
                     self._dead.discard(self._dead_fifo.popleft())
 
+    def clear_rings(self) -> int:
+        """Drop every queued block (a restore: blocks dealt against the
+        state before it must not train); returns how many. Ring locks
+        only, never under the sampler tier."""
+        return sum(r.clear() for r in self._rings)
+
     def pause_dealing(self) -> None:
         """Stop drawing (inserts and settles go on). No draw, no use of
         the generator: the oracles run a dealer in lockstep this way."""

@@ -6,7 +6,13 @@ collecting episodes into the central ``ReplayService`` (vectorized actor
 pools, n-step folding), then ``train_steps_per_cycle`` grad steps, then a
 weight publish, a greedy eval (on a background thread by default),
 metrics, and a checkpoint every ``checkpoint_every`` cycles; ``--resume
-1`` goes on from the latest checkpoint. ``--async_actors 1`` runs the
+1`` goes on from the latest checkpoint. ``--checkpoint_replay 1`` also
+writes the replay service's snapshot (``ReplayService.snapshot``) beside
+every ``checkpoint_replay_every``-th checkpoint as a step-stamped sidecar
+(``io/checkpoint``), after the checkpoint itself; a resume restores it
+into the service (rows, PER state, ticket floor, a generation past the
+snapshot's), and a corrupt sidecar, or one ahead of the checkpoint,
+leaves the learner to resume alone, which the run prints. ``--async_actors 1`` runs the
 actors on threads the whole time instead (publishing after each chunk),
 with a supervisor that restarts a dead actor thread once per cycle.
 
@@ -118,7 +124,10 @@ from d4pg_tpu_torch.envs.fake import (
 from d4pg_tpu_torch.envs.normalizer import RunningMeanStd
 from d4pg_tpu_torch.envs.wrappers import FrameStack
 from d4pg_tpu_torch.envs.vector import EnvPool
-from d4pg_tpu_torch.io.checkpoint import CheckpointManager
+from d4pg_tpu_torch.io.checkpoint import (CheckpointManager,
+                                          SnapshotCorruptError,
+                                          load_replay_sidecar,
+                                          save_replay_sidecar)
 from d4pg_tpu_torch.io.metrics import CsvLogger, MetricsBus, TensorBoardSink
 from d4pg_tpu_torch.io.profiling import StepTimer
 from d4pg_tpu_torch.learner.aggregator import Aggregator
@@ -151,7 +160,6 @@ def _unported(cfg: ExperimentConfig) -> list[tuple[bool, str, str]]:
          "--coordinator / --num_processes > 1 (multi-host)",
          "Queue 1 item 16"),
         (cfg.autoscale, "--autoscale 1", "Queue 1 item 17"),
-        (cfg.checkpoint_replay, "--checkpoint_replay 1", "Queue 1 item 17"),
     ]
 
 
@@ -427,6 +435,53 @@ def resolve_storage(cfg: ExperimentConfig, obs_dim, act_dim: int,
     return storage, fused
 
 
+def _load_host_replay(run_dir: str, process_index: int,
+                      step: int) -> tuple[dict | None, int]:
+    """``(snap, snap_step)`` of this host's sidecar, ``(None, -1)`` when
+    there is none or it is refused, the refusal printed: a corrupt
+    sidecar, or one from a step AHEAD of the restored state (the save
+    site commits the state before it renames the sidecar, so that means
+    mixed-up run directories), resumes the learner alone with an empty
+    buffer. A sidecar behind the state is taken with a warning: stale
+    rows are still valid experience."""
+    try:
+        loaded = load_replay_sidecar(run_dir, process_index)
+    except SnapshotCorruptError as e:
+        print(f"[p{process_index}] replay sidecar is corrupt ({e}); "
+              "refusing it — resuming learner-only with an empty buffer",
+              flush=True)
+        return None, -1
+    if loaded is None:
+        return None, -1
+    snap, snap_step = loaded
+    if snap_step > int(step):
+        print(f"[p{process_index}] replay sidecar is from step "
+              f"{snap_step}, AHEAD of the restored state at step {step}; "
+              "refusing it (mixed run dirs?) — starting with an empty "
+              "buffer", flush=True)
+        return None, -1
+    if snap_step < int(step):
+        print(f"[p{process_index}] replay sidecar is from step "
+              f"{snap_step} ({int(step) - snap_step} steps behind the "
+              "restored state); resuming with the slightly-stale buffer",
+              flush=True)
+    return snap, snap_step
+
+
+def _restore_replay(service: ReplayService, snap: dict,
+                    env_steps: int) -> None:
+    """Land a sidecar in the service: a service snapshot through
+    ``restore`` (which also moves the generation, fencing frames encoded
+    before the crash), a buffer-only dict through ``load_replay_state``.
+    The env-step count stays the checkpoint's: a stale sidecar must not
+    roll it back."""
+    if isinstance(snap, dict) and "buffer" in snap:
+        service.restore(snap)
+        service.set_env_steps(env_steps)
+    else:
+        service.load_replay_state(snap)
+
+
 def train(cfg: ExperimentConfig) -> dict:
     cfg = cfg.resolve()
     check_ported(cfg)
@@ -505,6 +560,12 @@ def train(cfg: ExperimentConfig) -> dict:
     if cfg.resume and ckpt.latest_step is not None:
         state, extra = ckpt.restore(state, generator=generator)
         service.set_env_steps(extra.get("env_steps", 0))
+        # the replay sidecar, when --checkpoint_replay wrote one: stale
+        # ones are taken, corrupt or ahead-of-state ones refused (the
+        # learner resumes alone, and says so)
+        snap, _ = _load_host_replay(run_dir, 0, state.step)
+        if snap:
+            _restore_replay(service, snap, extra.get("env_steps", 0))
         print(f"resumed from step {state.step} ({service.env_steps} env "
               f"steps, {len(service)} replay rows)", flush=True)
     if obs_norm is not None:
@@ -793,6 +854,7 @@ def train(cfg: ExperimentConfig) -> dict:
 
         timer = StepTimer(device=device)
         last_metrics: dict = {}
+        n_saves = 0
         for epoch in range(cfg.n_epochs):
             for cycle in range(cfg.n_cycles):
                 cycle_t0 = time.monotonic()
@@ -874,10 +936,22 @@ def train(cfg: ExperimentConfig) -> dict:
                     supervise_actors()
                 bus.log(lstep, last_metrics)
                 if (cycle + 1) % cfg.checkpoint_every == 0:
+                    n_saves += 1
                     saved = {"env_steps": service.env_steps}
                     if obs_norm is not None:
                         saved["obs_norm"] = norm_payload(obs_norm)
                     ckpt.save(state, extra=saved, generator=generator)
+                    if (cfg.checkpoint_replay and n_saves
+                            % max(1, cfg.checkpoint_replay_every) == 0):
+                        # the state checkpoint is on disk before the
+                        # sidecar's rename (saves are synchronous), so a
+                        # crash between them never leaves a sidecar ahead
+                        # of the latest state. The cut holds the buffer
+                        # lock across a device-to-host copy of the ring,
+                        # hence the coarser cadence.
+                        save_replay_sidecar(
+                            run_dir, 0, lstep,
+                            service.snapshot(quiesce_timeout=2.0))
     finally:
         if policy_server is not None:
             policy_server.close()

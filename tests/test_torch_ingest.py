@@ -217,23 +217,24 @@ def test_service_concurrent_producers_lose_no_row():
 
 
 def test_service_refuses_unported_modes():
-    """The elastic admission policy, a restored generation, snapshot,
-    restore, kill and live resizing raise (item 17); sharded ingest,
-    shedding (tests/test_torch_sharded_ingest.py), observation
+    """The elastic admission policy and live resizing raise (item 17b); a
+    service generation other than 0 is taken (crash recovery, with
+    snapshot, restore and kill: tests/test_torch_recovery.py); sharded
+    ingest, shedding (tests/test_torch_sharded_ingest.py), observation
     normalization (tests/test_torch_normalizer.py) and the
     sample-on-ingest dealer (tests/test_torch_sampler.py) are ported: a
     write-back before any dealer is attached is a usage error."""
     buf = FusedDeviceReplay(32, OBS, ACT, device="cpu")
-    for kwargs in (dict(admission=object()), dict(generation=1)):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            ReplayService(buf, **kwargs)
+    with pytest.raises(NotImplementedError, match="item 17b"):
+        ReplayService(buf, admission=object())
+    restarted = ReplayService(buf, generation=1)
+    assert restarted.generation == 1
+    restarted.close()
     svc = ReplayService(buf, obs_norm=RunningMeanStd(OBS),
                         num_ingest_shards=2, shed_watermark=0.5)
     try:
-        for call in (svc.snapshot, lambda: svc.restore({}), svc.kill,
-                     lambda: svc.set_ingest_depth(8)):
-            with pytest.raises(NotImplementedError, match="item 17"):
-                call()
+        with pytest.raises(NotImplementedError, match="item 17b"):
+            svc.set_ingest_depth(8)
         with pytest.raises(RuntimeError, match="attach_dealer"):
             svc.queue_writeback(None, None, None)
     finally:

@@ -296,7 +296,6 @@ UNPORTED = [
     (dict(coordinator="localhost:9999"), "item 16"),
     (dict(num_processes=2), "item 16"),
     (dict(autoscale=True), "item 17"),
-    (dict(checkpoint_replay=True), "item 17"),
 ]
 
 
