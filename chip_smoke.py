@@ -233,7 +233,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      f32, bf16 and int8 (rounds/s, submit round trip p50 and p99, frame
      bytes); a replica fenced mid-update, its submit and its replayed
      frame fenced;
- 24. a ``kernels`` JSON line (each kernel's launches on every path that
+ 24. the elastic plane: (a) ``train.main --env point --fused_replay off
+     --sample_on_ingest 1 --sampler pallas --learners 2 --serve 1
+     --serve_policy 1 --autoscale 1 --autoscale_interval_s 0.05`` for
+     three cycles at the default widths, four policy lanes querying the
+     driver's policy server meanwhile: the banner names the five knobs,
+     a tick sensed a non-zero signal, the ledger replays
+     (``replay_matches``), every knob read back from its owner equals
+     the ledger's last target, the descent once per deal and the arm's
+     kernels once per grad step, no lock violation, no contained crash;
+     ticks, actuations, decisions per knob, the active replicas per
+     cycle, own grad-steps/s per cycle beside 22b's ``auto_learners2``;
+     (b) ``run_elastic_chaos(seed=0)`` at the reference's
+     ``ElasticChaosConfig``, its policy server on the card: equal draw
+     digests, the ledger replays, no lock violation, contained crash or
+     trace orphan, every shed and reject attributed to a class, ticks
+     and actuations, the elastic arm's knobs read back equal to its last
+     targets; the A/B gate is printed, not asserted (a measured claim of
+     the reference). Both print the first forward at each new bucket
+     shape beside the second (the warm-up of the drill included);
+ 25. a ``kernels`` JSON line (each kernel's launches on every path that
      runs it; the descent's time at the dealt shapes), then the result
      line.
 """
@@ -3947,6 +3966,317 @@ def phase_update_plane(dev, card: str) -> dict:
     return out
 
 
+# --- the elastic plane (phase 24) ------------------------------------------
+
+# 24a: policy lanes querying the driver's server while it trains: rows per
+# request and seconds between a lane's requests (an actor's env tick)
+ELASTIC_LANES, ELASTIC_ROWS, ELASTIC_LANE_PERIOD_S = 4, 8, 0.05
+
+
+class FirstForwards:
+    """The first and second forward at each (caller, device, rows) shape
+    of ``act_deterministic`` as the policy server and the drill's bucket
+    warm-up call it (measurement only: those two calls wait for the
+    card). A new bucket shape's first call on the card pays the host's
+    kernel choice once."""
+
+    def __init__(self):
+        from d4pg_tpu_torch.fleet import elastic_chaos
+        from d4pg_tpu_torch.serving import server
+
+        self.ms: dict = {}
+        self._mods = {"server": server, "drill warm-up": elastic_chaos}
+        self._orig = {tag: m.act_deterministic
+                      for tag, m in self._mods.items()}
+
+    def install(self) -> None:
+        for tag, m in self._mods.items():
+            m.act_deterministic = self._timed(tag, self._orig[tag])
+
+    def remove(self) -> None:
+        for tag, m in self._mods.items():
+            m.act_deterministic = self._orig[tag]
+
+    def _timed(self, tag, fn):
+        def timed(actor, obs):
+            key = (tag, obs.device.type, int(obs.shape[0]))
+            seen = self.ms.setdefault(key, [])
+            if len(seen) >= 2:
+                return fn(actor, obs)
+            cuda = obs.device.type == "cuda"
+            if cuda:
+                torch.cuda.synchronize(obs.device)
+            t0 = time.perf_counter()
+            out = fn(actor, obs)
+            if cuda:
+                torch.cuda.synchronize(obs.device)
+            seen.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    def lines(self, tag: str) -> list[str]:
+        return [f"{dev} {rows} rows: first {ms[0]:.3f} ms, second "
+                + (f"{ms[1]:.3f} ms" if len(ms) > 1 else "not run")
+                for (t, dev, rows), ms in sorted(self.ms.items())
+                if t == tag]
+
+
+def _decisions_per_knob(records) -> dict:
+    from d4pg_tpu_torch.elastic.autoscaler import KNOBS
+
+    return {k: sum(1 for r in records if k in r["decisions"]) for k in KNOBS}
+
+
+def phase_elastic_driver(card: str, hooks: DriverHooks,
+                         dealt: dict | None) -> dict:
+    """24a: the driver with every knob of the elastic plane wired (see the
+    module docstring), at the default widths (hidden 256x3, 51 atoms,
+    batch 64, K = 40), ELASTIC_LANES policy lanes of ELASTIC_ROWS rows,
+    one request every ELASTIC_LANE_PERIOD_S each, querying the driver's
+    policy server from the autoscaler's start to its close."""
+    import contextlib
+    import shutil
+    import threading
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+    from d4pg_tpu_torch.core import locking
+    from d4pg_tpu_torch.elastic.autoscaler import KNOBS, replay_matches
+    from d4pg_tpu_torch.obs.registry import REGISTRY
+    from d4pg_tpu_torch.ops.autotune import select_projection
+    from d4pg_tpu_torch.serving import ActorConfig, RemotePolicyClient
+
+    runs = ROOT / "runs" / "chip_smoke_elastic"
+    shutil.rmtree(runs, ignore_errors=True)
+    cfg = ExperimentConfig(env="point").resolve()
+    arm = select_projection("auto", batch_size=cfg.batch_size,
+                            v_min=cfg.v_min, v_max=cfg.v_max,
+                            n_atoms=cfg.n_atoms,
+                            device=driver.learner_device(cfg)).selected
+    seen: dict = {"active": []}
+    stop = threading.Event()
+    lanes, clients = [], []
+    plane, learners = driver.elastic_plane, driver.learner_plane
+    activate = driver.ReplicaTarget.activate
+
+    def lane(client):
+        obs = np.zeros((ELASTIC_ROWS, client.config.obs_dim), np.float32)
+        while not stop.is_set():
+            client.actions(obs)  # warm-up actions until the server adopts
+            stop.wait(ELASTIC_LANE_PERIOD_S)
+
+    def capture(cfg_, service, server, replicas, target):
+        scaler = plane(cfg_, service, server, replicas, target)
+        seen.update(scaler=scaler, service=service, server=server,
+                    target=target)
+        for i in range(ELASTIC_LANES):
+            clients.append(RemotePolicyClient(
+                server.config, ActorConfig(), "127.0.0.1", server.port,
+                lane_id=i, seed=i, timeout=5.0))
+            lanes.append(threading.Thread(target=lane, args=(clients[-1],),
+                                          daemon=True))
+            lanes[-1].start()
+        close = scaler.close
+
+        def closing():
+            # the lanes end before the autoscaler and the server close
+            stop.set()
+            for t in lanes:
+                t.join(timeout=30.0)
+            close()
+
+        scaler.close = closing
+        return scaler
+
+    def capture_learners(*args, **kwargs):
+        reps, agg = learners(*args, **kwargs)
+        seen.update(replicas=reps, agg=agg)
+        return reps, agg
+
+    def activating(target, replicas):
+        active = activate(target, replicas)
+        seen["active"].append(len(active))
+        return active
+
+    forwards = FirstForwards()
+    forwards.install()
+    driver.elastic_plane, driver.learner_plane = capture, capture_learners
+    driver.ReplicaTarget.activate = activating
+    violations = locking.violation_count()
+    crashes = REGISTRY.counter("threads.contained_crashes").value
+    tee = _Tee()
+    try:
+        with contextlib.redirect_stdout(tee):
+            result, counts, own, cycles, wall = _driver_run(
+                hooks, driver, "elastic",
+                ["--env", "point", "--fused_replay", "off",
+                 "--sample_on_ingest", "1", "--sampler", "pallas",
+                 "--learners", "2", "--serve", "1", "--serve_policy", "1",
+                 "--autoscale", "1", "--autoscale_interval_s", "0.05",
+                 "--n_cycles", "3"], runs)
+    finally:
+        forwards.remove()
+        driver.elastic_plane, driver.learner_plane = plane, learners
+        driver.ReplicaTarget.activate = activate
+    said = tee.buf.getvalue()
+    check(f"elastic: autoscaler up, knobs={sorted(KNOBS)}" in said,
+          "driver elastic: the banner names the five knobs")
+    scaler, service, server = seen["scaler"], seen["service"], seen["server"]
+    records = scaler.ledger.records()
+    check(any(any(v != 0.0 for v in r["signals"].values())
+              for r in records),
+          "driver elastic: a tick sensed a non-zero signal")
+    check(replay_matches(scaler.cfg, scaler.ledger),
+          "driver elastic: the ledger replays its decisions")
+    last = records[-1]["targets"]
+    sstats = server.serving_stats()
+    dealer = service.dealer
+    got = {"serving_rows": sstats["max_batch_rows"],
+           "serving_window_s": sstats["batch_window_s"],
+           "ingest_capacity": service.ingest_stats()["ingest_capacity"],
+           "dealer_deals": dealer.max_deals_per_tick,
+           "replicas": seen["target"].n}
+    check(got == last, f"driver elastic: knobs read back {got}, the "
+          f"ledger's last targets {last}")
+    check(scaler.stats["actuator_errors"] == 0,
+          f"driver elastic: actuator errors {scaler.stats}")
+    grad_steps = sum(r.steps_done for r in seen["replicas"])
+    want = {k: grad_steps if k in ARM_KERNELS[arm] else 0 for k in counts}
+    want["descent"] = dealer.dealt_blocks
+    check(counts == want, f"driver elastic: launches {counts}, expected "
+          f"{want} ({dealer.dealt_blocks} deals, {grad_steps} grad steps)")
+    check(locking.violation_count() == violations,
+          "driver elastic: no lock-hierarchy violation")
+    check(REGISTRY.counter("threads.contained_crashes").value == crashes,
+          "driver elastic: no contained crash")
+    lane_stats = [c.stats() for c in clients]
+    served = sum(st["served"] for st in lane_stats)
+    check(served > 0 and not any(t.is_alive() for t in lanes),
+          "driver elastic: the policy lanes were served and ended")
+    own_all = [grad_steps / len(own) / span for span in hooks.spans]
+    per_knob = _decisions_per_knob(records)
+    ref = (None if dealt is None
+           else dealt["runs"]["auto_learners2"]["own_grad_steps_per_sec"])
+    print(f"[driver elastic] {wall:.2f} s, arm {arm!r}: "
+          f"{scaler.stats['ticks']} ticks, {scaler.stats['decisions']} "
+          f"decisions, {scaler.stats['actuations']} actuations; decisions "
+          f"per knob {per_knob}; last targets {last}; active replicas per "
+          f"cycle {seen['active']}; own grad-steps/s "
+          f"{[round(x, 2) for x in own]}, all replicas' "
+          f"{[round(x, 2) for x in own_all]} (22b auto_learners2 in this "
+          f"call: {'not run' if ref is None else [round(x, 2) for x in ref]}"
+          f"); {dealer.dealt_blocks} deals, {grad_steps} grad steps; lanes "
+          f"served {served}, overload {sum(st['overload_rejected'] for st in lane_stats)}"
+          f"; server p95 {sstats['latency_ms']['p95']} ms; launches "
+          f"{counts} ({card})")
+    for line in forwards.lines("server"):
+        print(f"[driver elastic] the server's forward at {line} ({card})")
+    return {"own_grad_steps_per_sec": own, "all_grad_steps_per_sec": own_all,
+            "launches": counts, "ticks": scaler.stats["ticks"],
+            "actuations": scaler.stats["actuations"],
+            "decisions_per_knob": per_knob, "active": seen["active"],
+            "first_forwards": dict(forwards.ms)}
+
+
+def phase_elastic_drill(card: str) -> dict:
+    """24b: the reference's two-arm drill at its ``ElasticChaosConfig``
+    (16 request lanes, 8 ingest lanes, a flash crowd of 8x from 1.0 to
+    1.8 s of a 3-s model horizon), the policy server on the card; the
+    launch counters set to 0 before it (it runs none of the port's
+    kernels)."""
+    from d4pg_tpu_torch.fleet import ElasticChaosConfig, run_elastic_chaos
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.learner.update import act_deterministic
+
+    forwards = FirstForwards()
+    forwards.install()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        report = run_elastic_chaos(ElasticChaosConfig(seed=0))
+    finally:
+        forwards.remove()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(not any(counts.values()),
+          f"elastic drill: no kernel of the port launched ({counts})")
+    gate = report["ab_gate"]
+    check(gate["draw_digest_equal"] is True,
+          "elastic drill: both arms offered the same load")
+    check(report["hierarchy_violations"] == 0
+          and report["contained_crashes"] == 0
+          and report["trace"]["orphans"] == 0,
+          f"elastic drill: violations {report['hierarchy_violations']}, "
+          f"crashes {report['contained_crashes']}, orphans "
+          f"{report['trace']['orphans']}")
+    for name, arm in report["arms"].items():
+        ing, srv = arm["ingest"], arm["serving"]
+        check(sum(ing["sheds_by_class"].values()) >= ing["shed_rows"]
+              and sum(srv["admission_rejects_by_class"].values())
+              == srv["admission_rejects"],
+              f"elastic drill {name}: every shed and reject attributed to "
+              f"a class ({ing['sheds_by_class']}, "
+              f"{srv['admission_rejects_by_class']})")
+    scaler = report["arms"]["elastic"]["autoscaler"]
+    check(scaler["ledger_replay_ok"] is True,
+          "elastic drill: the ledger replays its decisions")
+    check(scaler["ticks"] > 0 and scaler["actuations"] > 0,
+          f"elastic drill: {scaler['ticks']} ticks, {scaler['actuations']} "
+          "actuations")
+    srv = report["arms"]["elastic"]["serving"]
+    fin = scaler["final_targets"]
+    got = {"serving_rows": srv["max_batch_rows"],
+           "serving_window_s": srv["batch_window_s"],
+           "ingest_capacity": report["arms"]["elastic"]["ingest"][
+               "ingest_capacity"]}
+    check(got == {k: fin[k] for k in got},
+          f"elastic drill: knobs read back {got}, last targets {fin}")
+    records = scaler["ledger_tail"]["records"]
+    # the warm-up's first forward at each bucket beside the same shape's
+    # steady time afterwards (median of 5 calls, each waited for)
+    cfg = ElasticChaosConfig()
+    actor = init_state(cfg.agent_config(), cfg.seed, "cuda").actor
+    steady = {}
+    for (tag, dev, rows) in sorted(forwards.ms):
+        if tag != "drill warm-up":
+            continue
+        obs = torch.zeros((rows, 4), device=dev)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            act_deterministic(actor, obs)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        steady[rows] = float(np.median(times))
+    print(f"[elastic drill] {wall:.2f} s; A/B gate {gate} ({card})")
+    for name, arm in report["arms"].items():
+        srv, ing = arm["serving"], arm["ingest"]
+        print(f"[elastic drill {name}] wall {arm['wall_s']} s, requests "
+              f"{arm['requests']}, sla breaches {srv['sla_breaches']}, "
+              f"latency breaches {srv['latency_breaches']}, admission "
+              f"rejects {srv['admission_rejects_by_class']}, request p50 "
+              f"{arm['request_latency_ms']['p50']} ms p99 "
+              f"{arm['request_latency_ms']['p99']} ms, shed rows "
+              f"{ing['shed_rows']} ({ing['sheds_by_class']}), committed "
+              f"{ing['rows_committed']} ({card})")
+    print(f"[elastic drill] autoscaler: {scaler['ticks']} ticks, "
+          f"{scaler['decisions']} decisions, {scaler['actuations']} "
+          f"actuations, final targets {fin}; the last records' decisions "
+          f"{[r['decisions'] for r in records]} ({card})")
+    first = {rows: round(ms[0], 4)
+             for (tag, _, rows), ms in sorted(forwards.ms.items())
+             if tag == "drill warm-up"}
+    print(f"[elastic drill] first forward per bucket in the warm-up, ms "
+          f"{first}; steady {({k: round(v, 4) for k, v in steady.items()})}"
+          f" ({card})")
+    for line in forwards.lines("server"):
+        print(f"[elastic drill] the server's forward at {line} ({card})")
+    return {"launches": counts, "gate": gate, "wall_s": wall,
+            "ticks": scaler["ticks"], "actuations": scaler["actuations"],
+            "first_forwards": dict(forwards.ms), "steady_ms": steady}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -4009,6 +4339,8 @@ def main() -> int:
     recovery_drv = phase_recovery_driver(
         card, hooks, drv["own_grad_steps_per_sec_resume"])
     updates = phase_update_plane(dev, card)
+    elastic_drv = phase_elastic_driver(card, hooks, dealt)
+    elastic = phase_elastic_drill(card)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -4048,6 +4380,11 @@ def main() -> int:
         kern["recovery_driver_launches"] = \
             recovery_drv["launches"][kern["name"]]
         kern["update_plane_launches"] = updates["launches"][kern["name"]]
+        # this slice: the autoscaled driver (24a) and the elastic drill
+        # (24b, none: its server runs the actor MLP only)
+        kern["elastic_driver_launches"] = \
+            elastic_drv["launches"][kern["name"]]
+        kern["elastic_drill_launches"] = elastic["launches"][kern["name"]]
         if kern["name"] == "descent":
             # the dealt plane's shape: one launch per deal over Q = K * B
             # flat queries (22a), and the driver's Q = 40 * 64 at 2^20
@@ -4159,6 +4496,12 @@ def main() -> int:
               f"{res['submits']}: p50 {res['rtt_p50_ms']:.2f} ms, p99 "
               f"{res['rtt_p99_ms']:.2f} ms, max {res['rtt_max_ms']:.2f} ms, "
               f"frame {res['frame_bytes']} B on {card}")
+    print(f"[driver elastic] own grad-steps/s "
+          f"{[round(x, 2) for x in elastic_drv['own_grad_steps_per_sec']]}"
+          f" against 22b's auto_learners2 "
+          f"{[round(x, 2) for x in dealt['runs']['auto_learners2']['own_grad_steps_per_sec']]}"
+          f"; {elastic_drv['ticks']} ticks, {elastic_drv['actuations']} "
+          f"actuations; the drill's gate {elastic['gate']} on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,11 @@ from d4pg_tpu_torch.obs.flight import record_event
 
 # Outermost (largest tier) first; the tiers keep the reference's values.
 HIERARCHY: dict[str, int] = {
+    # The elastic control plane: the autoscaler's targets, tick and
+    # counters, above every data-plane tier. Its loop holds no lock across
+    # sense, decide or actuate (each setter takes its owner's locks at top
+    # level); the tier only makes an accidental hold legal descent.
+    "elastic": 60,  # Autoscaler._elastic_cond (targets, tick, counters)
     "service": 50,  # ReplayService._lock (heartbeats, pending, env_steps)
     "buffer": 40,   # ReplayService._buffer_lock (all replay-state access)
     # Multi-learner plane (replica -> aggregator -> store): a replica may

@@ -101,9 +101,17 @@ state from the restored buffer (``resync``). ``kill`` stops the ingest
 threads without a flush, as a crash would. ``io/checkpoint``'s sidecars
 carry the snapshot to disk.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the elastic ``admission`` policy and ``set_ingest_depth`` (Queue 1
-item 17b).
+The elastic plane (``elastic/``): with an ``admission=`` policy
+(``elastic.AdmissionPolicy``) a shard at its watermark sheds the oldest
+batch of the worst class queued, and an incoming batch that ranks below
+everything queued is itself rejected (an ``admission_reject`` event);
+every shed and reject is attributed to its class in the shard's
+``sheds_by_class``, summed over the shards in ``ingest_stats``. Without a
+policy shedding is flat, oldest first. ``set_ingest_depth`` (the
+autoscaler's ``ingest_capacity`` actuator) resizes every shard's deque
+under its own condition, one shard after another, recomputes the
+watermark at the fraction the service keeps, and wakes producers blocked
+on a full deque.
 """
 
 from __future__ import annotations
@@ -119,7 +127,7 @@ import numpy as np
 from d4pg_tpu_torch.core.locking import TieredCondition, TieredLock
 from d4pg_tpu_torch.distributed.transport import decode_frame, raw_frame_meta_ex
 from d4pg_tpu_torch.obs.containment import contained_crash
-from d4pg_tpu_torch.obs.flight import record_event
+from d4pg_tpu_torch.obs.flight import EVENT_ADMISSION_REJECT, record_event
 from d4pg_tpu_torch.obs.registry import REGISTRY
 from d4pg_tpu_torch.obs.trace import RECORDER as _tracer
 from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
@@ -132,12 +140,6 @@ from d4pg_tpu_torch.replay.uniform import TransitionBatch
 _ORDER_GRACE_S = 5.0
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch port yet (ROADMAP Queue 1 "
-        f"{item})")
-
-
 class _IngestShard:
     """One ingest shard: its admission deque and counters, all under
     ``cond``, so ``snapshot`` is consistent by construction."""
@@ -147,6 +149,9 @@ class _IngestShard:
         self.capacity = capacity
         self.shed_at = shed_at
         self.cond = TieredCondition("shard")
+        # rows shed or rejected per admission class (class name -> rows),
+        # written under ``cond`` with the deque it describes
+        self.sheds_by_class: dict[str, int] = {}
         # items: (seq, data, codec, actor_id, rows, count, trace). codec
         # None: ``data`` is a decoded TransitionBatch; else the undecoded
         # payload for ``decode_frame(data, codec)``. ``trace`` is the
@@ -172,7 +177,17 @@ class _IngestShard:
                 "admit_fails": self.admit_fails,
                 "capacity": self.capacity,
                 "shed_at": self.shed_at,
+                "sheds_by_class": dict(self.sheds_by_class),
             }
+
+
+def _merge_class_counts(dicts) -> dict:
+    """Sum the shards' ``sheds_by_class`` into one fleet view."""
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 class ReplayService:
@@ -191,8 +206,6 @@ class ReplayService:
         generation: int = 0,
         admission=None,
     ):
-        if admission is not None:
-            raise _unported("the elastic admission policy", "item 17b")
         self.buffer = buffer
         self.obs_norm = obs_norm
         self.num_ingest_shards = max(1, int(num_ingest_shards))
@@ -229,6 +242,12 @@ class ReplayService:
             None if shed_watermark is None
             else max(1, min(ingest_capacity,
                             int(shed_watermark * ingest_capacity))))
+        # the watermark as a fraction: set_ingest_depth recomputes shed_at
+        # from it when it resizes the deques
+        self._shed_watermark = shed_watermark
+        # the elastic admission policy (frozen, stateless: shared by every
+        # shard condition without a lock edge); None sheds flat
+        self._admission = admission
         self.evictions = 0
         self.readmissions = 0
         self._evicted: dict[str, float] = {}
@@ -340,15 +359,38 @@ class ReplayService:
             self._pending += 1
         shed_seqs: list[int] = []
         shed_tids: list[int] = []
+        rejected_cls: str | None = None
+        pol = self._admission
         with s.cond:
             if s.shed_at is not None:
-                # shed admission: bounded work, never blocks; the counter
-                # and the deque change under the one lock
+                # shed admission: bounded work, never blocks; the counters
+                # and the deque change under the one lock. With a policy
+                # the victim is the oldest batch of the worst class queued,
+                # and an incoming batch below everything queued is itself
+                # rejected (attributed to its class)
+                inc_cls = (None if pol is None
+                           else pol.classify_actor(actor_id))
                 admitted = True
                 while len(s.q) >= s.shed_at:
-                    old = s.q.popleft()
+                    if pol is None:
+                        victim = 0
+                    else:
+                        classes = [pol.classify_actor(it[3]) for it in s.q]
+                        victim = pol.shed_victim(classes, inc_cls)
+                        if victim is None:
+                            admitted = False
+                            rejected_cls = pol.class_name(inc_cls)
+                            s.sheds_by_class[rejected_cls] = (
+                                s.sheds_by_class.get(rejected_cls, 0) + rows)
+                            break
+                    old = s.q[victim]
+                    del s.q[victim]
                     s.sheds += 1
                     s.shed_rows += old[4]
+                    if pol is not None:
+                        name = pol.class_name(classes[victim])
+                        s.sheds_by_class[name] = (
+                            s.sheds_by_class.get(name, 0) + old[4])
                     shed_seqs.append(old[0])
                     if old[6] is not None:
                         shed_tids.append(old[6][0])
@@ -382,6 +424,12 @@ class ReplayService:
             record_event("admit", shard=s.idx, actor=actor_id, rows=rows)
             REGISTRY.counter("ingest.rows_admitted").inc(rows)
         else:
+            if rejected_cls is not None:
+                # a class-policy rejection, apart from the timeout path's
+                # admit_fail
+                record_event(EVENT_ADMISSION_REJECT, plane="ingest",
+                             shard=s.idx, actor=actor_id, cls=rejected_cls,
+                             rows=rows)
             record_event("admit_fail", shard=s.idx, actor=actor_id,
                          rows=rows)
             if trace is not None:
@@ -581,8 +629,27 @@ class ReplayService:
                 dealer.resync(self.buffer)
 
     def set_ingest_depth(self, capacity: int) -> None:
-        raise _unported("resizing the ingest deques (set_ingest_depth)",
-                        "item 17b")
+        """Resize every shard's admission deque live (the autoscaler's
+        ``ingest_capacity`` actuator; at least 1). The shed watermark, when
+        there is one, moves to the same fraction of the new capacity, so a
+        deeper shard absorbs a crowd instead of shedding at the old bound.
+        Each shard's condition is taken at top level in turn (nothing else
+        held), and its blocked producers are woken: a deque that grew
+        admits them. A snapshot taken mid-resize reports the smallest
+        capacity (``ingest_stats``)."""
+        cap = max(1, int(capacity))
+        for s in self._shards:
+            with s.cond:
+                s.capacity = cap
+                if s.shed_at is not None and self._shed_watermark is not None:
+                    s.shed_at = max(
+                        1, min(cap, int(self._shed_watermark * cap)))
+                s.cond.notify_all()
+
+    @property
+    def dealer(self):
+        """The attached sample-on-ingest dealer, or None."""
+        return self._dealer
 
     @property
     def generation(self) -> int:
@@ -680,6 +747,12 @@ class ReplayService:
             "shed_rows": sum(p["shed_rows"] for p in per_shard),
             "decode_errors": sum(p["decode_errors"] for p in per_shard),
             "admit_fails": sum(p["admit_fails"] for p in per_shard),
+            # rows shed or rejected per admission class; counts incoming
+            # batches a policy rejected, so it can exceed shed_rows
+            "sheds_by_class": _merge_class_counts(
+                p["sheds_by_class"] for p in per_shard),
+            # the live deque bound (the ingest_capacity actuator's target;
+            # the smallest over the shards while a resize is under way)
             "ingest_capacity": min(p["capacity"] for p in per_shard),
             "num_ingest_shards": self.num_ingest_shards,
             "commit_backlog": commit_backlog,

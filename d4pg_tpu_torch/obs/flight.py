@@ -112,6 +112,13 @@ def prune_artifacts(directory: str, prefix: str, keep: int) -> list[str]:
     return doomed
 
 
+# The elastic plane's event kinds: the autoscaler records one per scaling
+# decision, the admission-controlled replay service and policy server one
+# per class-attributed rejection (free-form kinds stay legal)
+EVENT_SCALE_UP = "scale_up"
+EVENT_SCALE_DOWN = "scale_down"
+EVENT_ADMISSION_REJECT = "admission_reject"
+
 # THE process-wide recorder: the replay service, the evaluator and the
 # lock hierarchy record here
 RECORDER = FlightRecorder()

@@ -33,13 +33,26 @@ lane); the server computes greedy actions only.
 
 Locking: the pending queue, the adopted network and the counters live
 under the ``pserve``-tier condition; the store read, the copy to the
-device, the forward and the socket writes happen outside it. A
-connection has at most one request in flight (the client sends and
-waits), so the batcher is the one writer of responses on each socket.
+device, the forward and the socket writes happen outside it. The
+batcher writes the responses it serves, a connection's reader thread the
+ones it answers at once (a bad request, an overload rejection); a client
+may pipeline requests, so every frame goes out whole under its
+connection's send lock (``_send``: a plain lock, nothing acquired under
+it).
 
-Not ported: the elastic ``admission=`` policy (``AdmissionPolicy``,
-ROADMAP Queue 1 item 17) raises ``NotImplementedError``; the live
-capacity knobs and latency-SLA counters it reads come with it.
+The elastic plane's knobs and gate (``elastic/``): ``set_batch_limits``
+and ``set_admission_depth`` change the batching window, the row budget
+and the admission bound live; each takes the serving condition at top
+level and the next window runs under the new values. With an
+``admission=`` policy (``elastic.AdmissionPolicy``) a request is
+classified by its lane (the top 12 bits of its req_id, which a client
+cannot raise) and admitted only while the pending queue stands below its
+class's share of ``admission_depth``; a rejection answers
+``STATUS_OVERLOAD`` at once, records an ``admission_reject`` event and
+counts in ``admission_rejects`` and ``admission_rejects_by_class``. With
+``sla_latency_ms`` a served request whose enqueue-to-write time passes it
+counts in ``latency_breaches``. Without a policy the queue is unbounded,
+as before.
 """
 
 from __future__ import annotations
@@ -62,7 +75,7 @@ from d4pg_tpu_torch.distributed.transport import (
 from d4pg_tpu_torch.learner.state import D4PGConfig
 from d4pg_tpu_torch.learner.update import act_deterministic
 from d4pg_tpu_torch.obs.containment import contained_crash
-from d4pg_tpu_torch.obs.flight import record_event
+from d4pg_tpu_torch.obs.flight import EVENT_ADMISSION_REJECT, record_event
 from d4pg_tpu_torch.obs.registry import REGISTRY, percentile_summary
 from d4pg_tpu_torch.obs.trace import RECORDER
 from d4pg_tpu_torch.serving import protocol
@@ -120,12 +133,10 @@ class PolicyInferenceServer(ConnRegistry):
         device: str = "cpu",
         chaos: ServingChaos | None = None,
         admission=None,
+        admission_depth: int = 64,
+        sla_latency_ms: float | None = None,
         learner_device: str | torch.device | None = None,
     ):
-        if admission is not None:
-            raise NotImplementedError(
-                "the serving plane's elastic admission policy is not "
-                "ported to the PyTorch port yet (ROADMAP Queue 1 item 17)")
         super().__init__()
         self.config = config
         self._weights = weights
@@ -134,6 +145,13 @@ class PolicyInferenceServer(ConnRegistry):
         self.max_batch_rows = int(max_batch_rows)
         self.sla_staleness_s = float(sla_staleness_s)
         self.refresh_interval_s = float(refresh_interval_s)
+        # SLO admission (see the module docstring); None keeps the
+        # unbounded queue
+        self._admission = admission
+        self.admission_depth = int(admission_depth)
+        # the queueing-latency SLO (staleness is freshness; this is
+        # promptness)
+        self.sla_latency_ms = sla_latency_ms
         self.chaos = chaos
         self._obs_dim = int(config.obs_dim)
         self.device = resolve_act_device(device, learner_device)
@@ -155,8 +173,11 @@ class PolicyInferenceServer(ConnRegistry):
             "requests": 0, "responses_ok": 0, "batches": 0, "rows": 0,
             "padded_rows": 0, "no_params": 0, "bad_requests": 0,
             "write_errors": 0, "adoptions": 0, "fenced_rejected": 0,
-            "sla_breaches": 0,
+            "sla_breaches": 0, "admission_rejects": 0,
+            "latency_breaches": 0,
         }
+        # class name -> rejected requests, under the serving condition
+        self.admission_rejects_by_class: dict[str, int] = {}
         # ---- wiring ----
         self._server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -165,6 +186,8 @@ class PolicyInferenceServer(ConnRegistry):
         self.port = self._server.getsockname()[1]
         self._stop = threading.Event()
         self._conn_threads: list[threading.Thread] = []
+        # connection -> its send lock, set by its reader thread
+        self._send_locks: dict[socket.socket, threading.Lock] = {}
         self._accept_thread = threading.Thread(
             target=self._accept, daemon=True, name="serving-accept")
         self._batch_thread = threading.Thread(
@@ -227,6 +250,26 @@ class PolicyInferenceServer(ConnRegistry):
                 return None
             return time.monotonic() - self._published_ts
 
+    # -- live capacity knobs (the autoscaler's actuators) --------------------
+    def set_batch_limits(self, window_s: float | None = None,
+                         max_rows: int | None = None) -> None:
+        """Change the batching window and the row budget live (rows at
+        least 1). The batcher reads both under the serving condition, so a
+        window that is open closes under the new limits; taken at top
+        level, with nothing else held."""
+        with self._pserve_cond:
+            if window_s is not None:
+                self.batch_window_s = float(window_s)
+            if max_rows is not None:
+                self.max_batch_rows = max(1, int(max_rows))
+            self._pserve_cond.notify()
+
+    def set_admission_depth(self, depth: int) -> None:
+        """Change the queue-depth bound the class budgets are computed
+        against (at least 1); the next request is admitted under it."""
+        with self._pserve_cond:
+            self.admission_depth = max(1, int(depth))
+
     # -- connections --------------------------------------------------------
     def _accept(self) -> None:
         try:
@@ -256,6 +299,7 @@ class PolicyInferenceServer(ConnRegistry):
             contained_crash("serving.reader", e)
 
     def _read_conn(self, conn: socket.socket) -> None:
+        self._send_locks[conn] = threading.Lock()
         try:
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             if not server_handshake(conn, self._secret):
@@ -283,6 +327,7 @@ class PolicyInferenceServer(ConnRegistry):
             return  # peer died or desynced; the lane reconnects
         finally:
             self._unregister_conn(conn)
+            self._send_locks.pop(conn, None)
             try:
                 conn.close()
             except OSError:
@@ -290,30 +335,68 @@ class PolicyInferenceServer(ConnRegistry):
 
     def _admit_request(self, conn: socket.socket, req: dict) -> None:
         """Queue one decoded request, opening its trace span; the span
-        rides the queue entry until the response path ends it."""
+        rides the queue entry until the response path ends it. With an
+        admission policy the request first passes its class's budget; a
+        rejection is answered ``STATUS_OVERLOAD`` from this reader thread,
+        outside the serving condition, and its span ends shed."""
         now = time.monotonic()
         tid = None
         if req["trace"] is not None:
             tid, birth = req["trace"]
             RECORDER.begin(tid, birth)
             RECORDER.record_span(tid, "admission", now)
+        rejected_cls = None
         try:
             with self._pserve_cond:
                 self.stats["requests"] += 1
-                self._pending.append((conn, req, now))
-                self._pserve_cond.notify()
+                if self._admission is not None:
+                    cls = self._admission.classify_index(
+                        (req["req_id"] >> 20) & 0xFFF)
+                    budget = self._admission.depth_for(
+                        cls, self.admission_depth)
+                    if len(self._pending) >= budget:
+                        rejected_cls = self._admission.class_name(cls)
+                        self.stats["admission_rejects"] += 1
+                        self.admission_rejects_by_class[rejected_cls] = (
+                            self.admission_rejects_by_class.get(
+                                rejected_cls, 0) + 1)
+                if rejected_cls is None:
+                    self._pending.append((conn, req, now))
+                    self._pserve_cond.notify()
         except BaseException:
             # a failed enqueue ends the span it opened before re-raising
             if tid is not None:
                 RECORDER.terminal_shed(tid)
             raise
+        if rejected_cls is not None:
+            record_event(EVENT_ADMISSION_REJECT, plane="serving",
+                         cls=rejected_cls, req_id=req["req_id"])
+            try:
+                self._send(conn, protocol.encode_response(
+                    req["req_id"], protocol.STATUS_OVERLOAD, 0, 0, None))
+            except OSError:
+                with self._pserve_cond:
+                    self.stats["write_errors"] += 1
+            if tid is not None:
+                RECORDER.terminal_shed(tid)
+
+    def _send(self, conn: socket.socket, frame: bytes) -> None:
+        """One whole frame on ``conn``: the batcher and the reader thread
+        may both answer on it."""
+        lock = self._send_locks.get(conn)
+        if lock is None:  # the connection is gone: sendall raises
+            conn.sendall(frame)
+            return
+        with lock:
+            conn.sendall(frame)
 
     def _respond_error(self, conn: socket.socket, req_id: int,
                        status: int) -> None:
         with self._pserve_cond:
             self.stats["bad_requests"] += 1
         try:
-            conn.sendall(protocol.encode_response(req_id, status, 0, 0, None))
+            self._send(conn, protocol.encode_response(req_id, status, 0, 0,
+                                                      None))
         except OSError:
             with self._pserve_cond:
                 self.stats["write_errors"] += 1
@@ -345,11 +428,13 @@ class PolicyInferenceServer(ConnRegistry):
                 if self._stop.is_set():
                     return
                 # the first pending request opens the window; later ones
-                # ride along until it closes or the row budget fills
-                deadline = time.monotonic() + self.batch_window_s
+                # ride along until it closes or the row budget fills. Both
+                # limits are read on every wake-up, so ``set_batch_limits``
+                # also closes a window that is open
+                opened = time.monotonic()
                 while (sum(r[1]["obs"].shape[0] for r in self._pending)
                         < self.max_batch_rows):
-                    remaining = deadline - time.monotonic()
+                    remaining = opened + self.batch_window_s - time.monotonic()
                     if remaining <= 0 or self._stop.is_set():
                         break
                     self._pserve_cond.wait(remaining)
@@ -394,6 +479,10 @@ class PolicyInferenceServer(ConnRegistry):
             self._latency_ms.append(1e3 * (now - t_enq))
         breach = (pub_ts is not None
                   and (now - pub_ts) > self.sla_staleness_s)
+        late = 0
+        if self.sla_latency_ms is not None:
+            late = sum(1 for _, _, t_enq in batch
+                       if 1e3 * (now - t_enq) > self.sla_latency_ms)
         with self._pserve_cond:
             self.stats["batches"] += 1
             self.stats["rows"] += rows
@@ -401,13 +490,14 @@ class PolicyInferenceServer(ConnRegistry):
             self.stats["responses_ok"] += ok
             if breach:
                 self.stats["sla_breaches"] += 1
+            self.stats["latency_breaches"] += late
             self._occupancy.append(rows / bucket)
             self._batch_rows.append(rows)
 
     def _write_response(self, conn: socket.socket, req: dict,
                         frame: bytes) -> bool:
         try:
-            conn.sendall(frame)
+            self._send(conn, frame)
         except OSError:
             with self._pserve_cond:
                 self.stats["write_errors"] += 1
@@ -425,6 +515,9 @@ class PolicyInferenceServer(ConnRegistry):
         with self._pserve_cond:
             out = dict(self.stats)
             out["queue_depth"] = len(self._pending)
+            out["admission_rejects_by_class"] = dict(
+                self.admission_rejects_by_class)
+            out["admission_depth"] = self.admission_depth
             out["batch_window_s"] = self.batch_window_s
             out["max_batch_rows"] = self.max_batch_rows
             out["generation"] = self._generation

@@ -52,6 +52,20 @@ that adopts the published weights (it acts on the host CPU, as the
 reference's driver's does); with ``--n_workers 0`` and no in-process or
 spawned actor, the learner waits for remote actors to fill the warm-up.
 
+The elastic plane: ``--autoscale 1`` runs ``elastic.Autoscaler`` beside
+the run (``elastic_plane``), every ``--autoscale_interval_s`` seconds
+sensing the registry's ``serving`` and ``ingest`` providers and moving the
+knobs this run stood up: ``ingest_capacity`` (the service's deques),
+``serving_rows`` and ``serving_window_s`` (the policy server's batch
+limits, with ``--serve_policy 1``), ``dealer_deals`` (the dealer's pacing,
+with ``--sample_on_ingest 1``) and ``replicas`` (the learner plane's
+active replicas, ``ReplicaTarget``: the first ``n`` replicas train each
+cycle, the rest sit it out, and a parked replica that comes back is
+respawned first, fencing its idle epoch). Its set points start at this
+run's knobs, and a calm plane moves them down from there, one step per
+move (replicas to 1 at the first tick); it is closed first on every exit
+path.
+
 The HER recipe: ``--her 1`` runs ``GoalActorWorker``s on a
 goal-conditioned env (``fake-goal``, or a gymnasium_robotics id such as
 ``FetchReach-v4``) whole episodes at a time, streaming originals and
@@ -159,7 +173,6 @@ def _unported(cfg: ExperimentConfig) -> list[tuple[bool, str, str]]:
         (bool(cfg.coordinator) or cfg.num_processes > 1,
          "--coordinator / --num_processes > 1 (multi-host)",
          "Queue 1 item 16"),
-        (cfg.autoscale, "--autoscale 1", "Queue 1 item 17"),
     ]
 
 
@@ -719,14 +732,18 @@ def train(cfg: ExperimentConfig) -> dict:
         return metrics
 
     replica_failures: dict[int, int] = {}
+    # the autoscaler's ``replicas`` knob (all replicas active without one)
+    replica_target = ReplicaTarget(len(replicas))
 
     def train_steps_multi(n: int):
-        """The cycle's n grad steps across the replicas: each runs one
+        """The cycle's n grad steps across the active replicas (the
+        ``replica_target`` adopted at this cycle boundary): each runs one
         round of ``ceil(n / N)`` steps on its own thread. A crashed replica
         is fenced (its in-flight submission bounces) and respawned at the
         next epoch; 5 failed cycles in a row end the run."""
         nonlocal state, lstep
-        per = -(-n // len(replicas))
+        active = replica_target.activate(replicas)
+        per = -(-n // len(active))
         failed: dict[int, str] = {}
 
         def run_replica(r):
@@ -738,12 +755,12 @@ def train(cfg: ExperimentConfig) -> dict:
 
         threads = [threading.Thread(target=run_replica, args=(r,),
                                     daemon=True, name=f"replica-{i}")
-                   for i, r in enumerate(replicas)]
+                   for i, r in enumerate(active)]
         for t in threads:
             t.start()
         for t in threads:
             t.join()
-        for r in replicas:
+        for r in active:
             if r.replica_id in failed:
                 fails = replica_failures.get(r.replica_id, 0) + 1
                 replica_failures[r.replica_id] = fails
@@ -821,6 +838,7 @@ def train(cfg: ExperimentConfig) -> dict:
     remote = RemotePlanes(cfg, service, weights) if (
         cfg.serve or cfg.actor_procs > 0) else None
     policy_server = None
+    autoscaler = None
 
     try:
         if cfg.serve_policy:
@@ -835,6 +853,9 @@ def train(cfg: ExperimentConfig) -> dict:
                 max_batch_rows=cfg.serve_policy_max_rows,
                 sla_staleness_s=cfg.serve_policy_sla_s)
             print(f"serving: policy :{policy_server.port}", flush=True)
+        if cfg.autoscale:
+            autoscaler = elastic_plane(cfg, service, policy_server,
+                                       replicas, replica_target)
         if (remote is not None and cfg.n_workers == 0
                 and cfg.actor_procs == 0 and len(service) < cfg.warmup):
             # remote actors only: they fill the warm-up
@@ -953,6 +974,10 @@ def train(cfg: ExperimentConfig) -> dict:
                             run_dir, 0, lstep,
                             service.snapshot(quiesce_timeout=2.0))
     finally:
+        if autoscaler is not None:
+            # first: a tick during the teardown would actuate knobs of
+            # planes already half closed
+            autoscaler.close()
         if policy_server is not None:
             policy_server.close()
         if remote is not None:
@@ -1073,6 +1098,78 @@ def learner_plane(cfg: ExperimentConfig, config, state, service, weights,
           f"clip={cfg.agg_clip} sample_on_ingest={cfg.sample_on_ingest}"
           + (f" sampler={dealt_arm}" if dealt_arm else ""), flush=True)
     return replicas, aggregator
+
+
+class ReplicaTarget:
+    """Active-prefix scheduling of the learner replicas (the autoscaler's
+    ``replicas`` knob). The autoscaler's thread only records the bounded
+    target (``set``); the train loop adopts it at the next cycle boundary
+    (``activate``), since re-registering touches the aggregator's epoch
+    table, which belongs to the thread that runs the rounds. Replicas past
+    the target are parked for the cycle; a parked replica that comes back
+    calls ``respawn`` first, so its idle epoch is fenced and a submission
+    from before the park bounces at the aggregator."""
+
+    def __init__(self, n_replicas: int):
+        self.max = max(1, int(n_replicas))
+        self.n = self.max
+        self.parked: set[int] = set()
+
+    def set(self, n: int) -> None:
+        self.n = max(1, min(self.max, int(n)))
+
+    def activate(self, replicas: list) -> list:
+        """The replicas that train this cycle: the first ``n``."""
+        active = replicas[:self.n]
+        for r in replicas[len(active):]:
+            self.parked.add(r.replica_id)
+        for r in active:
+            if r.replica_id in self.parked:
+                self.parked.discard(r.replica_id)
+                r.respawn()
+        return active
+
+
+def elastic_plane(cfg: ExperimentConfig, service: ReplayService,
+                  policy_server, replicas: list, target: ReplicaTarget):
+    """``--autoscale 1``: the started ``elastic.Autoscaler`` over the knobs
+    this run stood up (see the module docstring), its set points anchored
+    at their start-up values (the service's deque depth, the server's
+    batch limits, the dealer's pacing, the replica count) and bounded as
+    the reference bounds them. Knobs without an actuator are still decided
+    and journaled."""
+    from d4pg_tpu_torch.elastic.autoscaler import Autoscaler, AutoscalerConfig
+
+    actuators: dict = {"ingest_capacity": service.set_ingest_depth}
+    if policy_server is not None:
+        actuators["serving_rows"] = (
+            lambda v: policy_server.set_batch_limits(max_rows=v))
+        actuators["serving_window_s"] = (
+            lambda v: policy_server.set_batch_limits(window_s=v))
+    dealer = service.dealer
+    if dealer is not None:
+        actuators["dealer_deals"] = dealer.set_pacing
+    if replicas:
+        actuators["replicas"] = target.set
+    autoscaler = Autoscaler(
+        AutoscalerConfig(
+            interval_s=cfg.autoscale_interval_s,
+            serving_rows_init=cfg.serve_policy_max_rows,
+            serving_rows_min=max(16, cfg.serve_policy_max_rows // 4),
+            serving_rows_max=4 * cfg.serve_policy_max_rows,
+            serving_window_cold_s=cfg.serve_policy_window_s,
+            ingest_capacity_init=service.ingest_stats()["ingest_capacity"],
+            ingest_capacity_min=64,
+            ingest_capacity_max=1024,
+            dealer_deals_init=(1 if dealer is None
+                               else dealer.max_deals_per_tick),
+            replicas_init=target.max,
+            replicas_min=1,
+            replicas_max=target.max,
+        ),
+        actuators=actuators).start()
+    print(f"elastic: autoscaler up, knobs={sorted(actuators)}", flush=True)
+    return autoscaler
 
 
 def profiled(profile_dir: str, device: torch.device, fn, *args):

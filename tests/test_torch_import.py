@@ -60,6 +60,12 @@ SERVING_DEALT_LEARNERS = {
     "d4pg_tpu_torch.replay.sampler", "d4pg_tpu_torch.replay.device_sampler",
     "d4pg_tpu_torch.learner.aggregator", "d4pg_tpu_torch.learner.replica",
 }
+# the elastic plane and its drill
+ELASTIC = {
+    "d4pg_tpu_torch.elastic", "d4pg_tpu_torch.elastic.traffic",
+    "d4pg_tpu_torch.elastic.admission", "d4pg_tpu_torch.elastic.autoscaler",
+    "d4pg_tpu_torch.elastic.ledger", "d4pg_tpu_torch.fleet.elastic_chaos",
+}
 
 
 def test_port_imports_with_jax_blocked():
@@ -76,6 +82,7 @@ def test_port_imports_with_jax_blocked():
     assert WEIGHT_PLANE <= imported, WEIGHT_PLANE - imported
     assert SERVING_DEALT_LEARNERS <= imported, \
         SERVING_DEALT_LEARNERS - imported
+    assert ELASTIC <= imported, ELASTIC - imported
 
 
 def test_port_sources_import_no_jax_or_reference():
@@ -128,6 +135,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         noise.gaussian.init()
     with pytest.raises(RuntimeError, match="cuda"):
         noise.ou.init(2)
+    from d4pg_tpu_torch.fleet import run_elastic_chaos
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_elastic_chaos(model_horizon_s=0.1)
     # an explicit CPU request runs
     state = init_state(cfg, 0, device="cpu")
     assert state.device.type == "cpu"

@@ -216,25 +216,26 @@ def test_service_concurrent_producers_lose_no_row():
         svc.close()
 
 
-def test_service_refuses_unported_modes():
-    """The elastic admission policy and live resizing raise (item 17b); a
-    service generation other than 0 is taken (crash recovery, with
-    snapshot, restore and kill: tests/test_torch_recovery.py); sharded
-    ingest, shedding (tests/test_torch_sharded_ingest.py), observation
-    normalization (tests/test_torch_normalizer.py) and the
-    sample-on-ingest dealer (tests/test_torch_sampler.py) are ported: a
-    write-back before any dealer is attached is a usage error."""
+def test_service_modes_and_an_early_writeback():
+    """Every mode of the service is ported: a generation other than 0
+    (crash recovery: tests/test_torch_recovery.py), sharded ingest and
+    shedding (tests/test_torch_sharded_ingest.py), observation
+    normalization (tests/test_torch_normalizer.py), the elastic admission
+    policy and live resizing (tests/test_torch_elastic.py); a write-back
+    before any dealer is attached is a usage error."""
+    from d4pg_tpu_torch.elastic import AdmissionPolicy
+
     buf = FusedDeviceReplay(32, OBS, ACT, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        ReplayService(buf, admission=object())
-    restarted = ReplayService(buf, generation=1)
-    assert restarted.generation == 1
+    restarted = ReplayService(buf, generation=1,
+                              admission=AdmissionPolicy())
+    assert restarted.generation == 1 and restarted.dealer is None
     restarted.close()
     svc = ReplayService(buf, obs_norm=RunningMeanStd(OBS),
                         num_ingest_shards=2, shed_watermark=0.5)
     try:
-        with pytest.raises(NotImplementedError, match="item 17b"):
-            svc.set_ingest_depth(8)
+        svc.set_ingest_depth(8)
+        assert [s["shed_at"] for s in svc.ingest_stats()["per_shard"]] \
+            == [4, 4]
         with pytest.raises(RuntimeError, match="attach_dealer"):
             svc.queue_writeback(None, None, None)
     finally:

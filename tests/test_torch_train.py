@@ -295,7 +295,6 @@ UNPORTED = [
     (dict(data_parallel=2), "item 16"),
     (dict(coordinator="localhost:9999"), "item 16"),
     (dict(num_processes=2), "item 16"),
-    (dict(autoscale=True), "item 17"),
 ]
 
 
