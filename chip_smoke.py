@@ -252,9 +252,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      targets; the A/B gate is printed, not asserted (a measured claim of
      the reference). Both print the first forward at each new bucket
      shape beside the second (the warm-up of the drill included);
- 25. a ``kernels`` JSON line (each kernel's launches on every path that
-     runs it; the descent's time at the dealt shapes), then the result
-     line.
+ 25. the data-parallel plane: (a) the sharded fused chunk on two local
+     shards of a 200,000-row ``ShardedFusedReplay`` at the slice's width
+     (``einsum``, the mesh arm): a K = 3 chunk on the card against the
+     CPU (slots bitwise, losses, TD errors and roots within rtol 1e-4),
+     the K = 40 chunk's bitwise prefix printed, timed windows with the
+     descent twice per grad step and nothing else, a profiled chunk, and
+     the descent at Q = 128 over 2^17 leaves against its plain version,
+     bitwise, timed beside it and ``searchsorted``; (b)
+     ``multihost_check --fused 1`` as two ranks on cuda:0 through
+     ``--coordinator`` (gloo), two K = 3 chunks: equal losses and
+     parameter CRCs, the descent K times a chunk on each, one process
+     holding both shards
+     within rtol 1e-5 (losses) and 1e-4 / 1e-6 (parameters) of the ranks,
+     the host ms per grad step of the gradient average; (c)
+     ``--data_parallel 2`` refused on the one card, then the ``point``
+     driver as two ranks through ``--coordinator`` with per-rank
+     sidecars, two cycles and a resume: equal losses, both resumed at
+     step 80 with rows, the descent once per grad step of each rank;
+ 26. a ``kernels`` JSON line (each kernel's launches on every path that
+     runs it; the descent's time at the dealt and the sharded shapes),
+     then the result line.
 """
 
 from __future__ import annotations
@@ -4277,6 +4295,353 @@ def phase_elastic_drill(card: str) -> dict:
             "first_forwards": dict(forwards.ms), "steady_ms": steady}
 
 
+
+# phase 25: one process holds two data-axis shards of the 200,000-row ring
+MESH_SHARDS = 2
+MESH_CAP_SHARD = 1 << 17  # next_pow2(ceil(CAPACITY / MESH_SHARDS))
+MESH_GATE_K = 3  # the card-vs-CPU gate's chunk (phase 8's length)
+MESH_CHUNKS = 8  # timed chunks, in windows of 2
+
+
+def phase_mesh_chunk(dev, card: str) -> dict:
+    """25a: ``make_sharded_fused_chunk`` at the slice's width on two
+    local shards of a 200,000-row ``ShardedFusedReplay`` (2 x 2^17
+    slots). The gate: a K = 3 chunk on the card against the same chunk
+    on the CPU (its ring a copy of the card's, the same weights and
+    uniforms): slots bitwise, losses, TD errors and the trees' roots
+    within rtol 1e-4. The K = 40 chunk is compared too and printed, not
+    gated: after each write-back the two devices' leaves differ in the
+    last bits (their TD errors do), so a later stratified draw near a
+    leaf boundary can take the neighbouring slot. Then ``FusedLoop``
+    with the mesh, warmed up by a chunk, times windows of 2 chunks, each
+    with the counters set to 0 just before and read just after: the
+    descent twice per grad step (once per shard), the projection kernels
+    never (einsum, the mesh arm); and the breakdown of one profiled
+    chunk. Last, the descent at this path's shape (Q = 128 over 2^17
+    leaves) against its plain version, bitwise, timed beside the plain
+    version and ``searchsorted``."""
+    from d4pg_tpu_torch.learner.fused import make_sharded_fused_chunk
+    from d4pg_tpu_torch.learner.loop import FusedLoop
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.ops import sampler_descent as desc
+    from d4pg_tpu_torch.parallel import RankMesh
+    from d4pg_tpu_torch.replay.sharded_per import ShardedFusedReplay
+
+    mesh = RankMesh.local(dev, MESH_SHARDS)
+    cfg = config("einsum")
+    b_local = BATCH // MESH_SHARDS
+    t0 = time.perf_counter()
+    buf = ShardedFusedReplay(CAPACITY, OBS, ACT, mesh, alpha=0.6)
+    rng = np.random.default_rng(25)
+    for start in range(0, CAPACITY, FILL_BLOCK):
+        buf.add(random_rows(rng, min(FILL_BLOCK, CAPACITY - start)))
+        buf.drain()
+    torch.cuda.synchronize()
+    ring_bytes = sum(t.numel() * t.element_size() for t in buf.storage)
+    check(buf.cap_shard == MESH_CAP_SHARD and int(buf.size.sum())
+          == CAPACITY, f"sharded ring: cap_shard {buf.cap_shard}, sizes "
+          f"{buf.size}")
+    print(f"[mesh 25a] ring filled: {buf.size.tolist()} rows in "
+          f"{MESH_SHARDS} shards of {buf.cap_shard} slots, "
+          f"{ring_bytes / 1e9:.3f} GB, {time.perf_counter() - t0:.2f} s")
+    cpu_buf = ShardedFusedReplay(CAPACITY, OBS, ACT,
+                                 RankMesh.local("cpu", MESH_SHARDS),
+                                 alpha=0.6)
+    cpu_buf.load_state_dict(buf.state_dict())
+    out: dict = {}
+    for k in (MESH_GATE_K, K):
+        u = torch.from_numpy(rng.random((k, MESH_SHARDS, b_local),
+                                        dtype=np.float32))
+        runs = {}
+        for where, b in (("cpu", cpu_buf), (dev, buf)):
+            state = init_state(cfg, seed=0, device=where)
+            fn = make_sharded_fused_chunk(
+                cfg, RankMesh.local(where, MESH_SHARDS), k=k,
+                batch_size=BATCH)
+            trees, m = fn(state, b.trees, b.storage, b.size, u=u.to(where))
+            runs[str(where)] = {n: v.cpu() for n, v in m.items()}
+            runs[str(where)]["root"] = trees.sum_tree[:, 1].cpu()
+        cpu, gpu = runs["cpu"], runs[str(dev)]
+        same = (cpu["idx"] == gpu["idx"]).all(dim=1)
+        first = int((~same).nonzero()[0, 0]) if not bool(same.all()) else k
+        errs = {n: _rel_err(gpu[n][:first], cpu[n][:first]) if first else
+                float("nan") for n in ("critic_loss", "td_error")}
+        print(f"[mesh 25a] K = {k} card vs CPU: slots bitwise in the first "
+              f"{first} of {k} steps; over those, critic_loss max rel err "
+              f"{errs['critic_loss']:.3e}, td_error {errs['td_error']:.3e}")
+        if k == MESH_GATE_K:
+            check(first == k, "sharded chunk slots, card vs CPU")
+            for name in ("critic_loss", "actor_loss", "td_error", "root"):
+                err = _rel_err(gpu[name], cpu[name])
+                check(err <= 1e-4, f"sharded chunk {name} card vs CPU "
+                      f"({err:.3e})")
+            out["gate"] = errs
+        else:
+            out["k40_bitwise_steps"] = first
+    del cpu_buf
+    state = init_state(cfg, seed=0, device=dev)
+    loop = FusedLoop(cfg, buf, k=K, batch_size=BATCH,
+                     generator=torch.Generator(device=dev).manual_seed(0),
+                     mesh=mesh)
+    loop.run(state, K)  # warm-up
+    torch.cuda.synchronize()
+    windows, launches = [], {name: 0 for name in launch_counts()}
+    for _ in range(MESH_CHUNKS // WINDOW_CHUNKS):
+        zero_counts()
+        t0 = time.perf_counter()
+        metrics = loop.run(state, WINDOW_CHUNKS * K)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = WINDOW_CHUNKS * K
+        check(counts == {**{n: 0 for n in counts},
+                         "descent": MESH_SHARDS * steps},
+              f"[mesh 25a] the descent once per shard per grad step, "
+              f"nothing else: {counts}")
+        check(bool(torch.isfinite(metrics["critic_loss"]).all())
+              and tuple(metrics["idx"].shape) == (K, BATCH),
+              "[mesh 25a] finite losses, [K, B] slots")
+        windows.append(steps / dt)
+        for n in launches:
+            launches[n] += counts[n]
+    rate = float(np.median(windows))
+    print(f"[mesh 25a] grad-steps/s per window "
+          f"{[round(x, 2) for x in windows]} (median {rate:.2f}, K = {K}, "
+          f"B = {BATCH} over {MESH_SHARDS} shards) ({card})")
+    parts = breakdown(lambda chunks: loop.run(state, chunks * K),
+                      1e3 / rate)
+    loop.close()
+    tree = buf.trees.sum_tree[0]
+    gen = torch.Generator(device=dev).manual_seed(25)
+    mass = (torch.rand(b_local, generator=gen, device=dev)
+            * tree[1]).contiguous()
+    got, want = desc.descend(tree, mass), desc.descend_plain(tree, mass)
+    check(torch.equal(got, want), "descent at Q = 128 over 2^17: bitwise")
+    ms, _ = device_ms(lambda: desc.descend(tree, mass), calls=100)
+    plain_ms, _ = device_ms(lambda: desc.descend_plain(tree, mass),
+                            calls=2)
+    cumsum = torch.cumsum(tree[tree.shape[0] // 2:], 0)
+    lib_ms, _ = device_ms(
+        lambda: torch.searchsorted(cumsum, mass, right=True), calls=100)
+    levels = int(math.log2(tree.shape[0] // 2))
+    b_ms, b_by = bound_ms(_descent_bytes(tree, mass),
+                          2 * mass.numel() * levels)
+    print(f"[mesh 25a] descent Q = {b_local} over 2^{levels}: kernel "
+          f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, searchsorted "
+          f"{lib_ms * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us ({b_by}) "
+          f"({card})")
+    del buf
+    return {**out, "windows": windows, "grad_steps_per_s": rate,
+            "launches": launches, "device_busy_ms": parts["device_busy_ms"],
+            "stream_syncs": parts["stream_syncs"],
+            "descent": {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": b_ms, "bound_by": b_by}}
+
+
+def _mesh_check_args(out: Path | None) -> list[str]:
+    args = ["--device", "cuda", "--fused", "1", "--obs_dim", str(OBS),
+            "--act_dim", str(ACT), "--hidden", ",".join(map(str, HIDDEN)),
+            "--n_atoms", str(ATOMS), "--bsize", str(BATCH), "--k",
+            str(MESH_GATE_K), "--capacity", "4096"]
+    return args + (["--out", str(out)] if out is not None else [])
+
+
+def _two_ranks(argv_for, timeout: float = 300.0) -> list[str]:
+    """Both ranks of a two-process run on a free loopback port, each on
+    cuda:0 of this host; their outputs (a rank that fails or hangs fails
+    the phase, and both are stopped)."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        argv_for(i) + ["--coordinator", f"127.0.0.1:{port}",
+                       "--num_processes", "2", "--process_id", str(i)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, "ranks exited "
+              f"{[q.returncode for q in procs]}; rank {i}:\n{out[-3000:]}"
+              + "".join(f"\nrank {j}:\n{o[-1500:]}"
+                        for j, o in enumerate(outs) if j != i))
+    return outs
+
+
+def _tagged_json(out: str, tag: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
+    check(len(lines) == 1, f"one {tag} line")
+    return json.loads(lines[0][len(tag) + 1:])
+
+
+def phase_mesh_check(dev, card: str) -> dict:
+    """25b: ``python -m d4pg_tpu_torch.parallel.multihost_check --fused 1``
+    as two ranks through ``--coordinator 127.0.0.1:P``, both on cuda:0
+    (so gloo: NCCL refuses two ranks on one card), at the slice's width,
+    two chunks of K = 3, B = 256: equal losses, replicas bitwise (the
+    check all-reduces a CRC of the parameters), the descent K times a
+    chunk on each rank; then the same check in this process with both
+    shards local (``n_local = 2``) on the same rows and uniforms: losses
+    within rtol 1e-5 and parameters within rtol 1e-4 / atol 1e-6 of the
+    ranks'. The chunks are phase 25a's gate length: the two layouts
+    average the gradients in another order, so their leaves part in the
+    last bits after each write-back and a long run may sample a
+    neighbouring slot (25a's K = 40 comparison shows how soon).
+    Prints the backend and the host ms per grad step that the gradient
+    average takes. Gloo stages every reduction through the host, so
+    these rates say nothing of NCCL with a card per rank."""
+    from d4pg_tpu_torch.parallel import RankMesh
+    from d4pg_tpu_torch.parallel import multihost_check as mc
+
+    npz = ROOT / "runs" / "chip_smoke" / "mesh_check.npz"
+    npz.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    outs = _two_ranks(lambda i: [
+        sys.executable, "-m", "d4pg_tpu_torch.parallel.multihost_check",
+        *_mesh_check_args(npz if i == 0 else None)])
+    wall = time.perf_counter() - t0
+    res = [_tagged_json(out, "multihost_check RESULT") for out in outs]
+    check(res[0]["losses"] == res[1]["losses"] and res[0]["crc"]
+          == res[1]["crc"], f"25b: ranks agree ({res[0]['crc']}, "
+          f"{res[1]['crc']})")
+    check(all(r["backend"] == "gloo" for r in res),
+          f"25b: two ranks on one card take gloo ({res[0]['backend']})")
+    check(all(r["descent_launches"] == 2 * MESH_GATE_K for r in res),
+          f"25b: the descent once per grad step on each rank "
+          f"({[r['descent_launches'] for r in res]})")
+    ns = mc.build_parser().parse_args(_mesh_check_args(None) + [
+        "--coordinator", "-", "--num_processes", "1", "--process_id", "0",
+        "--n_local", "2"])
+    one = mc.run_check(ns, RankMesh.local(dev, 2))
+    state = one.pop("state")
+    loss_err = _rel_err(torch.tensor(one["losses"]),
+                        torch.tensor(res[0]["losses"]))
+    check(loss_err <= 1e-5, f"25b: one process vs two ranks, losses "
+          f"({loss_err:.3e})")
+    saved = np.load(npz)
+    worst = 0.0
+    for m in ("actor", "critic"):
+        for n, t in getattr(state, m).state_dict().items():
+            want = saved[f"{m}/{n}"]
+            got = t.detach().cpu().numpy()
+            check(np.allclose(got, want, rtol=1e-4, atol=1e-6),
+                  f"25b: one process vs two ranks, {m}.{n}")
+            worst = max(worst, float(np.max(np.abs(got - want))))
+    grad_bytes = 4 * sum(p.numel() for m in (state.actor, state.critic)
+                         for p in m.parameters())
+    print(f"[mesh 25b] two ranks on one card: backend {res[0]['backend']}, "
+          f"losses equal ({res[0]['losses'][-1]!r} last), parameter CRC "
+          f"{res[0]['crc']} on both; one process with both shards: losses "
+          f"max rel err {loss_err:.3e}, parameters max abs err "
+          f"{worst:.3e}; the gradient average (gloo through the host, "
+          f"{grad_bytes / 1e6:.3f} MB) "
+          f"{[round(r['reduce_ms_per_step'], 3) for r in res]} ms of host "
+          f"clock per grad step on ranks 0 and 1; {wall:.2f} s ({card})")
+    return {"launches": sum(r["descent_launches"] for r in res),
+            "reduce_ms_per_step": [r["reduce_ms_per_step"] for r in res],
+            "grad_bytes": grad_bytes, "loss_err": loss_err,
+            "param_abs_err": worst, "wall_s": wall}
+
+
+def rank_driver(argv: list[str]) -> None:
+    """One rank of phase 25c: ``train.main(argv)`` with the driver's
+    timer and log hooked (``DriverHooks``) and the launch counters set to
+    0 just before and read just after; prints a ``RANK_DRIVER`` JSON
+    line. Runs as ``python -c "import chip_smoke; ..."``."""
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+
+    hooks = DriverHooks()
+    zero_counts()
+    result = driver.main(argv)
+    torch.cuda.synchronize()
+    per_cycle = ExperimentConfig().train_steps_per_cycle
+    print("RANK_DRIVER " + json.dumps({
+        "launches": launch_counts(),
+        "own_grad_steps_per_sec": [per_cycle / s for s in hooks.spans],
+        "critic_loss": result["critic_loss"]}), flush=True)
+
+
+def phase_mesh_driver(card: str) -> dict:
+    """25c: ``--data_parallel 2`` on this one-card machine is refused
+    loudly (one card per rank), the refusal shown and caught as the
+    expected outcome; then ``python -m d4pg_tpu_torch.train --env point``
+    as two ranks through ``--coordinator`` on cuda:0 (gloo), fused replay
+    on, two cycles with per-rank replay sidecars, then ``--resume 1`` from
+    them: equal final losses on both ranks, each rank's sidecar, both
+    resumed at step 80 with rows, the descent once per grad step of each
+    rank; each rank's own grad-steps/s per cycle."""
+    import shutil
+
+    from d4pg_tpu_torch import train as driver
+    from d4pg_tpu_torch.config import ExperimentConfig
+
+    runs = ROOT / "runs" / "chip_smoke" / "mesh_driver"
+    shutil.rmtree(runs, ignore_errors=True)
+    refusal = None
+    if torch.cuda.device_count() < 2:
+        try:
+            driver.train(ExperimentConfig(env="point", data_parallel=2,
+                                          log_dir=str(runs)))
+        except ValueError as e:  # the expected refusal, and nothing else
+            refusal = str(e)
+        check(refusal is not None and "one card per rank" in refusal,
+              f"--data_parallel 2 on {torch.cuda.device_count()} card: "
+              f"refused ({refusal})")
+        print(f"[mesh 25c] --data_parallel 2 on one card, refused as "
+              f"expected: {refusal}")
+    # a shorter collect than the driver's default (5,000 warm-up steps,
+    # 16 episodes a cycle) per rank: the ranks' grad steps are the point
+    argv = ["--env", "point", "--n_eps", "1", "--n_cycles", "2",
+            "--warmup", "1000", "--episodes_per_cycle", "4",
+            "--replay_storage", "device", "--fused_replay", "on",
+            "--checkpoint_replay", "1", "--checkpoint_replay_every", "1",
+            "--log_dir", str(runs)]
+    per_cycle = ExperimentConfig().train_steps_per_cycle
+    out: dict = {"refusal": refusal, "runs": {}, "launches": 0}
+    for tag, extra in (("train", []), ("resume", ["--resume", "1"])):
+        t0 = time.perf_counter()
+        outs = _two_ranks(lambda i: [
+            sys.executable, "-c",
+            "import sys, chip_smoke; chip_smoke.rank_driver(sys.argv[1:])",
+            *argv, *extra])
+        wall = time.perf_counter() - t0
+        res = [_tagged_json(o, "RANK_DRIVER") for o in outs]
+        check(res[0]["critic_loss"] == res[1]["critic_loss"],
+              f"25c {tag}: both ranks end on one loss "
+              f"({res[0]['critic_loss']}, {res[1]['critic_loss']})")
+        for i, (o, r) in enumerate(zip(outs, res)):
+            check("backend gloo" in o, f"25c {tag}: rank {i} names gloo")
+            check(r["launches"] == {**{n: 0 for n in r["launches"]},
+                                    "descent": 2 * per_cycle},
+                  f"25c {tag}: rank {i}'s descent once per grad step "
+                  f"({r['launches']})")
+            out["launches"] += r["launches"]["descent"]
+            if tag == "resume":
+                check(f"[p{i}] resumed from step {2 * per_cycle} " in o,
+                      f"25c: rank {i} resumed:\n{o[-2000:]}")
+                rows = int(o.split(f"[p{i}] resumed from step")[1].split(
+                    " replay rows")[0].rsplit(" ", 1)[1])
+                check(rows > 0, f"25c: rank {i} resumed with rows ({rows})")
+        if tag == "train":
+            sidecars = sorted(p.name for p in runs.rglob("replay_p*.pkl"))
+            check(sidecars == ["replay_p0.pkl", "replay_p1.pkl"],
+                  f"25c: a sidecar per rank ({sidecars})")
+        own = [[round(x, 2) for x in r["own_grad_steps_per_sec"]]
+               for r in res]
+        print(f"[mesh 25c] {tag}: own grad-steps/s per cycle, rank 0 "
+              f"{own[0]}, rank 1 {own[1]}; final critic_loss "
+              f"{res[0]['critic_loss']!r} on both; descent launches "
+              f"{[r['launches']['descent'] for r in res]} in "
+              f"{2 * per_cycle} grad steps each; {wall:.2f} s ({card})")
+        out["runs"][tag] = {"own_grad_steps_per_sec": own, "wall_s": wall}
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -4341,6 +4706,9 @@ def main() -> int:
     updates = phase_update_plane(dev, card)
     elastic_drv = phase_elastic_driver(card, hooks, dealt)
     elastic = phase_elastic_drill(card)
+    mesh = phase_mesh_chunk(dev, card)
+    mesh_check = phase_mesh_check(dev, card)
+    mesh_drv = phase_mesh_driver(card)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -4385,6 +4753,17 @@ def main() -> int:
         kern["elastic_driver_launches"] = \
             elastic_drv["launches"][kern["name"]]
         kern["elastic_drill_launches"] = elastic["launches"][kern["name"]]
+        # this slice: the sharded fused chunk's timed windows (25a, 320
+        # grad steps on two local shards, the descent twice a step), the
+        # two ranks of the check (25b, 6 grad steps each) and the
+        # two-rank driver runs (25c, 80 grad steps a rank a run); the
+        # mesh arm projects with einsum, so the projection kernels launch
+        # on none of them
+        kern["mesh_launches"] = mesh["launches"][kern["name"]]
+        kern["mesh_check_launches"] = (mesh_check["launches"]
+                                       if kern["name"] == "descent" else 0)
+        kern["mesh_driver_launches"] = (mesh_drv["launches"]
+                                        if kern["name"] == "descent" else 0)
         if kern["name"] == "descent":
             # the dealt plane's shape: one launch per deal over Q = K * B
             # flat queries (22a), and the driver's Q = 40 * 64 at 2^20
@@ -4393,6 +4772,8 @@ def main() -> int:
                         "bound_by"):
                 kern[f"dealt_{key}"] = dealer["q10240"][key]
                 kern[f"dealt_driver_{key}"] = dealer["q2560"][key]
+                # the sharded chunk's shape: Q = 128 over 2^17 leaves
+                kern[f"mesh_{key}"] = mesh["descent"][key]
     for arm, result in arms.items():
         print(f"[{arm}] grad_steps_per_s {result['grad_steps_per_s']:.1f} "
               f"on {card}")
@@ -4502,6 +4883,12 @@ def main() -> int:
           f"{[round(x, 2) for x in dealt['runs']['auto_learners2']['own_grad_steps_per_sec']]}"
           f"; {elastic_drv['ticks']} ticks, {elastic_drv['actuations']} "
           f"actuations; the drill's gate {elastic['gate']} on {card}")
+    print(f"[mesh] 25a grad-steps/s {[round(x, 2) for x in mesh['windows']]}"
+          f", device busy {mesh['device_busy_ms']} ms per grad step; 25b "
+          f"gradient average {[round(x, 3) for x in mesh_check['reduce_ms_per_step']]}"
+          f" ms per grad step (gloo); 25c own grad-steps/s "
+          f"{mesh_drv['runs']['train']['own_grad_steps_per_sec']} (two ranks "
+          f"sharing the card over gloo: no multi-GPU rate) on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

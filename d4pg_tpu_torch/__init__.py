@@ -29,7 +29,10 @@ mixture-of-Gaussians critics (``core/mog.py``); the HER recipe with
 observation normalization (``envs/her.py``, ``envs/normalizer.py``,
 ``distributed/actor.py::GoalActorWorker``); and remote actors over the
 reference's wire (``core/wire.py``, ``distributed/transport.py``,
-``distributed/weight_server.py``, ``actor_main.py``).
+``distributed/weight_server.py``, ``actor_main.py``); and data-parallel
+learners over the ranks of one ``torch.distributed`` group, one device
+per rank, with the replay sharded over them (``parallel/``,
+``replay/sharded_per.py``).
 
 Precision: the port runs in float32 by default, like ``D4PGConfig``'s
 ``compute_dtype``; ``compute_dtype='bfloat16'`` runs the network

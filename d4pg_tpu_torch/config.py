@@ -170,6 +170,12 @@ class ExperimentConfig:
             )
         return dataclasses.replace(self, **updates) if updates else self
 
+    @property
+    def mesh_learner(self) -> bool:
+        """Whether these flags select the data-parallel learner."""
+        return (self.data_parallel > 1 or self.num_processes > 1
+                or bool(self.coordinator))
+
     def learner_config(self, obs_dim, act_dim: int,
                        device: str | torch.device | None = None,
                        ) -> D4PGConfig:
@@ -178,9 +184,10 @@ class ExperimentConfig:
         conv-encoder pixel path. ``projection='auto'`` resolves first,
         through the port's autotuner on ``device`` (``cuda`` by default):
         it times the arms on the card and picks the plain arm on the CPU,
-        as the reference does off its accelerator. The port has no mesh
-        learner: the driver refuses those flag values before it gets here
-        (``train.check_ported``)."""
+        as the reference does off its accelerator. A mesh learner
+        (``--data_parallel > 1``, ``--num_processes > 1`` or a
+        ``--coordinator``) resolves ``auto`` to ``einsum`` without timing,
+        as the reference does."""
         resolved = self.resolve()
         pixels = not np.isscalar(obs_dim)
         projection = self.projection
@@ -190,7 +197,8 @@ class ExperimentConfig:
             projection = select_projection(
                 "auto", batch_size=self.batch_size,
                 v_min=float(resolved.v_min), v_max=float(resolved.v_max),
-                n_atoms=self.n_atoms, device=device).selected
+                n_atoms=self.n_atoms, mesh=self.mesh_learner,
+                device=device).selected
         return D4PGConfig(
             obs_dim=int(np.prod(obs_dim)) if pixels else int(obs_dim),
             pixels=pixels,

@@ -22,8 +22,10 @@ Thread safety: the commit thread updates while actors and the evaluator
 read. ``stats`` copies the pair under the lock, so a reader sees one
 consistent (mean, std) however a fold interleaves.
 
-The multi-host ``SyncedRunningMeanStd`` (an allgather of the statistics)
-waits for the multi-host slice (ROADMAP Queue 1 item 16).
+With several ranks (``parallel/``), ``SyncedRunningMeanStd`` keeps one
+set of statistics on every rank: each rank folds its own rows into a
+delta, and a collective ``sync`` merges every rank's delta in rank
+order.
 """
 
 from __future__ import annotations
@@ -103,6 +105,37 @@ class RunningMeanStd:
             self.clip = float(d.get("clip", self.clip))
             self.eps = float(d.get("eps", self.eps))
 
+
+
+class SyncedRunningMeanStd(RunningMeanStd):
+    """The multi-rank variant (the HER paper's MPI-averaged
+    normalization): each rank's replay folds ONLY into a local delta
+    estimator, and :meth:`sync`, called at a point every rank reaches in
+    lockstep (the cycle boundary), gathers every rank's ``[count, mean,
+    m2]`` delta in float64 over the host group and merges them in rank
+    order, so every rank ends with bitwise-identical statistics.
+    ``normalize``, ``stats`` and the checkpoint payload read the merged
+    estimator (at most one cycle stale)."""
+
+    def __init__(self, dim: int, mesh, clip: float = 5.0, eps: float = 1e-2):
+        super().__init__(dim, clip, eps)
+        self._mesh = mesh
+        self._delta = RunningMeanStd(dim, clip, eps)
+
+    def update(self, batch: np.ndarray) -> None:
+        self._delta.update(batch)
+
+    def sync(self) -> None:
+        """Collective: every rank calls it at the same point."""
+        d = self._delta
+        with d._lock:
+            payload = np.concatenate(
+                [[d._count], d._mean, d._m2]).astype(np.float64)
+            d._count = 0.0
+            d._mean = np.zeros(self.dim, np.float64)
+            d._m2 = np.zeros(self.dim, np.float64)
+        for row in self._mesh.gather_host(payload):  # rank order
+            self.merge(row[0], row[1:1 + self.dim], row[1 + self.dim:])
 
 class FrozenNormalizer:
     """Read-only (mean, std) view for actors that get the statistics over

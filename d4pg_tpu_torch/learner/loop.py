@@ -42,7 +42,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from d4pg_tpu_torch.learner.fused import make_fused_chunk
+from d4pg_tpu_torch.learner.fused import (
+    make_fused_chunk,
+    make_sharded_fused_chunk,
+)
 from d4pg_tpu_torch.learner.pipeline import IngestOverlap
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
 from d4pg_tpu_torch.obs.trace import RECORDER as trace_recorder
@@ -52,7 +55,10 @@ from d4pg_tpu_torch.replay.uniform import TransitionBatch
 class FusedLoop:
     """Drives fused replay+learn chunks against a ``FusedDeviceReplay``
     (its ``storage``, ``size`` and, when ``prioritized``, ``trees``),
-    fed by ``service`` when one is given."""
+    fed by ``service`` when one is given. With a ``mesh`` (a
+    ``parallel/mesh.RankMesh``) the buffer is this rank's
+    ``ShardedFusedReplay`` and the chunks are the sharded ones
+    (``learner/fused.make_sharded_fused_chunk``)."""
 
     def __init__(
         self,
@@ -67,6 +73,7 @@ class FusedLoop:
         beta0: float = 0.4,
         beta_steps: int = 100_000,
         service=None,
+        mesh=None,
     ):
         if service is not None and not all(
                 hasattr(service, op) for op in
@@ -85,6 +92,7 @@ class FusedLoop:
         self._alpha = float(alpha)
         self._beta0 = float(beta0)
         self._beta_steps = int(beta_steps)
+        self._mesh = mesh
         self._fns: dict[int, Callable] = {}
         self.ingest = IngestOverlap(service) if service is not None else None
         self.steps_done = 0
@@ -93,10 +101,13 @@ class FusedLoop:
     def fused_for(self, k: int) -> Callable:
         """The fused-chunk function for chunk length ``k`` (cached)."""
         if k not in self._fns:
-            self._fns[k] = make_fused_chunk(
-                self._config, k=k, batch_size=self._batch_size,
-                prioritized=self._prioritized, alpha=self._alpha,
-                beta0=self._beta0, beta_steps=self._beta_steps)
+            kwargs = dict(k=k, batch_size=self._batch_size,
+                          prioritized=self._prioritized, alpha=self._alpha,
+                          beta0=self._beta0, beta_steps=self._beta_steps)
+            self._fns[k] = (
+                make_sharded_fused_chunk(self._config, self._mesh, **kwargs)
+                if self._mesh is not None
+                else make_fused_chunk(self._config, **kwargs))
         return self._fns[k]
 
     def run(

@@ -39,7 +39,7 @@ choose actions.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, Iterable, NamedTuple
 
 import torch
 
@@ -80,10 +80,16 @@ def update_step(
     batch: TransitionBatch,
     is_weights: torch.Tensor | None = None,
     draws: UpdateDraws | None = None,
+    grad_reduce: Callable[[Iterable[torch.nn.Parameter]], None] | None
+    = None,
 ) -> dict[str, torch.Tensor]:
     """One full D4PG update of ``state`` in place. Returns scalar
     ``critic_loss`` / ``actor_loss`` / ``q_mean`` and the per-sample
-    ``td_error`` [B] (the PER priority signal), all detached."""
+    ``td_error`` [B] (the PER priority signal), all detached.
+    ``grad_reduce(params)``, when given, runs between each ``backward``
+    and its Adam step on that network's parameters (the data-parallel
+    learner averages their gradients over ranks there,
+    ``parallel/data_parallel.grad_reducer``)."""
     draws = UpdateDraws() if draws is None else draws
     gen = state.generator
     if config.augment == "shift":
@@ -119,6 +125,8 @@ def update_step(
         critic_loss = weighted_mean(td_error, is_weights)
     state.critic_opt.zero_grad(set_to_none=True)
     critic_loss.backward()
+    if grad_reduce is not None:
+        grad_reduce(state.critic.parameters())
     state.critic_opt.step()
     if config.share_encoder:
         tie_encoder(state.actor, state.critic)
@@ -136,6 +144,8 @@ def update_step(
     grads = torch.autograd.grad(actor_loss, params, allow_unused=True)
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
+    if grad_reduce is not None:
+        grad_reduce(params)
     state.actor_opt.step()
     if config.share_encoder:
         tie_encoder(state.actor, state.critic)
@@ -161,10 +171,13 @@ def multi_update_step(
     batches: TransitionBatch,
     weights: torch.Tensor | None = None,
     draws: UpdateDraws | None = None,
+    grad_reduce: Callable[[Iterable[torch.nn.Parameter]], None] | None
+    = None,
 ) -> dict[str, torch.Tensor]:
     """K sequential :func:`update_step` calls over batches stacked along a
     leading K axis (fields [K, B, ...], ``weights`` [K, B], injected
-    ``draws`` [K, ...]); ``state`` is updated in place. Returns the
+    ``draws`` [K, ...]); ``state`` is updated in place, each step through
+    ``grad_reduce`` when given. Returns the
     metrics stacked along K (``td_error`` [K, B] feeds a batched priority
     write-back)."""
     steps = []
@@ -172,7 +185,8 @@ def multi_update_step(
         batch = TransitionBatch(*[field[t] for field in batches])
         steps.append(update_step(config, state, batch,
                                  None if weights is None else weights[t],
-                                 None if draws is None else draws.at(t)))
+                                 None if draws is None else draws.at(t),
+                                 grad_reduce))
     return {name: torch.stack([m[name] for m in steps]) for name in steps[0]}
 
 

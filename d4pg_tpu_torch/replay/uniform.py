@@ -75,16 +75,26 @@ def pack_rows(rows: TransitionBatch, head: int, size: int,
     }
 
 
-def unpack_rows(d: dict, capacity: int):
-    """Validate and unpack a :func:`pack_rows` payload; returns
-    ``(batch_or_None, head, size)``. The capacity must match exactly: a
-    wrapped ring laid into another capacity would point head and size at
-    the wrong slots."""
+def validate_rows(d: dict, capacity: int) -> None:
+    """Refuse a :func:`pack_rows` payload that cannot restore into a
+    ``capacity``-sized ring: one a sharded (data-parallel) buffer saved,
+    or one of another capacity (a wrapped ring laid into another capacity
+    would point head and size at the wrong slots)."""
+    if "sharded" in d:
+        raise ValueError(
+            "replay checkpoint was saved by a sharded (data_parallel) "
+            "buffer; resume with the same --data_parallel degree")
     ckpt_cap = int(d.get("capacity", -1))
     if ckpt_cap != capacity:
         raise ValueError(
             f"replay checkpoint capacity {ckpt_cap} != buffer capacity "
             f"{capacity}; resume with the same --rmsize")
+
+
+def unpack_rows(d: dict, capacity: int):
+    """Validate (:func:`validate_rows`) and unpack a :func:`pack_rows`
+    payload; returns ``(batch_or_None, head, size)``."""
+    validate_rows(d, capacity)
     size = int(d["size"])
     batch = (TransitionBatch(*[d["rows"][f] for f in TransitionBatch._fields])
              if size else None)

@@ -100,6 +100,19 @@ Devices. The learner runs on the CUDA card for ``--platform auto`` and
 runs the learner on the CPU (the tests do). Acting and eval run where
 ``--actor_device`` says (the host CPU by default).
 
+Data-parallel and multi-process learners (``parallel/``): with
+``--data_parallel N`` (spawned local ranks) or ``--coordinator H:P
+--num_processes W --process_id r`` the driver runs as one rank of a rank
+mesh (``train``, ``run_learner``): the state replicated from rank 0, the
+gradients averaged over ranks, on the fused path the rank's own shards
+of ``replay/sharded_per.ShardedFusedReplay`` fed by its own actors
+(seeded ``seed + 100003 * r``) through ``FusedLoop(mesh=...)``, on the
+host-sampled path its own replay sampled B rows a rank (a global batch
+of W * B) with one global PER weight base; ``SyncedRunningMeanStd``
+under ``--normalize_obs``; rank 0 alone owns io, eval and the state
+checkpoint, every rank its replay sidecar ``replay_p<r>.pkl``, and a
+resume agrees across ranks (``resume_ranks``).
+
 Every flag value that selects a path the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item (``check_ported``); none
 is skipped quietly. gymnasium is imported only inside ``make_env_fn``,
@@ -135,7 +148,8 @@ from d4pg_tpu_torch.envs.fake import (
     PointMassEnv,
     SlowEnv,
 )
-from d4pg_tpu_torch.envs.normalizer import RunningMeanStd
+from d4pg_tpu_torch.envs.normalizer import (RunningMeanStd,
+                                           SyncedRunningMeanStd)
 from d4pg_tpu_torch.envs.wrappers import FrameStack
 from d4pg_tpu_torch.envs.vector import EnvPool
 from d4pg_tpu_torch.io.checkpoint import (CheckpointManager,
@@ -152,9 +166,17 @@ from d4pg_tpu_torch.learner.state import init_state
 from d4pg_tpu_torch.learner.update import multi_update_step, update_step
 from d4pg_tpu_torch.obs.containment import contained_crash
 from d4pg_tpu_torch.obs.trace import RECORDER as trace_recorder
+from d4pg_tpu_torch.parallel import multihost
+from d4pg_tpu_torch.parallel.data_parallel import (
+    check_mesh_compatible,
+    make_sharded_multi_update,
+    make_sharded_update,
+    replicate_state,
+)
 from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
 from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from d4pg_tpu_torch.replay.schedule import LinearSchedule, SharedBetaSchedule
+from d4pg_tpu_torch.replay.sharded_per import ShardedFusedReplay
 from d4pg_tpu_torch.replay.uniform import ReplayBuffer, TransitionBatch
 from d4pg_tpu_torch.serving.client import ActorConfig
 
@@ -165,14 +187,10 @@ def _unported(cfg: ExperimentConfig) -> list[tuple[bool, str, str]]:
         (cfg.agg_transport == "collective",
          "--agg_transport collective (the mesh-native merge)",
          "Queue 1 item 15"),
-        (cfg.learners > 1 and cfg.data_parallel > 1,
+        (cfg.learners > 1 and cfg.mesh_learner,
          f"--learners {cfg.learners} with a mesh (--data_parallel "
-         f"{cfg.data_parallel})", "Queue 1 item 15"),
-        (cfg.data_parallel > 1, f"--data_parallel {cfg.data_parallel}",
-         "Queue 1 item 16"),
-        (bool(cfg.coordinator) or cfg.num_processes > 1,
-         "--coordinator / --num_processes > 1 (multi-host)",
-         "Queue 1 item 16"),
+         f"{cfg.data_parallel}, --num_processes {cfg.num_processes})",
+         "Queue 1 item 15"),
     ]
 
 
@@ -192,6 +210,57 @@ def learner_device(cfg: ExperimentConfig) -> torch.device:
     if cfg.platform == "cpu":
         return torch.device("cpu")
     return resolve_device("cuda")
+
+
+def _data_parallel_rank(mesh, cfg: ExperimentConfig) -> dict:
+    """One ``--data_parallel`` rank: the driver as the reference's process
+    r runs it."""
+    multihost.barrier(mesh)
+    print(f"data-parallel plane: {mesh.describe()}", flush=True)
+    return run_learner(cfg, mesh)
+
+
+def train(cfg: ExperimentConfig) -> dict:
+    """Train with the resolved flags. ``--coordinator H:P --num_processes W
+    --process_id r`` joins the rank group as rank r of W (on ``cuda:0``
+    of this host, or the CPU); ``--data_parallel N`` without a
+    coordinator spawns N local ranks (rank r on ``cuda:r``, or the CPU
+    with ``--platform cpu``) and returns rank 0's result. Each rank runs
+    the driver as the reference's process r does: rank 0 alone owns io,
+    eval and the state checkpoint."""
+    cfg = cfg.resolve()
+    check_ported(cfg)
+    if cfg.mesh_learner:
+        # refused before any rank starts, with the rule table
+        check_mesh_compatible(cfg)
+    if cfg.coordinator or cfg.num_processes > 1:
+        if not cfg.coordinator:
+            raise ValueError(f"--num_processes {cfg.num_processes} needs "
+                             "--coordinator host:port (rank 0's address)")
+        if cfg.data_parallel not in (1, cfg.num_processes):
+            raise ValueError(
+                f"--data_parallel {cfg.data_parallel} with a coordinator "
+                f"must be 1 or --num_processes ({cfg.num_processes}): one "
+                "rank per process")
+        device = learner_device(cfg)
+        if device.type == "cuda":
+            device = torch.device("cuda", 0)
+            torch.cuda.set_device(device)
+        multihost.initialize(cfg.coordinator, cfg.num_processes,
+                             cfg.process_id)
+        try:
+            mesh = multihost.global_mesh(device)
+            # the collective context, while the ranks are in lockstep
+            multihost.barrier(mesh)
+            print(f"joined the rank group: {mesh.describe()}", flush=True)
+            return run_learner(cfg, mesh)
+        finally:
+            multihost.shutdown()
+    if cfg.data_parallel > 1:
+        return multihost.spawn_local(
+            _data_parallel_rank, cfg.data_parallel, args=(cfg,),
+            device_type=learner_device(cfg).type, timeout_s=None)[0]
+    return run_learner(cfg, None)
 
 
 def make_env_fn(cfg: ExperimentConfig, seed: int):
@@ -421,25 +490,42 @@ class RemotePlanes:
 
 
 def resolve_storage(cfg: ExperimentConfig, obs_dim, act_dim: int,
-                    device: torch.device,
-                    obs_dtype=np.float32) -> tuple[str, bool]:
+                    device: torch.device, obs_dtype=np.float32,
+                    mesh=None) -> tuple[str, bool]:
     """``(storage, fused)`` as the reference resolves ``replay_storage``
-    and ``fused_replay`` for one single-host learner
-    (``d4pg_tpu/train.py``), with ``device != cpu`` where the reference
-    asks ``jax.default_backend() != 'cpu'``: ``auto`` storage is the
-    device ring on the card when it fits (under 8e9 bytes, observations
-    reckoned at ``obs_dtype``'s itemsize) and host RAM otherwise; the path is fused when the storage is ``device`` and fused
-    replay is not ``off``. ``--fused_replay on`` with host storage raises
-    ``ValueError``."""
+    and ``fused_replay`` (``d4pg_tpu/train.py``), with ``device != cpu``
+    where the reference asks ``jax.default_backend() != 'cpu'``: ``auto``
+    storage is the device ring on the card when it fits (under 8e9 bytes
+    per data-axis shard of ``mesh``, observations reckoned at
+    ``obs_dtype``'s itemsize) and host RAM otherwise; a mesh learner
+    takes device storage only through the fused path. The path is fused
+    when the storage is ``device`` and fused replay is not ``off``.
+    ``--fused_replay on`` with host storage, and device storage on a mesh
+    with fused replay off, raise ``ValueError``."""
     storage = cfg.replay_storage
+    n_ring_shards = 1 if mesh is None else mesh.n_shards
     if storage == "auto":
         obs_elems = int(np.prod(obs_dim))
         ring_bytes = cfg.memory_size * (
             2 * obs_elems * np.dtype(obs_dtype).itemsize + (act_dim + 3) * 4)
-        # a single-host learner without a mesh keeps the device ring even
-        # with fused replay off (the non-fused device ring)
-        storage = "device" if device.type != "cpu" and ring_bytes < 8e9 \
-            else "host"
+        # a learner without a mesh keeps the device ring even with fused
+        # replay off (the non-fused device ring); a mesh learner only
+        # through the fused path
+        storage = ("device" if device.type != "cpu"
+                   and ring_bytes / n_ring_shards < 8e9
+                   and (cfg.fused_replay != "off" or mesh is None)
+                   else "host")
+    elif storage == "device" and mesh is not None and \
+            cfg.fused_replay == "off":
+        if cfg.coordinator:
+            raise ValueError(
+                "--replay_storage device on the multi-host runtime requires "
+                "the fused replay path (--fused_replay auto/on); with it "
+                "disabled, per-host replay shards stay in host RAM — use "
+                "'host' or 'auto'")
+        raise ValueError(
+            "--replay_storage device with --data_parallel > 1 requires "
+            "the fused path (--fused_replay auto/on)")
     fused = cfg.fused_replay != "off" and storage == "device"
     if cfg.fused_replay == "on" and not fused:
         raise ValueError(
@@ -481,6 +567,52 @@ def _load_host_replay(run_dir: str, process_index: int,
     return snap, snap_step
 
 
+def resume_ranks(mesh, state, generator, ckpt, service: ReplayService,
+                 run_dir: str, fused: bool) -> dict:
+    """Resume on a rank mesh: rank 0 restores the latest checkpoint into
+    ``state`` (and its PER generator) and broadcasts whether it found one,
+    the env-step count and the normalizer's statistics; the state itself
+    is rank 0's broadcast (``replicate_state``). Every rank then loads
+    its own replay sidecar. On the fused path the ranks' shard-sets form
+    one logical buffer, so they must come from the same save: when the
+    ranks' sidecar steps disagree, or one is missing, every rank starts
+    with an empty buffer. Returns the checkpoint's ``extra`` (empty when
+    there is none)."""
+    found = ckpt is not None and ckpt.latest_step is not None
+    extra: dict = {}
+    if found:
+        _, extra = ckpt.restore(state, generator=generator)
+    norm = extra.get("obs_norm")
+    meta = mesh.broadcast_object({
+        "found": found, "env_steps": int(extra.get("env_steps", 0)),
+        "obs_norm": norm_state_from_payload(norm) if norm else None})
+    if not meta["found"]:
+        return {}
+    replicate_state(state, mesh)
+    env_steps = meta["env_steps"]
+    service.set_env_steps(env_steps)
+    snap, snap_step = _load_host_replay(run_dir, mesh.rank, state.step)
+    if fused:
+        steps = mesh.gather_host(np.array([snap_step], np.int64))[:, 0]
+        if steps.min() == steps.max() >= 0:
+            _restore_replay(service, snap, env_steps)
+        elif snap is not None:
+            print(f"[p{mesh.rank}] replay sidecar steps disagree across "
+                  f"ranks ({steps.tolist()}); all ranks restart with empty "
+                  "replay", flush=True)
+    elif snap is not None:
+        _restore_replay(service, snap, env_steps)
+    print(f"[p{mesh.rank}] resumed from step {state.step} "
+          f"({service.env_steps} env steps, {len(service)} replay rows)",
+          flush=True)
+    out = {"env_steps": env_steps}
+    if meta["obs_norm"] is not None:
+        d = meta["obs_norm"]
+        out["obs_norm"] = {**d, "mean": torch.from_numpy(d["mean"]),
+                           "m2": torch.from_numpy(d["m2"])}
+    return out
+
+
 def _restore_replay(service: ReplayService, snap: dict,
                     env_steps: int) -> None:
     """Land a sidecar in the service: a service snapshot through
@@ -495,10 +627,17 @@ def _restore_replay(service: ReplayService, snap: dict,
         service.load_replay_state(snap)
 
 
-def train(cfg: ExperimentConfig) -> dict:
-    cfg = cfg.resolve()
-    check_ported(cfg)
-    device = learner_device(cfg)
+def run_learner(cfg: ExperimentConfig, mesh) -> dict:
+    """The driver on one learner (``mesh`` None) or as one rank of a rank
+    mesh (``parallel/mesh.RankMesh``)."""
+    device = learner_device(cfg) if mesh is None else mesh.device
+    rank = 0 if mesh is None else mesh.rank
+    is_main = rank == 0
+    if mesh is not None and mesh.world > 1 and device.type == "cpu":
+        # CPU ranks share their host's cores with each other and with
+        # their actors; at torch's default every rank would start a
+        # thread per core. Card ranks keep the default.
+        torch.set_num_threads(1)
     obs_dim, act_dim, obs_dtype = infer_dims(cfg)
     if cfg.normalize_obs and not np.isscalar(obs_dim):
         raise ValueError("--normalize_obs is for vector observations; "
@@ -507,15 +646,18 @@ def train(cfg: ExperimentConfig) -> dict:
     os.makedirs(run_dir, exist_ok=True)
 
     storage, fused = resolve_storage(cfg, obs_dim, act_dim, device,
-                                     obs_dtype)
+                                     obs_dtype, mesh)
     K = max(1, cfg.updates_per_dispatch)
-    dealt_arm = resolve_dealt_arm(cfg, K, device)
+    dealt_arm = resolve_dealt_arm(cfg, K, device, mesh)
     if dealt_arm in ("scan", "pallas"):
         # the replicas consume dealt blocks: no learner-side fused loop;
         # the service's buffer is the generation-tracked device ring
         fused = False
     config = cfg.learner_config(obs_dim, act_dim, device=device)
+    # the same seed on every rank, then rank 0's state broadcast
     state = init_state(config, cfg.seed, device)
+    if mesh is not None:
+        replicate_state(state, mesh)
 
     # --- replay, fed through the service ------------------------------------
     if dealt_arm in ("scan", "pallas"):
@@ -526,6 +668,16 @@ def train(cfg: ExperimentConfig) -> dict:
                                    alpha=cfg.per_alpha, prioritized=True,
                                    device=device, obs_dtype=obs_dtype,
                                    gen_tracked=True)
+    elif fused and mesh is not None:
+        if cfg.batch_size % mesh.n_shards:
+            # at startup, not after a whole warm-up of rollouts
+            raise ValueError(
+                f"--bsize {cfg.batch_size} must divide by the mesh's data "
+                f"axis ({mesh.n_shards}) for the sharded fused replay path")
+        buffer = ShardedFusedReplay(cfg.memory_size, obs_dim, act_dim, mesh,
+                                    alpha=cfg.per_alpha,
+                                    prioritized=cfg.prioritized_replay,
+                                    obs_dtype=obs_dtype)
     elif fused:
         # one staging ring per ingest shard: the service's shard workers
         # stage into them directly (a lone ring would get K pushers)
@@ -550,27 +702,39 @@ def train(cfg: ExperimentConfig) -> dict:
     # the service's commit thread owns the statistics: it folds every
     # ingested row into them and inserts the rows normalized; actors and
     # the eval read them, remote actors get them with the weights
-    obs_norm = (RunningMeanStd(config.obs_dim, clip=cfg.normalize_clip)
-                if cfg.normalize_obs else None)
+    # (with a mesh, one set of statistics on every rank: each rank folds a
+    # delta and ``sync`` merges them at the cycle boundaries)
+    obs_norm = None
+    if cfg.normalize_obs:
+        obs_norm = (RunningMeanStd(config.obs_dim, clip=cfg.normalize_clip)
+                    if mesh is None else SyncedRunningMeanStd(
+                        config.obs_dim, mesh, clip=cfg.normalize_clip))
     service = ReplayService(buffer, obs_norm=obs_norm,
                             num_ingest_shards=cfg.ingest_shards)
     if cfg.trace_sample > 0:
         trace_recorder.enable(cfg.trace_sample)
 
-    # --- io ----------------------------------------------------------------
-    bus = MetricsBus(echo=True)
-    try:
-        bus.add_sink(TensorBoardSink(run_dir))
-    except Exception as e:  # tensorboard is optional at run time
-        print(f"tensorboard disabled: {e}")
-    bus.add_sink(CsvLogger(
-        os.path.join(run_dir, "returns.csv"),
-        ["avg_test_reward", "ewma_test_reward", "success_rate"]))
-    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
-    # the learner's random draws (PER uniforms); checkpointed with the state
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    # --- io (rank 0 owns all of it) ----------------------------------------
+    bus = MetricsBus(echo=is_main)
+    ckpt = None
+    if is_main:
+        try:
+            bus.add_sink(TensorBoardSink(run_dir))
+        except Exception as e:  # tensorboard is optional at run time
+            print(f"tensorboard disabled: {e}")
+        bus.add_sink(CsvLogger(
+            os.path.join(run_dir, "returns.csv"),
+            ["avg_test_reward", "ewma_test_reward", "success_rate"]))
+        ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    # the learner's random draws (PER uniforms), a stream per rank;
+    # checkpointed with the state
+    generator = torch.Generator(device=device).manual_seed(
+        cfg.seed + 100_003 * rank)
     extra: dict = {}
-    if cfg.resume and ckpt.latest_step is not None:
+    if cfg.resume and mesh is not None:
+        extra = resume_ranks(mesh, state, generator, ckpt, service,
+                             run_dir, fused)
+    elif cfg.resume and ckpt.latest_step is not None:
         state, extra = ckpt.restore(state, generator=generator)
         service.set_env_steps(extra.get("env_steps", 0))
         # the replay sidecar, when --checkpoint_replay wrote one: stale
@@ -612,26 +776,33 @@ def train(cfg: ExperimentConfig) -> dict:
         gamma=cfg.gamma, reward_scale=cfg.reward_scale, noise=cfg.noise,
         random_eps=cfg.random_eps, ou_theta=cfg.ou_theta,
         ou_sigma=cfg.ou_sigma, ou_mu=cfg.ou_mu, device=cfg.actor_device)
+    # the learner's seed is every rank's (replicated params); each rank's
+    # actors explore from their own
+    aseed = cfg.seed + 100_003 * rank
     actors = []
     for w in range(cfg.n_workers):
         if cfg.her:
             actors.append(GoalActorWorker(
                 f"actor-{w}", config, actor_cfg,
-                make_env_fn(cfg, seed=cfg.seed + w)(), service, weights,
-                her_ratio=cfg.her_ratio, rng_seed=cfg.seed + w,
-                seed=cfg.seed + w, obs_norm=obs_norm, learner_device=device))
+                make_env_fn(cfg, seed=aseed + w)(), service, weights,
+                her_ratio=cfg.her_ratio, rng_seed=aseed + w,
+                seed=aseed + w, obs_norm=obs_norm, learner_device=device))
             continue
-        pool = EnvPool([make_env_fn(cfg, seed=cfg.seed + w * cfg.num_envs + i)
-                        for i in range(cfg.num_envs)], seed=cfg.seed + w)
+        pool = EnvPool([make_env_fn(cfg, seed=aseed + w * cfg.num_envs + i)
+                        for i in range(cfg.num_envs)], seed=aseed + w)
         actors.append(ActorWorker(f"actor-{w}", config, actor_cfg, pool,
-                                  service, weights, seed=cfg.seed + w,
+                                  service, weights, seed=aseed + w,
                                   learner_device=device,
                                   obs_dtype=obs_dtype, obs_norm=obs_norm))
-    evaluator = Evaluator(config, make_env_fn(cfg, seed=cfg.seed + 777),
-                          weights, max_steps=cfg.max_steps,
-                          goal_conditioned=cfg.her, device=cfg.actor_device,
-                          obs_norm=obs_norm, learner_device=device)
-    async_eval = AsyncEvaluator(evaluator) if cfg.concurrent_eval else None
+    # rank 0 owns eval
+    evaluator = (Evaluator(config, make_env_fn(cfg, seed=cfg.seed + 777),
+                           weights, max_steps=cfg.max_steps,
+                           goal_conditioned=cfg.her,
+                           device=cfg.actor_device, obs_norm=obs_norm,
+                           learner_device=device)
+                 if is_main else None)
+    async_eval = (AsyncEvaluator(evaluator)
+                  if cfg.concurrent_eval and evaluator is not None else None)
 
     # --- warmup (skipped when the buffer already holds enough) -------------
     if len(service) < cfg.warmup:
@@ -650,11 +821,12 @@ def train(cfg: ExperimentConfig) -> dict:
     lstep = state.step
     replicas, aggregator = learner_plane(cfg, config, state, service,
                                          weights, fused, dealt_arm, K,
-                                         norm_snapshot)
+                                         norm_snapshot, mesh)
     fused_loop = (FusedLoop(
         config, buffer, k=K, batch_size=cfg.batch_size, generator=generator,
         prioritized=cfg.prioritized_replay, alpha=cfg.per_alpha,
-        beta0=cfg.per_beta0, beta_steps=cfg.per_beta_steps, service=service)
+        beta0=cfg.per_beta0, beta_steps=cfg.per_beta_steps, service=service,
+        mesh=mesh)
         if fused else None)
 
     def publish():
@@ -677,12 +849,24 @@ def train(cfg: ExperimentConfig) -> dict:
         return fused_loop.run(state, n, on_chunk=on_chunk)
 
     # --- the host-sampled path: K-chunks staged two deep ------------------
+    # With a mesh every rank samples B rows of its own replay (a global
+    # batch of world * B rows) and the updates average the gradients over
+    # ranks; every rank normalizes its IS weights by one global base,
+    # refreshed once per ``train_steps`` call.
+    weight_base: dict = {"z": None}
+
+    def refresh_weight_base():
+        if mesh is not None and cfg.prioritized_replay:
+            weight_base["z"] = multihost.global_min_scalar(
+                mesh, service.weight_base())
+
     def sample_chunk():
         """One K-chunk: the host tree walks pick [K, B] slots, one storage
         gather fetches the rows (a device ring keeps them on the card)."""
         if cfg.prioritized_replay:
             batches, w, idx, gen = service.sample_chunk(
-                K, cfg.batch_size, beta=beta.value(lstep))
+                K, cfg.batch_size, beta=beta.value(lstep),
+                weight_base=weight_base["z"])
             return (batches, w), (idx, gen)
         batches, _, _, _ = service.sample_chunk(K, cfg.batch_size)
         return (batches, None), None
@@ -692,10 +876,20 @@ def train(cfg: ExperimentConfig) -> dict:
         for i in range(len(idx)):
             service.update_priorities(idx[i], td[i], generation=gen[i])
 
+    sharded_update, sharded_multi = (None, None) if mesh is None else (
+        make_sharded_update(config, mesh,
+                            use_is_weights=cfg.prioritized_replay),
+        make_sharded_multi_update(config, mesh,
+                                  use_is_weights=cfg.prioritized_replay))
+
     def chunk_update(chunk_state, batches, w=None):
+        if sharded_multi is not None:
+            return chunk_state, sharded_multi(chunk_state, batches, w)
         return chunk_state, multi_update_step(config, chunk_state, batches,
                                               w)
 
+    # with a mesh each rank's chunk is its block of the global
+    # [K, world * B] one, and its td rows are the ones it sampled
     pipeline = (ChunkPipeline(
         chunk_update, sample_chunk,
         write_back=per_write_back if cfg.prioritized_replay else None,
@@ -712,22 +906,29 @@ def train(cfg: ExperimentConfig) -> dict:
         return TransitionBatch(*[torch.as_tensor(f, device=device)
                                  for f in batch])
 
+    def single_update(batch, w=None):
+        w = None if w is None else torch.as_tensor(w, device=device)
+        if sharded_update is not None:
+            return sharded_update(state, to_device(batch), w)
+        return update_step(config, state, to_device(batch), w)
+
     def train_single():
         """One grad step with its priority write-back at once (the
         ``n % K`` remainder, and every step at K = 1)."""
         nonlocal lstep
         if cfg.prioritized_replay:
-            batch, w, idx, gen = service.sample(cfg.batch_size,
-                                                beta=beta.value(lstep))
-            metrics = update_step(config, state, to_device(batch),
-                                  torch.as_tensor(w, device=device))
+            batch, w, idx, gen = service.sample(
+                cfg.batch_size, beta=beta.value(lstep),
+                weight_base=weight_base["z"])
+            metrics = single_update(batch, w)
             lstep += 1
+            # with a mesh, this rank's rows: the ones its own buffer
+            # sampled
             td = metrics["td_error"].cpu().numpy()
             service.update_priorities(idx, np.abs(td) + 1e-6,
                                       generation=gen)
         else:
-            metrics = update_step(config, state,
-                                  to_device(service.sample(cfg.batch_size)))
+            metrics = single_update(service.sample(cfg.batch_size))
             lstep += 1
         return metrics
 
@@ -786,6 +987,7 @@ def train(cfg: ExperimentConfig) -> dict:
         elif fused:
             metrics = train_steps_fused(n)
         else:
+            refresh_weight_base()
             metrics = None
             n_chunks, remainder = (n // K, n % K) if K > 1 else (0, n)
             if n_chunks:
@@ -863,6 +1065,10 @@ def train(cfg: ExperimentConfig) -> dict:
                 raise RuntimeError("remote actors did not reach warmup")
 
         if obs_norm is not None:
+            if mesh is not None:
+                # every rank's warm-up rows into the shared statistics
+                # before anything trains (collective)
+                obs_norm.sync()
             # the warm-up just filled the statistics; remote actors built
             # their normalizer from the pre-warm-up publish: publish again
             # so every actor acts on real statistics from the first grad
@@ -876,6 +1082,10 @@ def train(cfg: ExperimentConfig) -> dict:
         timer = StepTimer(device=device)
         last_metrics: dict = {}
         n_saves = 0
+        if mesh is not None:
+            # align the first sharded update (warm-up and io differ by
+            # rank)
+            multihost.barrier(mesh)
         for epoch in range(cfg.n_epochs):
             for cycle in range(cfg.n_cycles):
                 cycle_t0 = time.monotonic()
@@ -892,6 +1102,10 @@ def train(cfg: ExperimentConfig) -> dict:
                             actor.run(ticks)
                     service.flush()
                 collect_s = time.monotonic() - cycle_t0
+                if mesh is not None and obs_norm is not None:
+                    # collective: every rank standardizes this cycle with
+                    # the same statistics
+                    obs_norm.sync()
                 timer.start()
                 if epoch == 0 and cycle == 0 and cfg.profile_dir:
                     metrics = profiled(cfg.profile_dir, device, train_steps,
@@ -907,9 +1121,11 @@ def train(cfg: ExperimentConfig) -> dict:
                 if async_eval is not None:
                     async_eval.request(cfg.eval_trials, seed=eval_seed)
                     eval_metrics = async_eval.latest()
-                else:
+                elif evaluator is not None:
                     eval_metrics = evaluator.evaluate(cfg.eval_trials,
                                                       seed=eval_seed)
+                else:
+                    eval_metrics = None
                 last_metrics = {
                     "env_steps": service.env_steps,
                     "weight_lag_steps": weight_lag,
@@ -958,10 +1174,11 @@ def train(cfg: ExperimentConfig) -> dict:
                 bus.log(lstep, last_metrics)
                 if (cycle + 1) % cfg.checkpoint_every == 0:
                     n_saves += 1
-                    saved = {"env_steps": service.env_steps}
-                    if obs_norm is not None:
-                        saved["obs_norm"] = norm_payload(obs_norm)
-                    ckpt.save(state, extra=saved, generator=generator)
+                    if ckpt is not None:
+                        saved = {"env_steps": service.env_steps}
+                        if obs_norm is not None:
+                            saved["obs_norm"] = norm_payload(obs_norm)
+                        ckpt.save(state, extra=saved, generator=generator)
                     if (cfg.checkpoint_replay and n_saves
                             % max(1, cfg.checkpoint_replay_every) == 0):
                         # the state checkpoint is on disk before the
@@ -969,9 +1186,10 @@ def train(cfg: ExperimentConfig) -> dict:
                         # crash between them never leaves a sidecar ahead
                         # of the latest state. The cut holds the buffer
                         # lock across a device-to-host copy of the ring,
-                        # hence the coarser cadence.
+                        # hence the coarser cadence. Every rank writes
+                        # its own shard-set's sidecar.
                         save_replay_sidecar(
-                            run_dir, 0, lstep,
+                            run_dir, rank, lstep,
                             service.snapshot(quiesce_timeout=2.0))
     finally:
         if autoscaler is not None:
@@ -997,7 +1215,8 @@ def train(cfg: ExperimentConfig) -> dict:
                 "eval_lag_steps": lstep - final_eval["learner_step"],
             })
             bus.log(lstep, last_metrics)
-    ckpt.wait()
+    if ckpt is not None:
+        ckpt.wait()
     bus.close()
     for r in replicas:
         r.close()
@@ -1008,11 +1227,15 @@ def train(cfg: ExperimentConfig) -> dict:
     service.close()
     for actor in actors:
         actor.close()
+    if mesh is not None:
+        # a rank leaving while a peer still evaluates or checkpoints
+        # would break the peer's next collective
+        multihost.barrier(mesh)
     return last_metrics
 
 
 def resolve_dealt_arm(cfg: ExperimentConfig, k: int,
-                      device: torch.device) -> str | None:
+                      device: torch.device, mesh=None) -> str | None:
     """The ``--sampler`` arm of ``--sample_on_ingest 1`` with PER (None
     otherwise), resolved before the buffer is built: ``scan`` and
     ``pallas`` change what the service owns."""
@@ -1023,6 +1246,11 @@ def resolve_dealt_arm(cfg: ExperimentConfig, k: int,
     arm = select_sampler(cfg.sampler, capacity=cfg.memory_size, k=k,
                          batch_size=cfg.batch_size, device=device).selected
     if arm in ("scan", "pallas"):
+        if mesh is not None:
+            raise ValueError(
+                "--sampler scan/pallas (device-dealt) makes the commit "
+                "thread the single owner of every device handle — "
+                "mesh/multi-host learners need --sampler host")
         if cfg.ingest_shards != 1:
             raise ValueError(
                 "--sampler scan/pallas needs --ingest_shards 1: the "
@@ -1038,13 +1266,18 @@ def resolve_dealt_arm(cfg: ExperimentConfig, k: int,
 
 def learner_plane(cfg: ExperimentConfig, config, state, service, weights,
                   fused: bool, dealt_arm: str | None, k: int,
-                  norm_snapshot):
+                  norm_snapshot, mesh=None):
     """``(replicas, aggregator)`` of ``--learners N > 1`` or
     ``--sample_on_ingest 1`` (``([], None)`` otherwise): the dealer, when
     there is one, attached to the service with one ring per replica, the
     in-process aggregator and N replicas on their own state copies."""
     if not (cfg.learners > 1 or cfg.sample_on_ingest):
         return [], None
+    if mesh is not None:
+        raise ValueError(
+            "--agg_transport socket composes with single-host unmeshed "
+            "learners only; replicas sharing a device mesh take "
+            "--agg_transport collective (the mesh-native merge)")
     if fused:
         raise ValueError(
             "--learners > 1 / --sample_on_ingest need the host-sampled "

@@ -68,6 +68,17 @@ ELASTIC = {
 }
 
 
+# the rank mesh, the data-parallel learner and the sharded replay
+PARALLEL = {
+    "d4pg_tpu_torch.parallel", "d4pg_tpu_torch.parallel.mesh",
+    "d4pg_tpu_torch.parallel.partition",
+    "d4pg_tpu_torch.parallel.data_parallel",
+    "d4pg_tpu_torch.parallel.multihost",
+    "d4pg_tpu_torch.parallel.multihost_check",
+    "d4pg_tpu_torch.replay.sharded_per",
+}
+
+
 def test_port_imports_with_jax_blocked():
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -75,7 +86,7 @@ def test_port_imports_with_jax_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 73  # every module of the package was imported
+    assert n_modules >= 80  # every module of the package was imported
     imported = set(out.stdout.split("] ", 1)[1].split())
     assert HOST_PATH_AND_OBS <= imported, HOST_PATH_AND_OBS - imported
     assert HER_AND_REMOTE <= imported, HER_AND_REMOTE - imported
@@ -83,6 +94,7 @@ def test_port_imports_with_jax_blocked():
     assert SERVING_DEALT_LEARNERS <= imported, \
         SERVING_DEALT_LEARNERS - imported
     assert ELASTIC <= imported, ELASTIC - imported
+    assert PARALLEL <= imported, PARALLEL - imported
 
 
 def test_port_sources_import_no_jax_or_reference():

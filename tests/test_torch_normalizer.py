@@ -8,7 +8,8 @@ buffer and over ``FusedDeviceReplay`` on the CPU, fed the same raw
 batches as the reference's service over its buffers: the stored rows and
 the statistics bitwise. ``FrozenNormalizer``, and the reference's
 ``tests/test_normalizer.py`` cases re-asserted on the port (its
-multi-host ``SyncedRunningMeanStd`` case waits for that slice).
+multi-host ``SyncedRunningMeanStd`` case is in
+``tests/test_torch_multihost.py``).
 """
 
 import numpy as np

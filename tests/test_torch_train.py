@@ -292,9 +292,6 @@ def test_fused_on_with_host_storage_raises(tmp_path):
 UNPORTED = [
     (dict(agg_transport="collective"), "item 15"),
     (dict(learners=2, data_parallel=2), "item 15"),
-    (dict(data_parallel=2), "item 16"),
-    (dict(coordinator="localhost:9999"), "item 16"),
-    (dict(num_processes=2), "item 16"),
 ]
 
 
