@@ -270,7 +270,43 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      driver as two ranks through ``--coordinator`` with per-rank
      sidecars, two cycles and a resume: equal losses, both resumed at
      step 80 with rows, the descent once per grad step of each rank;
- 26. a ``kernels`` JSON line (each kernel's launches on every path that
+ 26. the replica axis: (a) ``MeshReplicaGroup`` at the slice's width
+     (``pallas_ce``, B = 256, K = 40, one 200,000-row ring shared by the
+     replicas) at N = 1, 2 and 4 replicas on cuda:0: each replica's
+     stream bitwise an independent ``FusedLoop``'s, the async merge
+     bitwise the host ``Aggregator``'s and the CPU's on the same stacks,
+     the sync merge within rtol 1e-6, the descent and the CE kernels
+     once per replica per grad step; own grad-steps/s per replica and
+     for all N, merge ms per round, a merge under CUDA's sync debug mode
+     (no stream sync, no blocking host copy) with its device span and host
+     ms, a merge under a dispatch-level counter of host copies (0; it
+     counts a non-blocking copy to pinned memory as one), a profiled
+     merge (kernels, device ms), peak memory with the ring once; (b)
+     ``run_mesh_ab`` at the reference's ``MeshABConfig`` and at the
+     slice's width with N = 2: both arms' updates/s and
+     aggregation latency p50/p95, printed, not asserted; (c)
+     ``train.main --env point --learners 2 --data_parallel 2
+     --fused_replay off --agg_transport auto`` (one process on the one
+     card): the mesh-native banner, two cycles and a resume, versions
+     monotone, both replicas' grad steps counted;
+ 27. the model axis: (a) ``{data 2, model 2}`` as four ranks sharing
+     cuda:0 over gloo at the real pixel shape (84x84x9) with the
+     reference's equivalence widths (encoder 8, hidden 16x16, 11 atoms,
+     einsum), K = 2, batch 8: the gathered networks and the
+     losses within rtol 5e-4 / atol 1e-6 of a single-device update on
+     the card from the same state and chunk, the ranks bitwise, the
+     encoders tied, the host ms per grad step of the collectives, then a
+     sharded fused chunk per rank (the descent once per grad step); (b)
+     a ``{data 1, model 2}`` pair at phase 15's width and batch held the
+     same way against the single-device update there (losses, ranks
+     bitwise, encoders tied; within the reference's bars of the same
+     arithmetic in one process, each convolution as two halves, but for
+     a share of 1e-4; against the unsplit update, the share of
+     parameters outside the reference's bars under a bar that the sound
+     controls stay under and a TF32 control exceeds, and none outside
+     with Adam's epsilon at 1e-3 on both sides), then timed beside phase
+     15's float32 arm;
+ 28. a ``kernels`` JSON line (each kernel's launches on every path that
      runs it; the descent's time at the dealt and the sharded shapes),
      then the result line.
 """
@@ -1706,13 +1742,13 @@ def mog_config():
                       mog_samples=MOG_SAMPLES)
 
 
-def pixel_rows(rng, n):
+def pixel_rows(rng, n, act=PIXEL_ACT):
     from d4pg_tpu_torch.replay.uniform import TransitionBatch
 
     done = (rng.random(n) < 0.05).astype(np.float32)
     return TransitionBatch(
         obs=rng.integers(0, 256, (n, *PIXEL_SHAPE), dtype=np.uint8),
-        action=rng.uniform(-1, 1, (n, PIXEL_ACT)).astype(np.float32),
+        action=rng.uniform(-1, 1, (n, act)).astype(np.float32),
         reward=rng.uniform(0, 10, n).astype(np.float32),
         next_obs=rng.integers(0, 256, (n, *PIXEL_SHAPE), dtype=np.uint8),
         done=done, discount=(0.99 ** 3 * (1 - done)).astype(np.float32))
@@ -4446,16 +4482,17 @@ def _mesh_check_args(out: Path | None) -> list[str]:
     return args + (["--out", str(out)] if out is not None else [])
 
 
-def _two_ranks(argv_for, timeout: float = 300.0) -> list[str]:
-    """Both ranks of a two-process run on a free loopback port, each on
-    cuda:0 of this host; their outputs (a rank that fails or hangs fails
-    the phase, and both are stopped)."""
+def _ranks(argv_for, world: int = 2, timeout: float = 300.0) -> list[str]:
+    """The ranks of a ``world``-process run on a free loopback port, each
+    on cuda:0 of this host; their outputs (a rank that fails or hangs
+    fails the phase, and every rank is stopped)."""
     port = _free_port()
     procs = [subprocess.Popen(
         argv_for(i) + ["--coordinator", f"127.0.0.1:{port}",
-                       "--num_processes", "2", "--process_id", str(i)],
+                       "--num_processes", str(world), "--process_id",
+                       str(i)],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for i in range(2)]
+        text=True) for i in range(world)]
     outs = []
     try:
         for p in procs:
@@ -4501,7 +4538,7 @@ def phase_mesh_check(dev, card: str) -> dict:
     npz = ROOT / "runs" / "chip_smoke" / "mesh_check.npz"
     npz.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    outs = _two_ranks(lambda i: [
+    outs = _ranks(lambda i: [
         sys.executable, "-m", "d4pg_tpu_torch.parallel.multihost_check",
         *_mesh_check_args(npz if i == 0 else None)])
     wall = time.perf_counter() - t0
@@ -4606,7 +4643,7 @@ def phase_mesh_driver(card: str) -> dict:
     out: dict = {"refusal": refusal, "runs": {}, "launches": 0}
     for tag, extra in (("train", []), ("resume", ["--resume", "1"])):
         t0 = time.perf_counter()
-        outs = _two_ranks(lambda i: [
+        outs = _ranks(lambda i: [
             sys.executable, "-c",
             "import sys, chip_smoke; chip_smoke.rank_driver(sys.argv[1:])",
             *argv, *extra])
@@ -4641,6 +4678,930 @@ def phase_mesh_driver(card: str) -> dict:
               f"{2 * per_cycle} grad steps each; {wall:.2f} s ({card})")
         out["runs"][tag] = {"own_grad_steps_per_sec": own, "wall_s": wall}
     return out
+
+
+# --- the replica and model mesh axes (phases 26-27) ------------------------
+
+REPLICA_NS = (1, 2, 4)  # replicas per group, all on cuda:0
+REPLICA_ROUNDS = 2  # timed rounds of K grad steps per replica, per N
+# 26b at the slice's width: a 65,536-row ring per arm's replica (the A/B
+# times the aggregation, not the ring)
+MESH_AB_ROWS, MESH_AB_ROUNDS = 65_536, 3
+# phase 27: the reference's real pixel shape for the equivalence, and the
+# pair at phase 15's width and batch
+MODEL_K, MODEL_BATCH, MODEL_TIMED_STEPS = 2, 8, 8
+EQUIV_RTOL, EQUIV_ATOL = 5e-4, 1e-6  # tests/test_mesh_pixels.py:48-49
+# 27b's parameter bar at phase 15's width: the largest share of network
+# elements outside rtol EQUIV_RTOL / atol EQUIV_ATOL of the single-device
+# update; above the sound runs' shares (at most 0.0271), below the TF32
+# control's (0.3229) (PERF.md §6, the model axis)
+MODEL_FULL_OFF_SHARE = 0.1
+# ... and against the same arithmetic in one process (each convolution as
+# two halves): 0 in the one reading, above the ATen control's 1.4e-5
+MODEL_SAME_OFF_SHARE = 1e-4
+ADAM_EPS_PROBE = 1e-3  # 27b's probe of the cause (Adam's default: 1e-8)
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
+
+
+def _trees_equal(a, b) -> bool:
+    return all(_trees_equal(a[k], b[k]) if isinstance(a[k], dict)
+               else torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def _stack_trees(trees):
+    first = trees[0]
+    return {k: _stack_trees([t[k] for t in trees]) if isinstance(first[k],
+                                                                 dict)
+            else torch.stack([t[k] for t in trees]) for k in first}
+
+
+def _host_merge(trees, mode):
+    """The host ``Aggregator`` fed one round-synchronous round of
+    ``params_of`` trees (replica i at lag i; sync: the barrier)."""
+    import threading
+
+    from d4pg_tpu_torch.distributed.weights import WeightStore
+    from d4pg_tpu_torch.learner.aggregator import Aggregator
+
+    agg = Aggregator(WeightStore(), mode=mode)
+    epochs = [agg.register(i) for i in range(len(trees))]
+    if mode == "sync":
+        threads = [threading.Thread(target=agg.submit,
+                                    args=(i, epochs[i], trees[i], 0),
+                                    daemon=True) for i in range(len(trees))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+    else:
+        for i, tree in enumerate(trees):
+            agg.submit(i, epochs[i], tree, 0)
+    merged = agg.current()[1]
+    agg.close()
+    return merged
+
+
+def _max_rel(a, b) -> float:
+    worst = 0.0
+    for k in a:
+        if isinstance(a[k], dict):
+            worst = max(worst, _max_rel(a[k], b[k]))
+        else:
+            worst = max(worst, _rel_err(a[k].cpu(), b[k].cpu()))
+    return worst
+
+
+class _HostCopies:
+    """Counts the operators that bring a card tensor's values to the
+    host while it is entered: a copy or cast into a CPU tensor (blocking
+    or not, pinned or not) and the operators that return a Python number
+    from a card tensor (``item``, ``equal``, ``is_nonzero``). It sees
+    every operator below autograd (a ``TorchDispatchMode``), so it needs
+    no profiler."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_flatten
+
+        found = self.found = []
+        aten = torch.ops.aten
+        to_number = (aten._local_scalar_dense, aten.equal, aten.is_nonzero)
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                ins = [t for t in tree_flatten((args, kwargs))[0]
+                       if isinstance(t, torch.Tensor)]
+                if any(t.is_cuda for t in ins):
+                    written = [
+                        a for a, arg in zip(args, func._schema.arguments)
+                        if arg.alias_info is not None
+                        and arg.alias_info.is_write]
+                    dsts = [t for t in tree_flatten((out, written))[0]
+                            if isinstance(t, torch.Tensor)]
+                    if (any(not t.is_cuda for t in dsts)
+                            or func.overloadpacket in to_number):
+                        found.append(str(func))
+                return out
+
+        self._mode = Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def _profile_merge(group) -> dict:
+    """Three more ``merge()`` calls (each with its publish). The first
+    runs with CUDA's sync debug mode at ``error``, so any stream sync or
+    blocking copy to the host inside it raises, queued behind a sleep
+    kernel between CUDA events: its device span and the host's enqueue
+    ms. The second runs under ``_HostCopies``: the operators that moved
+    card values to the host, non-blocking copies included (``d2h``);
+    a non-blocking copy into pinned memory under the same counter first
+    shows that it counts one. The third runs under the profiler: its
+    kernels and copies and their device time, ``None`` where the profiler
+    recorded no device event (late in a long run it may not)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(0.02 * 2e9))
+    start.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        group.merge()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    queued = not start.query()
+    end.record()
+    end.synchronize()
+    span_ms = start.elapsed_time(end) if queued else None
+    probe = torch.ones(8, device=group.devices[0])
+    with _HostCopies() as control:
+        torch.empty(8, pin_memory=True).copy_(probe, non_blocking=True)
+    check(len(control.found) == 1, f"[replicas 26a] the host-copy counter "
+          f"counts a non-blocking copy to pinned memory ({control.found})")
+    with _HostCopies() as copies:
+        group.merge()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        group.merge()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if not e.is_user_annotation]
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    return {"span_ms": span_ms, "host_ms": host_ms, "syncs": 0,
+            "d2h": len(copies.found), "d2h_ops": copies.found,
+            "device_ms": sum(e.time_range.elapsed_us() for e in on_device)
+            / 1e3 if on_device else None,
+            "kernels": len(on_device) if on_device else None,
+            "profiler_d2h": (sum(1 for e in on_device if "DtoH" in e.name)
+                             if on_device else None)}
+
+
+def phase_replica_group(dev, card: str) -> dict:
+    """26a: ``MeshReplicaGroup`` at the slice's width (Humanoid: obs 376,
+    act 17, 256x3, 51 atoms on [0, 800], ``pallas_ce``), B = 256, one
+    200,000-row ring shared read-only by the replicas, K = 40, at N = 1,
+    2 and 4 replicas all on cuda:0. Per N, from the same states (the
+    driver's ``replica_state``): N independent ``FusedLoop``s (each over
+    its own copy of the trees) and the group's engine for one chunk: each
+    replica's networks bitwise its loop's, the descent and the CE kernels
+    exactly N x K times; the group's async merge bitwise the host
+    ``Aggregator`` fed ``params_of`` of the loops' states (N = 1: the
+    identity), every replica adopting it; the async merge of the same
+    stacks on the card bitwise the CPU's, the sync merge within rtol 1e-6
+    of the host barrier's. Then ``REPLICA_ROUNDS`` timed rounds (grad
+    steps, then the merge and its publish through a store): own
+    grad-steps/s per replica and for all N, merge ms per round to the
+    card's completion, launches; ``_profile_merge``: a merge under CUDA's
+    sync debug mode (a stream sync or a blocking host copy raises), its
+    device span and host ms, a merge under ``_HostCopies`` (0 operators
+    that move card values to the host), then a profiled merge's kernels
+    and device ms. Peak device memory over the rounds,
+    and the group's own part of it, under a ring's size (the group holds
+    the buffer's own storage: the ring counted once)."""
+    from types import SimpleNamespace
+
+    from d4pg_tpu_torch.distributed.weights import WeightStore
+    from d4pg_tpu_torch.learner.loop import FusedLoop
+    from d4pg_tpu_torch.learner.mesh_replicas import (MeshReplicaGroup,
+                                                      make_collective_merge)
+    from d4pg_tpu_torch.learner.replica import params_of, replica_state
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.replay import device_per as dper
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+
+    cfg = config("pallas_ce")
+    kernels = fused_kernels("pallas_ce")
+    t0 = time.perf_counter()
+    buf = FusedDeviceReplay(CAPACITY, OBS, ACT, alpha=0.6, device=dev)
+    rng = np.random.default_rng(26)
+    for start in range(0, CAPACITY, FILL_BLOCK):
+        buf.add(random_rows(rng, min(FILL_BLOCK, CAPACITY - start)))
+        buf.drain()
+    torch.cuda.synchronize()
+    ring_bytes = sum(t.numel() * t.element_size() for t in buf.storage)
+    print(f"[replicas 26a] ring filled: {buf.size} rows, "
+          f"{ring_bytes / 1e9:.3f} GB, {time.perf_counter() - t0:.2f} s")
+
+    def states(n):
+        base = init_state(cfg, seed=0, device=dev)
+        return [replica_state(base, i, 0) for i in range(n)]
+
+    def expect(steps):
+        return {name: steps if name in kernels else 0
+                for name in launch_counts()}
+
+    out: dict = {"launches": {name: 0 for name in launch_counts()},
+                 "runs": {}, "ring_bytes": ring_bytes}
+    for n in REPLICA_NS:
+        # the oracles: independent loops, each over its own trees
+        legacy = []
+        for st in states(n):
+            view = SimpleNamespace(
+                storage=buf.storage, size=buf.size,
+                trees=dper.PerTrees(*[t.clone() for t in buf.trees]))
+            FusedLoop(cfg, view, k=K, batch_size=BATCH,
+                      generator=st.generator).run(st, K)
+            legacy.append(params_of(st))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)  # the ring among it
+        group = MeshReplicaGroup(
+            cfg, states(n), k=K, batch_size=BATCH, mode="async",
+            store=WeightStore(), extract=lambda tree: tree["actor_params"])
+        group.load(buf)
+        check(group._storage[dev].obs.data_ptr()
+              == buf.storage.obs.data_ptr(),
+              "[replicas 26a] the group shares the ring's storage")
+        zero_counts()
+        group._fused_steps(K)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == expect(n * K), f"[replicas 26a] N = {n}: launches "
+              f"{counts}, expected {expect(n * K)}")
+        for name in counts:
+            out["launches"][name] += counts[name]
+        for i in range(n):
+            check(_trees_equal(params_of(group.state_slice(i)), legacy[i]),
+                  f"[replicas 26a] N = {n}: replica {i}'s stream bitwise "
+                  "its FusedLoop's")
+        stacks = {where: _stack_trees([_tree_to(t, where) for t in legacy])
+                  for where in ("cpu", dev)}
+        card_async = make_collective_merge(n, "async")(stacks[dev])
+        check(_trees_equal(card_async,
+                           make_collective_merge(n, "async")(stacks["cpu"])),
+              f"[replicas 26a] N = {n}: the card's async merge bitwise "
+              "the CPU's on the same stacks")
+        sync_err = _max_rel(make_collective_merge(n, "sync")(stacks[dev]),
+                            _host_merge(legacy, "sync"))
+        check(sync_err <= 1e-6, f"[replicas 26a] N = {n}: sync merge "
+              f"within rtol 1e-6 of the host barrier's ({sync_err:.3e})")
+        group.merge()
+        merged = group.merged_params()
+        check(_trees_equal(merged, _host_merge(legacy, "async")),
+              f"[replicas 26a] N = {n}: the group's async merge bitwise "
+              "the host Aggregator's")
+        for i in range(n):
+            check(_trees_equal(params_of(group.state_slice(i)), merged),
+                  f"[replicas 26a] N = {n}: replica {i} adopted the merge")
+        rates, merge_ms, enqueue_ms = [], [], []
+        for _ in range(REPLICA_ROUNDS):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            group._fused_steps(K)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            group.merge()
+            enqueue_ms.append(1e3 * group.last_merge_s)
+            torch.cuda.synchronize()
+            merge_ms.append(1e3 * (time.perf_counter() - t1))
+            rates.append(K / (t1 - t0))
+            counts = launch_counts()
+            check(counts == expect(n * K), f"[replicas 26a] N = {n} timed "
+                  f"round: launches {counts}")
+            for name in counts:
+                out["launches"][name] += counts[name]
+        prof = _profile_merge(group)  # raises on a sync or a host copy
+        check(prof["d2h"] == 0 and prof["profiler_d2h"] in (0, None),
+              f"[replicas 26a] N = {n}: the merge copied to the host "
+              f"({prof})")
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(peak - base < ring_bytes, f"[replicas 26a] N = {n}: the "
+              f"group allocated {(peak - base) / 1e9:.3f} GB over what was "
+              f"live, a ring's worth or more")
+        check(group.versions == sorted(group.versions)
+              and len(group.versions) == REPLICA_ROUNDS + 4,
+              f"[replicas 26a] N = {n}: versions {group.versions}")
+        group.close()
+        del group, legacy, stacks, card_async
+        torch.cuda.empty_cache()
+        run = {"own_grad_steps_per_s": rates,
+               "all_grad_steps_per_s": [n * r for r in rates],
+               "merge_ms": merge_ms, "merge_enqueue_ms": enqueue_ms,
+               "merge_profile": prof, "peak_bytes": peak,
+               "group_bytes": peak - base, "sync_rel_err": sync_err}
+        out["runs"][n] = run
+        print(f"[replicas 26a] N = {n} on cuda:0: streams bitwise "
+              f"{n} FusedLoops; async merge bitwise the host Aggregator "
+              f"and the CPU; sync within {sync_err:.3e}; own grad-steps/s "
+              f"per replica {[round(x, 2) for x in rates]}, all replicas "
+              f"{[round(n * x, 2) for x in rates]}; merge to completion "
+              f"{[round(x, 3) for x in merge_ms]} ms (enqueue "
+              f"{[round(x, 3) for x in enqueue_ms]} ms); a merge under "
+              f"the sync check: device span {prof['span_ms']} ms behind a "
+              f"sleep, host enqueue {prof['host_ms']:.3f} ms, stream syncs "
+              f"0; operators moving card values to the host "
+              f"{prof['d2h']}; profiled: {prof['device_ms']} ms of device "
+              f"in {prof['kernels']} kernels and copies, D2H copies "
+              f"{prof['profiler_d2h']} (None: no device event recorded); "
+              f"peak device memory {peak / 1e9:.3f} GB, of which "
+              f"{(peak - base) / 1e9:.3f} GB over what was live before the "
+              f"group (the {ring_bytes / 1e9:.3f} GB ring among it, "
+              f"counted once) ({card})")
+    del buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_ab(dev, card: str) -> dict:
+    """26b: ``run_mesh_ab`` at the reference's ``MeshABConfig`` (obs 8,
+    32x32, N = 2, 6 timed rounds of 8 steps at K = 4, B = 32), then at the
+    slice's width (obs 376, act 17, 256x3, B = 256, K = 40, N = 2,
+    MESH_AB_ROUNDS rounds of 40 steps, 65,536-row rings); both under the
+    port's default arm, ``pallas`` (the projection kernel and the descent
+    once per replica per grad step, in both arms). Prints
+    both arms' updates/s and aggregation latency p50 and p95; the A/B is
+    a measured claim of the reference, printed and not asserted."""
+    from d4pg_tpu_torch.fleet.mesh_ab import MeshABConfig, run_mesh_ab
+    from d4pg_tpu_torch.obs.registry import REGISTRY
+
+    crashes = REGISTRY.counter("threads.contained_crashes").value
+    out = {"launches": {name: 0 for name in launch_counts()}, "rows": {}}
+    for tag, cfg in (
+            ("reference", MeshABConfig()),
+            ("slice", MeshABConfig(
+                n_replicas=2, rounds=MESH_AB_ROUNDS, steps_per_round=K,
+                k=K, batch_size=BATCH, n_rows=MESH_AB_ROWS, obs_dim=OBS,
+                act_dim=ACT, hidden=HIDDEN))):
+        zero_counts()
+        t0 = time.perf_counter()
+        row = run_mesh_ab(cfg, device=dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        # both arms, the warm-up round included: the projection kernel
+        # and the descent once per replica per grad step
+        steps = 2 * cfg.n_replicas * (cfg.rounds + 1) * cfg.steps_per_round
+        check(counts == {**{n: 0 for n in counts}, "projection": steps,
+                         "descent": steps},
+              f"[mesh A/B {tag}] launches {counts}, expected {steps} each")
+        for name in counts:
+            out["launches"][name] += counts[name]
+        check(row["socket"]["updates_per_sec"] > 0
+              and row["collective"]["updates_per_sec"] > 0
+              and REGISTRY.counter("threads.contained_crashes").value
+              == crashes, f"[mesh A/B {tag}] both arms trained, no "
+              "replica thread crashed")
+        out["rows"][tag] = row
+        lat = {arm: row[arm]["agg_latency_s"] for arm in ("socket",
+                                                         "collective")}
+        print(f"[mesh A/B {tag}] N = {row['n_replicas']}: updates/s socket "
+              f"{row['socket']['updates_per_sec']}, collective "
+              f"{row['collective']['updates_per_sec']} (x"
+              f"{row['speedup_updates_per_sec']}); aggregation latency "
+              f"p50 / p95 socket {lat['socket']['p50']!r} / "
+              f"{lat['socket']['p95']!r} s, collective "
+              f"{lat['collective']['p50']!r} / {lat['collective']['p95']!r}"
+              f" s (ratio p50 {row['agg_latency_ratio_p50']}); launches "
+              f"{counts}; {time.perf_counter() - t0:.2f} s ({card})")
+    return out
+
+
+def phase_replica_driver(card: str, hooks: DriverHooks) -> dict:
+    """26c: ``train.main --env point --learners 2 --data_parallel 2
+    --fused_replay off --agg_transport auto`` at the default widths (a
+    shortened collect, as 25c's): one process (the collective transport
+    needs no second card), the banner names mesh-native replicas; two
+    cycles, then ``--resume 1`` for one: versions published monotone,
+    both replicas' grad steps counted (20 per cycle each), the resumed
+    run from step 40; own grad-steps/s per cycle. The mesh arm projects
+    with einsum and samples host trees: no kernel launches."""
+    import contextlib
+    import shutil
+
+    from d4pg_tpu_torch import train as driver
+
+    runs = ROOT / "runs" / "chip_smoke" / "replica_driver"
+    shutil.rmtree(runs, ignore_errors=True)
+    argv = ["--env", "point", "--learners", "2", "--data_parallel", "2",
+            "--fused_replay", "off", "--agg_transport", "auto",
+            "--warmup", "1000", "--episodes_per_cycle", "4"]
+    seen = {}
+    build = driver.mesh_replica_group
+
+    def capture(*args, **kwargs):
+        seen["group"] = build(*args, **kwargs)
+        return seen["group"]
+
+    driver.mesh_replica_group = capture
+    out: dict = {"runs": {}, "launches": {name: 0 for name in
+                                          launch_counts()}}
+    try:
+        for tag, extra in (("train", ["--n_cycles", "2"]),
+                           ("resume", ["--n_cycles", "1", "--resume", "1"])):
+            tee = _Tee()
+            with contextlib.redirect_stdout(tee):
+                result, counts, own, cycles, wall = _driver_run(
+                    hooks, driver, f"replicas {tag}", [*argv, *extra], runs)
+            said = tee.buf.getvalue()
+            group = seen.pop("group")
+            n_cycles = 2 if tag == "train" else 1
+            check("2 mesh-native replicas (collective merge)" in said,
+                  f"26c {tag}: the banner")
+            check(group.steps_done == n_cycles * 20
+                  and group.rounds == n_cycles,
+                  f"26c {tag}: grad steps {group.steps_done}, rounds "
+                  f"{group.rounds}")
+            first = 0 if tag == "train" else 40
+            steps = [group.state_slice(i).step for i in range(2)]
+            check(steps == [first + n_cycles * 20] * 2,
+                  f"26c {tag}: replica steps {steps}")
+            check(group.versions == list(range(2, 2 + n_cycles)),
+                  f"26c {tag}: versions {group.versions}")
+            if tag == "resume":
+                check("resumed from step 40" in said, "26c: resumed")
+            for name in counts:
+                out["launches"][name] += counts[name]
+            out["runs"][tag] = {"own_grad_steps_per_sec": own,
+                                "wall_s": wall}
+            print(f"[replicas 26c] {tag}: own grad-steps/s per cycle "
+                  f"{[round(x, 2) for x in own]} (2 replicas x 20 steps a "
+                  f"cycle), versions {group.versions}, replica steps "
+                  f"{steps}, final critic_loss {result['critic_loss']!r}; "
+                  f"launches {counts}; {wall:.2f} s ({card})")
+    finally:
+        driver.mesh_replica_group = build
+    return out
+
+
+def _model_axis_config(timed: bool, device):
+    """27b: phase 15's pixel model at full width under the mesh arm
+    (einsum). 27a: the reference's equivalence config
+    (``tests/test_mesh_pixels.py::_pixel_config`` at the real shape:
+    ``pixel-point`` with frame stack 3, encoder width 8, hidden 16x16, 11
+    atoms on [-10, 10], act 2, DrQ pad 4, shared encoder, data parallel
+    2), where its bars were measured."""
+    import dataclasses
+
+    from d4pg_tpu_torch.config import ExperimentConfig
+
+    if timed:
+        return dataclasses.replace(pixel_config("float32"),
+                                   projection="einsum")
+    return ExperimentConfig(
+        env="pixel-point", share_encoder=True, frame_stack=3,
+        augment="shift", augment_pad=4, encoder_width=8,
+        batch_size=MODEL_BATCH, n_atoms=11, v_min=-10.0, v_max=10.0,
+        hidden=(16, 16), data_parallel=2).learner_config(
+            PIXEL_SHAPE, 2, device=device)
+
+
+def _set_adam_eps(state, eps: float) -> None:
+    for opt in (state.actor_opt, state.critic_opt):
+        for group in opt.param_groups:
+            group["eps"] = eps
+
+
+def model_axis_rank(mesh, dev, seed, fields, w, draws, timed_steps,
+                    eps_probe):
+    """One rank of phase 27 (``model_axis_main``: a process on ``dev``;
+    gloo, since the ranks share one card): the whole state from ``seed``,
+    replicated then split over the model axis, the K-step update on this
+    rank's data block, the networks gathered whole; host seconds in the
+    model-axis and data-axis collectives per grad step. Then (27a) one
+    sharded fused chunk over this data row's shards, the descent counted;
+    or (27b, ``timed_steps``) the same update from a fresh state with
+    Adam's epsilon at ``eps_probe``, gathered, then ``timed_steps`` more
+    grad steps of the first state, timed."""
+    from d4pg_tpu_torch.learner.fused import make_sharded_fused_chunk
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.learner.update import UpdateDraws
+    from d4pg_tpu_torch.parallel import (make_sharded_multi_update,
+                                         replicate_state, shard_stacked)
+    from d4pg_tpu_torch.parallel.model_axis import gather_state
+    from d4pg_tpu_torch.replay.sharded_per import ShardedFusedReplay
+    from d4pg_tpu_torch.replay.uniform import TransitionBatch
+
+    cfg = _model_axis_config(bool(timed_steps), dev)
+    update = make_sharded_multi_update(cfg, mesh)
+    batches = shard_stacked(TransitionBatch(**{
+        f: torch.from_numpy(v) for f, v in fields.items()}), mesh)
+    wl = shard_stacked(torch.from_numpy(w), mesh)
+    dl = shard_stacked(UpdateDraws(**{
+        n: None if v is None else torch.from_numpy(v)
+        for n, v in draws.items()}), mesh)
+    k = w.shape[0]
+
+    def gathered(state):
+        return {m: {n: t.numpy() for n, t in ps.items()}
+                for m, ps in gather_state(state, mesh).items()}
+
+    state = replicate_state(init_state(cfg, seed, dev), mesh)
+    mesh.comm_s.update(model=0.0, data=0.0)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    metrics = update(state, batches, wl, draws=dl)
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t0
+    result = {"coords": (mesh.data_index, mesh.model_index),
+              "metrics": {n: v.cpu().numpy() for n, v in metrics.items()},
+              "comm_ms_per_step": {a: 1e3 * s / k
+                                   for a, s in mesh.comm_s.items()},
+              "first_s": first_s,
+              "local_conv1": tuple(state.critic.encoder.conv1.weight.shape),
+              "tied": _encoders_tied(state), "params": gathered(state)}
+    if timed_steps:
+        probe = replicate_state(init_state(cfg, seed, dev), mesh)
+        _set_adam_eps(probe, eps_probe)
+        update(probe, batches, wl, draws=dl)
+        result["eps_probe_params"] = gathered(probe)
+        del probe
+        mesh.comm_s.update(model=0.0, data=0.0)
+        rates = []
+        for _ in range(timed_steps // k):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            update(state, batches, wl, draws=dl)
+            torch.cuda.synchronize(dev)
+            rates.append(k / (time.perf_counter() - t0))
+        result["grad_steps_per_s"] = rates
+        result["comm_ms_per_step"] = {a: 1e3 * s / timed_steps
+                                      for a, s in mesh.comm_s.items()}
+        return result
+    # the sharded fused chunk on the {data, model} mesh: this data row's
+    # shard, the same rows and slots on both model ranks
+    buf = ShardedFusedReplay(64 * mesh.data_size, PIXEL_SHAPE, cfg.act_dim,
+                             mesh, alpha=0.6, obs_dtype=np.uint8)
+    buf.add(pixel_rows(np.random.default_rng(270 + mesh.data_index), 64,
+                       cfg.act_dim))
+    buf.drain()
+    chunk = make_sharded_fused_chunk(cfg, mesh, k=k,
+                                     batch_size=w.shape[1])
+    zero_counts()
+    _, m = chunk(state, buf.trees, buf.storage, buf.size,
+                 generator=torch.Generator(device=dev).manual_seed(
+                     270 + mesh.data_index))
+    torch.cuda.synchronize(dev)
+    result["chunk_launches"] = launch_counts()
+    result["chunk_idx"] = m["idx"].cpu().numpy()
+    result["chunk_finite"] = bool(torch.isfinite(m["critic_loss"]).all())
+    return result
+
+
+def model_axis_main(argv: list[str]) -> None:
+    """One rank of phase 27 through the coordinator route, as 25b's
+    ranks: ``python -c "import sys, chip_smoke;
+    chip_smoke.model_axis_main(sys.argv[1:])" IN OUT --coordinator H:P
+    --num_processes W --process_id r``. Joins the group, builds the
+    ``{data, model}`` mesh (two ranks a data row) on the device named in
+    IN (cuda:0 for every rank: they share the card), runs
+    ``model_axis_rank`` on IN's arguments and pickles its result to
+    ``OUT.<r>``."""
+    import argparse
+    import pickle
+
+    from d4pg_tpu_torch.parallel import multihost
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("inp")
+    parser.add_argument("out")
+    parser.add_argument("--coordinator")
+    parser.add_argument("--num_processes", type=int)
+    parser.add_argument("--process_id", type=int)
+    ns = parser.parse_args(argv)
+    with open(ns.inp, "rb") as f:
+        dev, *args = pickle.load(f)
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    multihost.initialize(ns.coordinator, ns.num_processes, ns.process_id)
+    try:
+        mesh = multihost.global_mesh(dev, model_parallel=2)
+        result = model_axis_rank(mesh, dev, *args)
+    finally:
+        multihost.shutdown()
+    with open(f"{ns.out}.{ns.process_id}", "wb") as f:
+        pickle.dump(result, f)
+
+
+def _model_axis_ranks(world: int, dev, args: tuple, tag: str) -> list:
+    """``world`` ranks of ``model_axis_main`` on ``dev``, their results in
+    rank order."""
+    import pickle
+
+    io = ROOT / "runs" / "chip_smoke" / f"model_axis_{tag}"
+    io.parent.mkdir(parents=True, exist_ok=True)
+    with open(f"{io}.in", "wb") as f:
+        pickle.dump((str(dev), *args), f)
+    _ranks(lambda i: [
+        sys.executable, "-c",
+        "import sys, chip_smoke; chip_smoke.model_axis_main(sys.argv[1:])",
+        f"{io}.in", f"{io}.out"], world=world)
+    outs = []
+    for r in range(world):
+        with open(f"{io}.out.{r}", "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def _single_update(cfg, dev, fields, w, draws, eps: float | None = None,
+                   tf32: bool = False, cudnn: bool = True,
+                   halves: bool = False):
+    """The single-device ``multi_update_step`` from the state of seed 0
+    on ``dev``: its state, its networks as numpy and its metrics. ``eps``
+    sets Adam's epsilon; ``tf32`` lets convolutions and matmuls round
+    their operands to TF32 (the lower-precision control); ``cudnn=False``
+    runs the convolutions through ATen's own kernels (another algorithm
+    for the same float32 math); ``halves`` computes each encoder
+    convolution as its two halves of out-channels joined, the
+    arithmetic of the model axis at two ranks in one process."""
+    from types import SimpleNamespace
+
+    import d4pg_tpu_torch.models.encoder as encoder_module
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.learner.update import multi_update_step
+    from d4pg_tpu_torch.replay.uniform import TransitionBatch
+
+    state = init_state(cfg, 0, dev)
+    if eps is not None:
+        _set_adam_eps(state, eps)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cudnn.enabled = cudnn
+    conv = encoder_module.conv_same
+
+    def conv_halves(layer, x, pads, dtype):
+        n = layer.weight.shape[0] // 2
+        return torch.cat([conv(SimpleNamespace(
+            weight=layer.weight[part], bias=layer.bias[part],
+            stride=layer.stride), x, pads, dtype)
+            for part in (slice(0, n), slice(n, None))], 1)
+
+    if halves:
+        encoder_module.conv_same = conv_halves
+    try:
+        metrics = multi_update_step(
+            cfg, state, TransitionBatch(**{
+                f: torch.from_numpy(v).to(dev) for f, v in fields.items()}),
+            torch.from_numpy(w).to(dev),
+            type(draws)(*[None if d is None else d.to(dev) for d in draws]))
+        torch.cuda.synchronize(dev)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled) = flags
+        encoder_module.conv_same = conv
+    params = {m: {n: t.detach().cpu().numpy() for n, t in
+                  getattr(state, m).state_dict().items()}
+              for m in ("actor", "critic", "target_actor", "target_critic")}
+    return state, params, {n: v.cpu().numpy() for n, v in metrics.items()}
+
+
+def _trees_bitwise(got: dict, want: dict) -> bool:
+    return all(np.array_equal(got[m][n], a) for m, ps in want.items()
+               for n, a in ps.items())
+
+
+def _param_err(got: dict, want: dict) -> tuple[float, int, float]:
+    """Max abs error over every network tensor, how many elements lie
+    outside rtol ``EQUIV_RTOL`` / atol ``EQUIV_ATOL``, and their share."""
+    worst, off, total = 0.0, 0, 0
+    for m, ps in want.items():
+        for n, a in ps.items():
+            d = np.abs(got[m][n] - a)
+            worst = max(worst, float(d.max()))
+            off += int((d > EQUIV_ATOL + EQUIV_RTOL * np.abs(a)).sum())
+            total += a.size
+    return worst, off, off / total
+
+
+def _adam_scale_of_off(got: dict, want: dict, state, cfg, k: int) -> dict:
+    """Where ``got`` leaves the reference's bars around ``want``: Adam's
+    bias-corrected second-moment root over its epsilon, sqrt(v_hat) /
+    1e-8, at those elements (from ``state``, the single-device update
+    after ``k`` steps), beside the same over every element. A target
+    network's tensor takes the moments of its trained network's, and the
+    actor's encoder (a detached copy of the critic's) the critic's."""
+    scale = {}
+    for attr, opt in (("actor", state.actor_opt),
+                      ("critic", state.critic_opt)):
+        for n, p in getattr(state, attr).named_parameters():
+            v = opt.state[p]["exp_avg_sq"] / (1 - cfg.adam_b2 ** k)
+            scale[attr, n] = (v.sqrt() / 1e-8).cpu().numpy()
+    off_ratios, all_ratios = [], []
+    for m, ps in want.items():
+        for n, a in ps.items():
+            trained = "critic" if n.startswith("encoder.") else m.replace(
+                "target_", "")
+            r = scale.get((trained, n))
+            if r is None:  # a buffer, not a parameter
+                continue
+            off = (np.abs(got[m][n] - a)
+                   > EQUIV_ATOL + EQUIV_RTOL * np.abs(a))
+            off_ratios.append(r[off])
+            all_ratios.append(r.ravel())
+    off_r = np.concatenate(off_ratios)
+    all_r = np.concatenate(all_ratios)
+    return {"n_off": int(off_r.size),
+            # shares with a zero gradient on both steps, and with
+            # sqrt(v_hat) under eps (|g| < 1e-8: Adam's step ~ lr g / eps)
+            "off_zero": float((off_r == 0).mean()) if off_r.size else None,
+            "off_below_eps": float((off_r < 1).mean()) if off_r.size
+            else None,
+            "all_zero": float((all_r == 0).mean()),
+            "all_below_eps": float((all_r < 1).mean()),
+            "all_median": float(np.median(all_r))}
+
+
+def phase_model_axis(dev, card: str, pixel: dict) -> dict:
+    """27: the model axis on the card, its ranks started as 25b's are
+    (the coordinator route, every rank on cuda:0, so gloo; every join
+    under a deadline). (a) ``{data 2, model 2}``, four ranks, at the real
+    pixel shape (84x84x9) with the reference's equivalence config
+    (``_model_axis_config``: encoder width 8, hidden 16x16, 11 atoms, act
+    2, DrQ pad 4, shared encoder, einsum), K = 2, batch 8: from the state
+    of seed 0 and the same chunk (rows, IS weights, DrQ offsets) as a
+    single-device ``multi_update_step`` on the card, every gathered
+    network within rtol 5e-4 / atol 1e-6 of it, the losses too, the four
+    ranks' networks bitwise equal, the encoders tied bitwise, each conv
+    slice 4 of 8 channels; the host ms per grad step of the model-axis
+    gathers and gradient sums and of the data-axis averages; then one
+    sharded fused chunk per rank (the descent once per grad step, the
+    model ranks of a row on the same slots). (b) ``{data 1, model 2}`` at
+    phase 15's width (encoder 32, so 16 channels a rank; 256x3, 51 atoms,
+    act 6) and batch (256), einsum, K = 2, held the same way against the
+    single-device update at that width: the losses within rtol 5e-4 /
+    atol 1e-6, the two ranks bitwise, the encoders tied, and at most a
+    share ``MODEL_SAME_OFF_SHARE`` of the network elements outside rtol
+    5e-4 / atol 1e-6 of the same arithmetic in one process (the
+    single-device update with each convolution computed as its two
+    halves of out-channels joined). Against the unsplit update
+    the channel-split convolutions sum in another order and Adam's first
+    steps (lr g / (sqrt(v_hat) + eps)) magnify that: the share of network
+    elements outside rtol 5e-4 / atol 1e-6 must stay under
+    ``MODEL_FULL_OFF_SHARE`` for the split, the halves and two more sound
+    controls (the same rows in another order; ATen's convolutions in
+    place of cuDNN's) and exceed it for the TF32 control (TF32
+    convolutions and matmuls); and with Adam's epsilon at
+    ``ADAM_EPS_PROBE`` on both sides no element may lie outside. Printed
+    beside them: Adam's sqrt(v_hat) / eps where the split is outside.
+    Then
+    ``MODEL_TIMED_STEPS`` grad steps timed: grad-steps/s beside phase
+    15's float32 arm in this call. Every number is printed before the
+    gates run."""
+
+    def chunk_of(rng, k, batch, act):
+        flat = pixel_rows(rng, k * batch, act)
+        fields = {f: np.asarray(v).reshape(k, batch, *np.shape(v)[1:])
+                  for f, v in flat._asdict().items()}
+        w = rng.uniform(0.2, 1.0, (k, batch)).astype(np.float32)
+        draws = _draws(rng, k, batch, pad=4)
+        return fields, w, draws
+
+    def np_draws(draws):
+        return {n: None if v is None else v.numpy()
+                for n, v in draws._asdict().items()}
+
+    def gate_ranks(tag, outs, want_m, cfg):
+        conv1 = (cfg.encoder_channels[0] // 2, PIXEL_SHAPE[-1], 3, 3)
+        for r, res in enumerate(outs):
+            check(res["coords"] == (r // 2, r % 2), f"{tag}: rank {r} coords")
+            check(res["local_conv1"] == conv1,
+                  f"{tag}: rank {r}'s conv1 slice {res['local_conv1']}")
+            check(res["tied"], f"{tag}: rank {r}'s encoders tied")
+            for m, ps in res["params"].items():
+                for n, a in ps.items():
+                    check(np.array_equal(a, outs[0]["params"][m][n]),
+                          f"{tag}: rank {r} {m}.{n} bitwise rank 0's")
+            enc = {n: a for n, a in res["params"]["actor"].items()
+                   if n.startswith("encoder.")}
+            check(all(np.array_equal(a, res["params"]["critic"][n])
+                      for n, a in enc.items()),
+                  f"{tag}: rank {r}'s gathered encoders tied bitwise")
+            for name in ("critic_loss", "actor_loss", "q_mean"):
+                check(np.allclose(res["metrics"][name], want_m[name],
+                                  rtol=EQUIV_RTOL, atol=EQUIV_ATOL),
+                      f"{tag}: rank {r} {name}")
+
+    rng = np.random.default_rng(27)
+    cfg = _model_axis_config(False, dev)
+    fields, w, draws = chunk_of(rng, MODEL_K, MODEL_BATCH, cfg.act_dim)
+    _, want, want_m = _single_update(cfg, dev, fields, w, draws)
+    t0 = time.perf_counter()
+    outs = _model_axis_ranks(4, dev, (0, fields, w, np_draws(draws), 0,
+                                      None), "a")
+    wall_a = time.perf_counter() - t0
+    worst, off, _ = _param_err(outs[0]["params"], want)
+    launches = {name: 0 for name in launch_counts()}
+    for res in outs:
+        for name in launches:
+            launches[name] += res["chunk_launches"][name]
+    comm = [{a: round(v, 3) for a, v in r["comm_ms_per_step"].items()}
+            for r in outs]
+    print(f"[model axis 27a] {{data 2, model 2}} on {dev} (gloo), 84x84x9, "
+          f"K = {MODEL_K}, B = {MODEL_BATCH}, against the single-device "
+          f"update: networks max abs err {worst:.3e}, {off} elements "
+          f"beyond rtol {EQUIV_RTOL} / atol {EQUIV_ATOL}; host ms per grad "
+          f"step in collectives (model gathers and sums / data averages) "
+          f"per rank {comm}; first update "
+          f"{[round(r['first_s'], 3) for r in outs]} s; sharded chunk "
+          f"descents {launches['descent']}; {wall_a:.2f} s ({card})")
+    gate_ranks("27a", outs, want_m, cfg)
+    check(off == 0, f"27a: every network within rtol {EQUIV_RTOL} / atol "
+          f"{EQUIV_ATOL} of the single-device update")
+    for r, res in enumerate(outs):
+        check(res["chunk_finite"] and res["chunk_launches"] == {
+            **{n: 0 for n in res["chunk_launches"]}, "descent": MODEL_K},
+            f"27a: rank {r}'s sharded chunk: launches "
+            f"{res['chunk_launches']}")
+    for d in range(2):
+        check(np.array_equal(outs[2 * d]["chunk_idx"],
+                             outs[2 * d + 1]["chunk_idx"]),
+              f"27a: data row {d}'s model ranks drew the same slots")
+
+    full = _model_axis_config(True, dev)
+    bf, bw, bd = chunk_of(rng, MODEL_K, BATCH, PIXEL_ACT)
+    perm = rng.permutation(BATCH)
+    single, want_b, want_bm = _single_update(full, dev, bf, bw, bd)
+    _, rows, _ = _single_update(
+        full, dev, {f: v[:, perm] for f, v in bf.items()}, bw[:, perm],
+        type(bd)(*[None if d is None else d[:, perm] for d in bd]))
+    _, no_cudnn, _ = _single_update(full, dev, bf, bw, bd, cudnn=False)
+    _, halves, _ = _single_update(full, dev, bf, bw, bd, halves=True)
+    _, control, _ = _single_update(full, dev, bf, bw, bd, tf32=True)
+    _, want_eps, _ = _single_update(full, dev, bf, bw, bd,
+                                    eps=ADAM_EPS_PROBE)
+    t0 = time.perf_counter()
+    pair = _model_axis_ranks(2, dev, (0, bf, bw, np_draws(bd),
+                                      MODEL_TIMED_STEPS, ADAM_EPS_PROBE),
+                             "b")
+    wall_b = time.perf_counter() - t0
+    errs = {"split": _param_err(pair[0]["params"], want_b),
+            "rows": _param_err(rows, want_b),
+            "aten": _param_err(no_cudnn, want_b),
+            "halves": _param_err(halves, want_b),
+            "split_halves": _param_err(pair[0]["params"], halves),
+            "tf32": _param_err(control, want_b),
+            "eps": _param_err(pair[0]["eps_probe_params"], want_eps)}
+    cause = _adam_scale_of_off(pair[0]["params"], want_b, single, full,
+                               MODEL_K)
+    loss_err = max(_rel_err(torch.as_tensor(pair[0]["metrics"][n]),
+                            torch.as_tensor(want_bm[n]))
+                   for n in ("critic_loss", "actor_loss", "q_mean"))
+    rates = [r["grad_steps_per_s"] for r in pair]
+    p15 = pixel["pixel_f32"]["windows"]
+
+    def said(tag):
+        worst, off, share = errs[tag]
+        return f"max abs err {worst:.3e}, {off} elements beyond ({share:.4f})"
+
+    print(f"[model axis 27b] {{data 1, model 2}} on {dev} (gloo) at phase "
+          f"15's width, B = {BATCH}, K = {MODEL_K}, against the "
+          f"single-device update, networks at rtol {EQUIV_RTOL} / atol "
+          f"{EQUIV_ATOL} (bar: a share of {MODEL_FULL_OFF_SHARE}): the "
+          f"split {said('split')}, losses max rel err {loss_err:.3e}; "
+          f"sound controls, the single-device update on the rows in another "
+          f"order: {said('rows')}, with ATen's convolutions in place of "
+          f"cuDNN's: {said('aten')}, with each convolution as two halves "
+          f"of out-channels joined: {said('halves')}; the split against "
+          f"that last: {said('split_halves')}, bitwise "
+          f"{_trees_bitwise(pair[0]['params'], halves)}; TF32 control: "
+          f"{said('tf32')}; where "
+          f"the split is beyond, a zero gradient on both steps in a share "
+          f"{cause['off_zero']}, sqrt(v_hat) < eps in {cause['off_below_eps']}"
+          f" (every element: {cause['all_zero']:.4f} and "
+          f"{cause['all_below_eps']:.4f}; median sqrt(v_hat)/eps "
+          f"{cause['all_median']:.4g}); with Adam "
+          f"eps {ADAM_EPS_PROBE} on both sides, the split {said('eps')}; "
+          f"grad-steps/s per rank over {MODEL_TIMED_STEPS} steps "
+          f"{[[round(x, 3) for x in r] for r in rates]} against phase "
+          f"15's float32 windows {[round(x, 2) for x in p15]} in this call; "
+          f"host ms per grad step in collectives "
+          f"{[{a: round(v, 1) for a, v in r['comm_ms_per_step'].items()} for r in pair]}"
+          f"; {wall_b:.2f} s ({card})")
+    gate_ranks("27b", pair, want_bm, full)
+    for tag in ("split", "halves", "rows", "aten"):
+        check(errs[tag][2] <= MODEL_FULL_OFF_SHARE, f"27b: {tag}: at most "
+              f"a share of {MODEL_FULL_OFF_SHARE} of the network elements "
+              f"outside the bars")
+    check(errs["tf32"][2] > MODEL_FULL_OFF_SHARE, "27b: the TF32 control "
+          "falls outside the bar, so the bar would catch an error its size")
+    check(errs["split_halves"][2] <= MODEL_SAME_OFF_SHARE, f"27b: at most "
+          f"a share of {MODEL_SAME_OFF_SHARE} of the split's elements "
+          f"outside the bars of the same arithmetic in one process (each "
+          f"convolution as two halves)")
+    check(errs["eps"][1] == 0, f"27b: with Adam eps {ADAM_EPS_PROBE}, "
+          f"every network within rtol {EQUIV_RTOL} / atol {EQUIV_ATOL}")
+    return {"launches": launches, "param_abs_err": worst, "comm": comm,
+            "full_width": {**errs, "cause": cause,
+                           "loss_rel_err": loss_err},
+            "pair_rates": rates, "pair_comm": [r["comm_ms_per_step"]
+                                               for r in pair],
+            "wall_s": [wall_a, wall_b]}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4709,6 +5670,10 @@ def main() -> int:
     mesh = phase_mesh_chunk(dev, card)
     mesh_check = phase_mesh_check(dev, card)
     mesh_drv = phase_mesh_driver(card)
+    replicas = phase_replica_group(dev, card)
+    mesh_ab = phase_mesh_ab(dev, card)
+    replica_drv = phase_replica_driver(card, hooks)
+    model_axis = phase_model_axis(dev, card, pixel)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -4764,6 +5729,16 @@ def main() -> int:
                                        if kern["name"] == "descent" else 0)
         kern["mesh_driver_launches"] = (mesh_drv["launches"]
                                         if kern["name"] == "descent" else 0)
+        # this slice: the replica group's gates and timed rounds (26a:
+        # N = 1, 2, 4, each kernel of the arm once per replica per grad
+        # step), the A/B drill's two arms (26b), the mesh-native driver
+        # (26c: einsum on host trees, none) and the model axis's sharded
+        # chunks (27a: the descent once per grad step on each rank)
+        kern["replica_launches"] = replicas["launches"][kern["name"]]
+        kern["mesh_ab_launches"] = mesh_ab["launches"][kern["name"]]
+        kern["replica_driver_launches"] = \
+            replica_drv["launches"][kern["name"]]
+        kern["model_axis_launches"] = model_axis["launches"][kern["name"]]
         if kern["name"] == "descent":
             # the dealt plane's shape: one launch per deal over Q = K * B
             # flat queries (22a), and the driver's Q = 40 * 64 at 2^20
@@ -4889,6 +5864,21 @@ def main() -> int:
           f" ms per grad step (gloo); 25c own grad-steps/s "
           f"{mesh_drv['runs']['train']['own_grad_steps_per_sec']} (two ranks "
           f"sharing the card over gloo: no multi-GPU rate) on {card}")
+    for n, run in replicas["runs"].items():
+        print(f"[replicas] N = {n}: own grad-steps/s per replica "
+              f"{[round(x, 2) for x in run['own_grad_steps_per_s']]}, all "
+              f"{[round(x, 2) for x in run['all_grad_steps_per_s']]}; merge "
+              f"{[round(x, 3) for x in run['merge_ms']]} ms; peak "
+              f"{run['peak_bytes'] / 1e9:.3f} GB on {card}")
+    for tag, row in mesh_ab["rows"].items():
+        print(f"[mesh A/B {tag}] updates/s socket "
+              f"{row['socket']['updates_per_sec']}, collective "
+              f"{row['collective']['updates_per_sec']}; p50 ratio "
+              f"{row['agg_latency_ratio_p50']} on {card}")
+    print(f"[replicas driver] own grad-steps/s "
+          f"{replica_drv['runs']['train']['own_grad_steps_per_sec']}; "
+          f"[model axis] 27a max abs err {model_axis['param_abs_err']:.3e}"
+          f", 27b grad-steps/s {model_axis['pair_rates']} on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,8 @@ Counterpart of ``d4pg_tpu/config.py``: the same ``ExperimentConfig``
 fields and defaults, the same flags with the same spellings (``--bsize``,
 ``--rmsize``, ``--n_eps``), defaults and choices, the same ``resolve``
 (env presets) and ``run_name``, so one command line means the same run in
-both packages. ``learner_config`` builds the port's ``D4PGConfig``. Flag
-values that select a path the port does not have yet are accepted here
-and refused by the driver (``train.check_ported``), each naming its
-ROADMAP item. The fields are documented where the reference defines
+both packages. ``learner_config`` builds the port's ``D4PGConfig``.
+The fields are documented where the reference defines
 them (``d4pg_tpu/config.py``); the port reads three of them differently:
 
   - ``platform``: ``auto`` and ``accel`` mean the CUDA card and raise

@@ -109,13 +109,28 @@ def replica_generator_seed(seed: int, replica: int) -> int:
     return int(ss.generate_state(1, np.uint64)[0] >> 1)
 
 
-def replica_state(state: D4PGState, replica: int, seed: int) -> D4PGState:
+def replica_state(state: D4PGState, replica: int, seed: int,
+                  device: torch.device | None = None) -> D4PGState:
     """Replica ``replica``'s own copy of ``state`` (see the module
-    docstring)."""
+    docstring), on ``device`` (the state's own by default; another card
+    of the same type takes the networks, the Adam moments and the
+    generator's state across)."""
     nets = copy.deepcopy((state.actor, state.critic, state.target_actor,
                           state.target_critic, state.actor_opt,
                           state.critic_opt))
-    gen = torch.Generator(device=state.device)
+    device = state.device if device is None else torch.device(device)
+    if device != state.device:
+        if device.type != state.device.type:
+            raise ValueError(f"a replica of a {state.device} state goes on "
+                             f"a {state.device.type} device, not {device}")
+        for module in nets[:4]:
+            module.to(device)  # in place: the optimizers keep their params
+        for opt in nets[4:]:
+            for st in opt.state.values():
+                for key, v in st.items():
+                    if torch.is_tensor(v) and v.device.type != "cpu":
+                        st[key] = v.to(device)
+    gen = torch.Generator(device=device)
     if replica == 0 and state.generator is not None:
         gen.set_state(state.generator.get_state())
     else:

@@ -23,6 +23,13 @@ Parameter names follow the Flax tree: ``encoder.conv1`` ..
 ``critic.*``. ``PixelActor(detach_encoder=True)`` stops the gradient at
 the latent (``--share_encoder``: the critic loss alone trains the tied
 encoder).
+
+On a ``{data, model}`` mesh (``parallel/model_axis.py``) each model rank
+holds its out-channel slice of ``conv1`` .. ``conv4`` and
+``model_axis`` is set: each convolution's input enters the model region
+and its ReLU output is gathered back to all channels before the next
+layer reads it. Without one (``model_axis is None``) the encoder is the
+whole one.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ class PixelEncoder(nn.Module):
         self.proj = nn.Linear(h * w * c, latent_dim)
         lecun_normal(self.proj, generator)
         self.ln = nn.LayerNorm(latent_dim, eps=LN_EPS)
+        self.model_axis = None  # parallel/model_axis.ModelAxis when split
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -73,9 +81,14 @@ class PixelEncoder(nn.Module):
         # a tensor copied from the host would sync the host per forward
         x = x / torch.full((), 255.0, dtype=dt, device=x.device)
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        axis = self.model_axis
         for i, pads in enumerate(self._pads):
-            x = torch.relu(conv_same(getattr(self, f"conv{i + 1}"), x, pads,
-                                     dt))
+            conv = getattr(self, f"conv{i + 1}")
+            if axis is None:
+                x = torch.relu(conv_same(conv, x, pads, dt))
+            else:  # column-parallel: this rank's out-channels, gathered
+                x = axis.gather(torch.relu(conv_same(conv, axis.enter(x),
+                                                     pads, dt)))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # Flax's order
         x = dense(self.proj, x, dt)
         x = F.layer_norm(x.float(), self.ln.normalized_shape, self.ln.weight,

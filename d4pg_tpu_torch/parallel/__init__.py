@@ -7,9 +7,10 @@ all-reduce inserted by XLA). The port's mesh is the ranks of one
 ``torch.distributed`` group, one process and one device per rank
 (``mesh.py``, ``multihost.py``); each rank updates on its own rows and
 the gradients are averaged between backward and the Adam step
-(``data_parallel.py``). The ``model`` axis keeps its place in the
-partition rules (``partition.py``); a mesh with ``model_parallel > 1``
-is ROADMAP Queue 1 item 16b, and ``replica_mesh`` comes with item 15b.
+(``data_parallel.py``). A mesh with ``model_parallel > 1`` splits the
+pixel encoder's convolutions over its ``model`` axis by the partition
+rules (``partition.py``, ``model_axis.py``). ``replica_mesh`` places
+mesh-native learner replicas (``learner/mesh_replicas.py``).
 ``multihost_check.py`` is the scripted two-rank check.
 """
 
@@ -23,7 +24,7 @@ from d4pg_tpu_torch.parallel.data_parallel import (
     shard_batch,
     shard_stacked,
 )
-from d4pg_tpu_torch.parallel.mesh import MeshSpec, RankMesh
+from d4pg_tpu_torch.parallel.mesh import MeshSpec, RankMesh, replica_mesh
 from d4pg_tpu_torch.parallel.multihost import global_mesh, spawn_local
 
 __all__ = [
@@ -35,6 +36,7 @@ __all__ = [
     "make_sharded_multi_update",
     "make_sharded_update",
     "partition",
+    "replica_mesh",
     "replicate_state",
     "shard_batch",
     "shard_stacked",

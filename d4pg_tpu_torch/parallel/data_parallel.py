@@ -13,6 +13,13 @@ the loss mean over the global batch, so every replica takes the same
 Adam step. The losses' summation order differs from XLA's: parity holds
 at the reference's ``tests/test_parallel.py`` bars, not bitwise.
 
+On a ``{data, model}`` mesh (``model_parallel > 1``) ``replicate_state``
+broadcasts the whole state, then keeps each rank's slice of the leaves
+the rules split (``model_axis.shard_state``); the batch is split over
+the data axis and replicated over the model axis (``shard_batch`` and
+``shard_stacked`` cut by data index), and the gradients and metrics are
+averaged over the data group.
+
 The kernel arms keep the reference's refusal on a mesh
 (``check_mesh_compatible``, the rule table in its message): under
 ``torch.distributed`` each rank could launch its own projection kernels,
@@ -60,7 +67,10 @@ def _adam_tensors(state: D4PGState) -> list[torch.Tensor]:
 def replicate_state(state: D4PGState, mesh: RankMesh) -> D4PGState:
     """Make every rank's ``state`` rank 0's, in place: the networks and
     targets, the Adam moments and step counts, the step counter and the
-    state's generator. Collective; a no-op on a world of 1."""
+    state's generator; then, on a ``{data, model}`` mesh, keep this
+    rank's slice of each split leaf (``model_axis.shard_state``; the
+    state must be whole on entry). Collective; a no-op on a world of
+    1."""
     if mesh.world == 1:
         return state
     meta = mesh.broadcast_object(
@@ -84,16 +94,22 @@ def replicate_state(state: D4PGState, mesh: RankMesh) -> D4PGState:
             n = t.numel()
             t.copy_(flat[offset:offset + n].view(t.shape))
             offset += n
+    if mesh.model_parallel > 1:
+        from d4pg_tpu_torch.parallel.model_axis import shard_state
+
+        shard_state(state, mesh)
     return state
 
 
 def grad_reducer(mesh: RankMesh):
     """``update_step``'s ``grad_reduce`` hook for ``mesh``: the gradients
-    of the given parameters averaged over ranks in place (one flat
-    ``all_reduce(SUM)``, then a division by the world size). ``None`` on
-    a world of 1, where the update stays bit for bit the single
-    learner's."""
-    if mesh.world == 1:
+    of the given parameters averaged over the data axis in place (one
+    flat ``all_reduce(SUM)`` over the data group, then a division by its
+    size; at mp = 1 the data group is every rank, and on a ``{data,
+    model}`` mesh a split slice and a replicated tensor alike average
+    over the ranks of one model index). ``None`` with one rank on the data
+    axis, where the update stays bit for bit the single learner's."""
+    if mesh.data_size == 1:
         return None
 
     @torch.no_grad()
@@ -112,12 +128,14 @@ def grad_reducer(mesh: RankMesh):
 
 def shard_batch(batch, mesh: RankMesh):
     """This rank's block of a global [B, ...] batch (rows split over the
-    ``data`` axis), on its device. B must divide by the world size."""
+    ``data`` axis by data index, the same block on every model rank of a
+    row), on its device. B must divide by the data axis's size."""
     return _block(batch, mesh, axis=0)
 
 
 def shard_stacked(batches, mesh: RankMesh):
-    """This rank's block of a [K, B, ...] stack: K whole, B split."""
+    """This rank's block of a [K, B, ...] stack (batches, weights or
+    injected ``UpdateDraws``): K whole, B split."""
     return _block(batches, mesh, axis=1)
 
 
@@ -127,10 +145,11 @@ def _block(tree, mesh: RankMesh, axis: int):
     if tree is None:
         return None
     t = torch.as_tensor(tree)
-    if t.shape[axis] % mesh.world:
+    if t.shape[axis] % mesh.data_size:
         raise ValueError(f"{t.shape[axis]} rows do not divide over "
-                         f"{mesh.world} ranks")
-    return torch.chunk(t, mesh.world, dim=axis)[mesh.rank].to(mesh.device)
+                         f"{mesh.data_size} ranks of the data axis")
+    return torch.chunk(t, mesh.data_size, dim=axis)[mesh.data_index].to(
+        mesh.device)
 
 
 def check_mesh_compatible(config: D4PGConfig) -> None:
@@ -150,7 +169,7 @@ def replicated_metrics(metrics: dict, mesh: RankMesh) -> dict:
     replicated); ``td_error`` stays this rank's rows."""
     names = [n for n in ("critic_loss", "actor_loss", "q_mean")
              if n in metrics]
-    if mesh.world > 1 and names:
+    if mesh.data_size > 1 and names:
         stacked = mesh.mean(torch.stack([metrics[n] for n in names]))
         for i, n in enumerate(names):
             metrics[n] = stacked[i]
@@ -160,16 +179,17 @@ def replicated_metrics(metrics: dict, mesh: RankMesh) -> dict:
 def make_sharded_update(config: D4PGConfig, mesh: RankMesh,
                         use_is_weights: bool = True):
     """The D4PG update on this rank's rows with the gradients averaged
-    over ranks: ``fn(state, batch[, w]) -> metrics`` (``state`` in place;
-    ``batch``/``w`` this rank's block on its device)."""
+    over ranks: ``fn(state, batch[, w], draws=None) -> metrics``
+    (``state`` in place; ``batch``/``w`` and injected ``draws`` this
+    rank's block on its device)."""
     check_mesh_compatible(config)
     reduce = grad_reducer(mesh)
 
-    def fn(state, batch, w=None):
+    def fn(state, batch, w=None, draws=None):
         if use_is_weights and w is None:
             raise ValueError("use_is_weights=True needs IS weights")
         metrics = update_step(config, state, TransitionBatch(*batch),
-                              w if use_is_weights else None,
+                              w if use_is_weights else None, draws,
                               grad_reduce=reduce)
         return replicated_metrics(metrics, mesh)
 
@@ -179,17 +199,18 @@ def make_sharded_update(config: D4PGConfig, mesh: RankMesh,
 def make_sharded_multi_update(config: D4PGConfig, mesh: RankMesh,
                               use_is_weights: bool = True):
     """K sharded updates over stacked [K, B_local, ...] batches (and
-    weights): ``fn(state, batches[, w]) -> metrics`` stacked along K,
-    ``td_error`` [K, B_local] this rank's rows."""
+    weights, and injected ``draws``): ``fn(state, batches[, w],
+    draws=None) -> metrics`` stacked along K, ``td_error`` [K, B_local]
+    this rank's rows."""
     check_mesh_compatible(config)
     reduce = grad_reducer(mesh)
 
-    def fn(state, batches, w=None):
+    def fn(state, batches, w=None, draws=None):
         if use_is_weights and w is None:
             raise ValueError("use_is_weights=True needs IS weights")
         metrics = multi_update_step(
             config, state, TransitionBatch(*batches),
-            w if use_is_weights else None, grad_reduce=reduce)
+            w if use_is_weights else None, draws, grad_reduce=reduce)
         return replicated_metrics(metrics, mesh)
 
     return fn

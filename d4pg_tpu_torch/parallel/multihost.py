@@ -36,7 +36,7 @@ from typing import Any, Callable
 
 import torch
 
-from d4pg_tpu_torch.parallel.mesh import RankMesh, check_model_axis
+from d4pg_tpu_torch.parallel.mesh import RankMesh
 
 # how long a rank waits for its peers in a collective before it fails
 COLLECTIVE_TIMEOUT_S = 300.0
@@ -87,14 +87,22 @@ def global_mesh(device: str | torch.device, model_parallel: int = 1,
                 n_local: int = 1) -> RankMesh:
     """This rank's mesh over every rank of the initialized group (the
     world-1 mesh when there is no group), ``n_local`` data-axis shards per
-    rank. Collective: every rank calls it."""
+    rank, ``model_parallel`` ranks per data row. Collective: every rank
+    calls it, and every rank creates every data and model group in the
+    same order (``dist.new_group`` is collective over the world)."""
     import torch.distributed as dist
 
-    check_model_axis(model_parallel)
+    mp = max(1, int(model_parallel))
     device = torch.device(device)
     if not dist.is_initialized():
+        if mp > 1:
+            raise ValueError(f"model_parallel={mp} needs {mp} ranks or "
+                             "more; there is no process group")
         return RankMesh.local(device, n_local)
     world, rank = dist.get_world_size(), dist.get_rank()
+    if world % mp:
+        raise ValueError(f"{world} ranks not divisible by "
+                         f"model_parallel={mp}")
     ids: list = [None] * world
     dist.all_gather_object(ids, device_identity(device))
     backend = choose_backend(ids)
@@ -103,9 +111,20 @@ def global_mesh(device: str | torch.device, model_parallel: int = 1,
     if backend == "nccl":
         torch.cuda.set_device(device)
         group = dist.new_group(backend="nccl")
+    data_group, model_group = group, None
+    if mp > 1:
+        dp = world // mp
+        # rank r sits at (r // mp, r % mp); both lists in one fixed order
+        data_groups = [dist.new_group([d * mp + m for d in range(dp)],
+                                      backend=backend) for m in range(mp)]
+        model_groups = [dist.new_group([d * mp + m for m in range(mp)],
+                                       backend=backend) for d in range(dp)]
+        data_group = data_groups[rank % mp]
+        model_group = model_groups[rank // mp]
     return RankMesh(world=world, rank=rank, device=device,
                     n_local=int(n_local), backend=backend, group=group,
-                    cpu_group=cpu_group)
+                    cpu_group=cpu_group, model_parallel=mp,
+                    data_group=data_group, model_group=model_group)
 
 
 def barrier(mesh: RankMesh) -> None:
@@ -150,6 +169,7 @@ class RankLaunch:
     port: int
     device_type: str
     n_local: int
+    model_parallel: int = 1
 
 
 def _rank_main(launch: RankLaunch, rank: int, results) -> None:
@@ -161,7 +181,8 @@ def _rank_main(launch: RankLaunch, rank: int, results) -> None:
             device = torch.device("cpu")
         initialize(f"127.0.0.1:{launch.port}", launch.world, rank)
         try:
-            mesh = global_mesh(device, n_local=launch.n_local)
+            mesh = global_mesh(device, model_parallel=launch.model_parallel,
+                               n_local=launch.n_local)
             out = launch.fn(mesh, *pickle.loads(launch.args))
         finally:
             shutdown()
@@ -173,15 +194,16 @@ def _rank_main(launch: RankLaunch, rank: int, results) -> None:
 
 def spawn_local(fn: Callable, world: int, args: tuple = (),
                 device_type: str = "cpu", n_local: int = 1,
-                timeout_s: float | None = 120.0) -> list:
+                timeout_s: float | None = 120.0,
+                model_parallel: int = 1) -> list:
     """Run ``fn(mesh, *args)`` on ``world`` local ranks (rank r on
     ``cuda:r``, or the CPU), each a ``spawn``ed process in one group on a
-    free loopback port. ``fn`` must be importable by name. Returns the
-    ranks' results in rank order; raises if a rank fails or dies, or if
-    the ranks do not all finish within ``timeout_s`` (None: no
-    deadline). More ranks than CUDA devices is a ``ValueError``, as the
-    reference's ``MeshSpec.resolve`` refuses a mesh larger than its
-    devices."""
+    free loopback port, the mesh ``model_parallel`` ranks per data row.
+    ``fn`` must be importable by name. Returns the ranks' results in rank
+    order; raises if a rank fails or dies, or if the ranks do not all
+    finish within ``timeout_s`` (None: no deadline). More ranks than CUDA
+    devices is a ``ValueError``, as the reference's ``MeshSpec.resolve``
+    refuses a mesh larger than its devices."""
     import multiprocessing as mp
 
     if device_type == "cuda" and world > torch.cuda.device_count():
@@ -191,8 +213,8 @@ def spawn_local(fn: Callable, world: int, args: tuple = (),
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     launch = RankLaunch(fn, pickle.dumps(tuple(args)), int(world),
-                        free_port(),
-                        device_type, int(n_local))
+                        free_port(), device_type, int(n_local),
+                        int(model_parallel))
     procs = [ctx.Process(target=_rank_main, args=(launch, r, results),
                          name=f"rank-{r}") for r in range(world)]
     for p in procs:

@@ -35,13 +35,25 @@ them (``resolve_storage``):
 path (``auto`` storage on the CPU is ``host``).
 
 The learner plane (``--learners N > 1`` or ``--sample_on_ingest 1``, on
-the host-sampled path): N ``learner/replica.LearnerReplica`` threads,
-each with its own copy of the state, run one round per cycle (basis,
-``ceil(n / N)`` grad steps, submit) and the in-process
-``learner/aggregator.Aggregator`` (``--agg_mode``, ``--agg_clip``)
-merges them into the one weight stream; a crashed replica is fenced and
-respawned, up to 5 cycles in a row. ``--sample_on_ingest 1`` deals PER
-blocks from the replay service's commit thread into one ring per replica
+the host-sampled path) merges its replicas over one of two transports,
+chosen as the reference chooses (``agg_transport``: ``auto`` is
+``collective`` exactly when there is a single-host mesh, ``--learners >
+1`` and no ``--sample_on_ingest``). ``socket``: N
+``learner/replica.LearnerReplica`` threads, each with its own copy of the
+state, run one round per cycle (basis, ``ceil(n / N)`` grad steps,
+submit) and the in-process ``learner/aggregator.Aggregator``
+(``--agg_mode``, ``--agg_clip``) merges them into the one weight stream;
+a crashed replica is fenced and respawned, up to 5 cycles in a row.
+``collective`` (``--learners N`` with ``--data_parallel M > 1``): one
+process drives ``learner/mesh_replicas.MeshReplicaGroup`` (N replicas
+placed by ``parallel/mesh.replica_mesh``: all on the card of a one-card
+machine, so no M cards are needed; the data mesh is only the gate, as in the
+reference, whose collective path never steps its sharded update): each
+cycle every replica trains ``ceil(n / N)`` steps on its own
+service-sampled chunks, writes its own priorities back, and the round
+ends in the on-device merge and its publish (``train_steps_mesh``).
+``--sample_on_ingest 1`` deals PER blocks from the replay service's
+commit thread into one ring per replica
 (``--sampler``, resolved by ``ops/autotune.select_sampler``: ``host``,
 the host dealer over the PER buffer; ``scan`` or ``pallas``, the device
 dealer over a generation-tracked ``FusedDeviceReplay`` on the learner's
@@ -113,9 +125,7 @@ under ``--normalize_obs``; rank 0 alone owns io, eval and the state
 checkpoint, every rank its replay sidecar ``replay_p<r>.pkl``, and a
 resume agrees across ranks (``resume_ranks``).
 
-Every flag value that selects a path the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item (``check_ported``); none
-is skipped quietly. gymnasium is imported only inside ``make_env_fn``,
+gymnasium is imported only inside ``make_env_fn``,
 for gymnasium ids, and dm_control only inside ``envs/dmc.DMControlEnv``,
 for ``dmc:*`` and ``*-pixels`` ids. Pixel envs (``pixel-point``, the
 dm_control pixel tasks, 3-D gymnasium observations) store uint8 [H, W,
@@ -167,6 +177,7 @@ from d4pg_tpu_torch.learner.update import multi_update_step, update_step
 from d4pg_tpu_torch.obs.containment import contained_crash
 from d4pg_tpu_torch.obs.trace import RECORDER as trace_recorder
 from d4pg_tpu_torch.parallel import multihost
+from d4pg_tpu_torch.parallel.mesh import RankMesh
 from d4pg_tpu_torch.parallel.data_parallel import (
     check_mesh_compatible,
     make_sharded_multi_update,
@@ -181,27 +192,46 @@ from d4pg_tpu_torch.replay.uniform import ReplayBuffer, TransitionBatch
 from d4pg_tpu_torch.serving.client import ActorConfig
 
 
-def _unported(cfg: ExperimentConfig) -> list[tuple[bool, str, str]]:
-    """(selected, flag value, ROADMAP item) for each unported path."""
-    return [
-        (cfg.agg_transport == "collective",
-         "--agg_transport collective (the mesh-native merge)",
-         "Queue 1 item 15"),
-        (cfg.learners > 1 and cfg.mesh_learner,
-         f"--learners {cfg.learners} with a mesh (--data_parallel "
-         f"{cfg.data_parallel}, --num_processes {cfg.num_processes})",
-         "Queue 1 item 15"),
-    ]
-
-
-def check_ported(cfg: ExperimentConfig) -> None:
-    """Raise ``NotImplementedError`` for the first flag value that selects
-    a path the port does not have yet, naming its ROADMAP item."""
-    for selected, what, item in _unported(cfg):
-        if selected:
-            raise NotImplementedError(
-                f"{what} selects a path the PyTorch port does not have yet "
-                f"(ROADMAP {item})")
+def agg_transport(cfg: ExperimentConfig) -> str | None:
+    """The learner plane's merge transport, ``socket`` or ``collective``
+    (``None`` without a plane), resolved as the reference resolves it,
+    with its four refusals. The reference checks the transport only when
+    it stands up a plane (``--learners > 1`` or ``--sample_on_ingest``);
+    the port also checks an explicit ``--agg_transport collective``, so
+    the flag with one learner is refused, not ignored."""
+    if not (cfg.learners > 1 or cfg.sample_on_ingest
+            or cfg.agg_transport == "collective"):
+        return None
+    multi_host = cfg.num_processes > 1 or bool(cfg.coordinator)
+    mesh = cfg.mesh_learner
+    transport = cfg.agg_transport
+    if transport == "auto":
+        transport = ("collective" if (mesh and not multi_host
+                                      and cfg.learners > 1
+                                      and not cfg.sample_on_ingest)
+                     else "socket")
+    if transport == "collective":
+        if not mesh or multi_host:
+            raise ValueError(
+                "--agg_transport collective needs the replicas on one "
+                "single-host device mesh (--data_parallel/"
+                "--model_parallel); across hosts the socket update "
+                "plane is the fallback")
+        if cfg.sample_on_ingest:
+            raise ValueError(
+                "--sample_on_ingest deals blocks to host-thread "
+                "replicas — pair it with --agg_transport socket")
+        if cfg.learners < 2:
+            raise ValueError(
+                "--agg_transport collective needs --learners > 1 "
+                "(with one learner the plain mesh path already "
+                "covers the device layout)")
+    elif multi_host or mesh:
+        raise ValueError(
+            "--agg_transport socket composes with single-host "
+            "unmeshed learners only; replicas sharing a device mesh "
+            "take --agg_transport collective (the mesh-native merge)")
+    return transport
 
 
 def learner_device(cfg: ExperimentConfig) -> torch.device:
@@ -227,12 +257,15 @@ def train(cfg: ExperimentConfig) -> dict:
     coordinator spawns N local ranks (rank r on ``cuda:r``, or the CPU
     with ``--platform cpu``) and returns rank 0's result. Each rank runs
     the driver as the reference's process r does: rank 0 alone owns io,
-    eval and the state checkpoint."""
+    eval and the state checkpoint. The collective transport runs one
+    process, whatever the mesh flags (see the module docstring)."""
     cfg = cfg.resolve()
-    check_ported(cfg)
     if cfg.mesh_learner:
         # refused before any rank starts, with the rule table
         check_mesh_compatible(cfg)
+    if agg_transport(cfg) == "collective":
+        # mesh-native replicas: one process, the data mesh only the gate
+        return run_learner(cfg, None)
     if cfg.coordinator or cfg.num_processes > 1:
         if not cfg.coordinator:
             raise ValueError(f"--num_processes {cfg.num_processes} needs "
@@ -645,8 +678,13 @@ def run_learner(cfg: ExperimentConfig, mesh) -> dict:
     run_dir = os.path.join(cfg.log_dir, cfg.run_name())
     os.makedirs(run_dir, exist_ok=True)
 
-    storage, fused = resolve_storage(cfg, obs_dim, act_dim, device,
-                                     obs_dtype, mesh)
+    transport = agg_transport(cfg)
+    # the collective path resolves storage as the reference's mesh
+    # learner does (its data mesh is the gate, with the shards it names)
+    storage, fused = resolve_storage(
+        cfg, obs_dim, act_dim, device, obs_dtype,
+        RankMesh.local(device, cfg.data_parallel)
+        if transport == "collective" else mesh)
     K = max(1, cfg.updates_per_dispatch)
     dealt_arm = resolve_dealt_arm(cfg, K, device, mesh)
     if dealt_arm in ("scan", "pallas"):
@@ -819,9 +857,14 @@ def run_learner(cfg: ExperimentConfig, mesh) -> dict:
     # ``lstep`` is the learner step on the host (the chunks report how
     # many updates they ran), so nothing waits on the card for it
     lstep = state.step
-    replicas, aggregator = learner_plane(cfg, config, state, service,
-                                         weights, fused, dealt_arm, K,
-                                         norm_snapshot, mesh)
+    replicas, aggregator, group = [], None, None
+    if transport == "collective":
+        group = mesh_replica_group(cfg, config, state, weights, fused, K,
+                                   norm_snapshot)
+    elif transport == "socket":
+        replicas, aggregator = learner_plane(cfg, config, state, service,
+                                             weights, fused, dealt_arm, K,
+                                             norm_snapshot)
     fused_loop = (FusedLoop(
         config, buffer, k=K, batch_size=cfg.batch_size, generator=generator,
         prioritized=cfg.prioritized_replay, alpha=cfg.per_alpha,
@@ -830,8 +873,10 @@ def run_learner(cfg: ExperimentConfig, mesh) -> dict:
         if fused else None)
 
     def publish():
-        if replicas:
-            return  # the aggregator owns the version stream (one writer)
+        if replicas or group is not None:
+            # the aggregator or the group owns the version stream (one
+            # writer)
+            return
         weights.publish(state.actor, step=lstep, norm_stats=norm_snapshot())
 
     def train_steps_fused(n: int):
@@ -980,9 +1025,62 @@ def run_learner(cfg: ExperimentConfig, mesh) -> dict:
         lstep = max([lstep] + [r.state.step for r in replicas])
         return replicas[0].last_metrics
 
+    # one anneal clock for the group's replicas (the thread replicas
+    # share theirs through ``learner_plane``)
+    group_beta = SharedBetaSchedule(beta0=cfg.per_beta0,
+                                    beta_steps=cfg.per_beta_steps)
+
+    def train_steps_mesh(n: int):
+        """The cycle's grad steps on the mesh-native replica group: each
+        replica trains ``ceil(n / N)`` service-sampled steps (N chunks of
+        K stacked into one [N, K, B, ...] step), writes the priorities of
+        the rows IT sampled back with their generation, then the round
+        ends in the on-device merge and its publish. Round-synchronous:
+        replica i's update is folded at lag i (async)."""
+        nonlocal state, lstep
+        per = -(-n // group.n)
+        # one beta per round, shared by every replica's sampler
+        beta_now = group_beta.beta_at(group_beta.current_step())
+        metrics = None
+        done = 0
+        while done < per:
+            k = min(K, per - done)
+            if cfg.prioritized_replay:
+                chunks = [service.sample_chunk(
+                    k, cfg.batch_size, beta=beta_now,
+                    weight_base=service.weight_base())
+                    for _ in range(group.n)]
+                w = np.stack([np.asarray(c[1], np.float32) for c in chunks])
+            else:
+                chunks = [service.sample_chunk(k, cfg.batch_size)
+                          for _ in range(group.n)]
+                w = None
+            batches = TransitionBatch(*[np.stack(xs) for xs in zip(
+                *[c[0] for c in chunks])])
+            metrics = group.step_host_chunks(batches, w)
+            if cfg.prioritized_replay:
+                td = metrics["td_error"].cpu().numpy()  # [N, K, B]
+                for i, c in enumerate(chunks):
+                    service.update_priorities(
+                        c[2], np.abs(td[i]) + 1e-6, generation=c[3])
+            done += k
+        group_beta.advance(per)
+        group.merge()
+        # replica 0's state stands in for the checkpoint and the eval lag;
+        # the published params are the merged tree
+        state = group.state_slice(0)
+        lstep = max([lstep] + [group.state_slice(i).step
+                               for i in range(group.n)])
+        if metrics is None:
+            return None
+        return {name: metrics[name][0] for name in
+                ("critic_loss", "actor_loss", "q_mean")}
+
     def train_steps(n: int):
         """n grad steps on the resolved path; the last step's scalars."""
-        if replicas:
+        if group is not None:
+            metrics = train_steps_mesh(n)
+        elif replicas:
             metrics = train_steps_multi(n)
         elif fused:
             metrics = train_steps_fused(n)
@@ -1222,6 +1320,8 @@ def run_learner(cfg: ExperimentConfig, mesh) -> dict:
         r.close()
     if aggregator is not None:
         aggregator.close()
+    if group is not None:
+        group.close()
     if fused_loop is not None:
         fused_loop.close()
     service.close()
@@ -1264,26 +1364,53 @@ def resolve_dealt_arm(cfg: ExperimentConfig, k: int,
     return arm
 
 
-def learner_plane(cfg: ExperimentConfig, config, state, service, weights,
-                  fused: bool, dealt_arm: str | None, k: int,
-                  norm_snapshot, mesh=None):
-    """``(replicas, aggregator)`` of ``--learners N > 1`` or
-    ``--sample_on_ingest 1`` (``([], None)`` otherwise): the dealer, when
-    there is one, attached to the service with one ring per replica, the
-    in-process aggregator and N replicas on their own state copies."""
-    if not (cfg.learners > 1 or cfg.sample_on_ingest):
-        return [], None
-    if mesh is not None:
-        raise ValueError(
-            "--agg_transport socket composes with single-host unmeshed "
-            "learners only; replicas sharing a device mesh take "
-            "--agg_transport collective (the mesh-native merge)")
+def _check_host_sampled(fused: bool) -> None:
     if fused:
         raise ValueError(
             "--learners > 1 / --sample_on_ingest need the host-sampled "
             "replay path (the FusedLoop learner is single-consumer: pass "
             "--fused_replay off; device sampling under --sample_on_ingest "
             "is --sampler scan/pallas)")
+
+
+def mesh_replica_group(cfg: ExperimentConfig, config, state, weights,
+                       fused: bool, k: int, norm_snapshot):
+    """The collective transport's ``MeshReplicaGroup``: ``--learners``
+    replicas built as the socket path builds them (``replica_state``),
+    placed by ``replica_mesh`` over the learner's cards (every replica on
+    the card of a one-card machine), publishing the merged actor through
+    the store."""
+    from d4pg_tpu_torch.learner.mesh_replicas import MeshReplicaGroup
+    from d4pg_tpu_torch.parallel.mesh import replica_mesh
+
+    _check_host_sampled(fused)
+    n = cfg.learners
+    device = state.device
+    placement = replica_mesh(n, None if device.type == "cuda" else [device])
+    states = [replica_state(state, i, cfg.seed, dev)
+              for i, dev in enumerate(placement)]
+    group = MeshReplicaGroup(
+        config, states, k=k, batch_size=cfg.batch_size, mode=cfg.agg_mode,
+        clip=cfg.agg_clip, store=weights,
+        # actors pull acting params only, as with the aggregator
+        extract=lambda tree: tree["actor_params"], norm_stats=norm_snapshot,
+        prioritized=cfg.prioritized_replay, alpha=cfg.per_alpha,
+        beta0=cfg.per_beta0, beta_steps=cfg.per_beta_steps,
+        devices=placement)
+    print(f"learner plane: {n} mesh-native replicas (collective merge) on "
+          f"{', '.join(str(d) for d in placement)}, mode={cfg.agg_mode} "
+          f"clip={cfg.agg_clip}", flush=True)
+    return group
+
+
+def learner_plane(cfg: ExperimentConfig, config, state, service, weights,
+                  fused: bool, dealt_arm: str | None, k: int,
+                  norm_snapshot):
+    """``(replicas, aggregator)`` of the socket transport (``--learners N
+    > 1`` or ``--sample_on_ingest 1``): the dealer, when there is one,
+    attached to the service with one ring per replica, the in-process
+    aggregator and N replicas on their own state copies."""
+    _check_host_sampled(fused)
     if cfg.sample_on_ingest and not cfg.prioritized_replay:
         raise ValueError(
             "--sample_on_ingest is the PER dealer: it needs --p_replay "

@@ -77,6 +77,12 @@ PARALLEL = {
     "d4pg_tpu_torch.parallel.multihost_check",
     "d4pg_tpu_torch.replay.sharded_per",
 }
+# the replica and model axes: mesh-native replicas, their A/B drill and
+# the split pixel encoder
+MESH_AXES = {
+    "d4pg_tpu_torch.learner.mesh_replicas", "d4pg_tpu_torch.fleet.mesh_ab",
+    "d4pg_tpu_torch.parallel.model_axis",
+}
 
 
 def test_port_imports_with_jax_blocked():
@@ -95,6 +101,7 @@ def test_port_imports_with_jax_blocked():
         SERVING_DEALT_LEARNERS - imported
     assert ELASTIC <= imported, ELASTIC - imported
     assert PARALLEL <= imported, PARALLEL - imported
+    assert MESH_AXES <= imported, MESH_AXES - imported
 
 
 def test_port_sources_import_no_jax_or_reference():
@@ -157,6 +164,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     buf = FusedDeviceReplay(16, 4, 2, device="cpu")
     assert buf.trees.sum_tree.shape == (32,)
     assert noise.ou.init(2, device="cpu").x.device.type == "cpu"
+
+
+def test_mesh_axes_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The replica placement and the A/B drill take every card by
+    default and raise without one; an explicit CPU placement runs."""
+    from d4pg_tpu_torch.fleet import run_mesh_ab
+    from d4pg_tpu_torch.parallel import replica_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        replica_mesh(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_mesh_ab(rounds=1)
+    assert replica_mesh(3, ["cpu"]) == [torch.device("cpu")] * 3
+    with pytest.raises(ValueError):
+        replica_mesh(0, ["cpu"])
 
 
 def test_config_rejects_unported_projection():

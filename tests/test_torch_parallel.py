@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import torch_ranks
 from d4pg_tpu.learner import D4PGConfig as JaxConfig
@@ -92,8 +93,21 @@ def test_mesh_geometry():
     mesh = global_mesh("cpu", n_local=4)
     assert (mesh.world, mesh.n_shards, mesh.local_start) == (1, 4, 0)
     assert mesh.backend is None and mesh == RankMesh.local("cpu", 4)
-    with pytest.raises(NotImplementedError, match="item 16b"):
+    # the model axis needs ranks; rank r of a {data, model} world sits at
+    # (r // mp, r % mp), its shards those of its data index
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         global_mesh("cpu", model_parallel=2)
+    mesh = RankMesh(world=8, rank=5, device=torch.device("cpu"),
+                    n_local=2, model_parallel=2)
+    assert (mesh.data_size, mesh.data_index, mesh.model_index) == (4, 2, 1)
+    assert (mesh.n_shards, mesh.local_start) == (8, 4)
+    # every rank builds the same data and model groups
+    outs = spawn_local(torch_ranks.mesh_groups, 4, model_parallel=2)
+    for r, out in enumerate(outs):
+        assert out["coords"] == (r // 2, r % 2)
+        assert out["data_group"] == [r % 2, r % 2 + 2]
+        assert out["model_group"] == [r - r % 2, r - r % 2 + 1]
+        assert out["backend"] == "gloo"
 
 
 def test_batch_sharded_state_replicated(rng):

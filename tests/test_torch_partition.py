@@ -6,13 +6,18 @@ the first match wins, an unmatched leaf fails loudly with the resolved
 table, the production rules resolve every leaf of a real pixel state
 (the port's state names are the reference's, leaf for leaf, and resolve
 to the same specs), and the port's engine resolves the reference's
-specs for the same tables. The reference's placement cases (shard and
-gather, replica-stacked shardings) wait for the first caller that splits
-a leaf (ROADMAP Queue 1 items 16b and 15b): the port's rank mesh
-replicates the whole state.
+specs for the same tables. Then the placements: every tensor of a pixel
+state resolves to the reference's spec translated into the port's
+layout (the encoder's conv weights and biases split on their dim 0,
+everything else replicated), a spec that splits more than one
+dimension is refused, the shard functions cut each
+model rank's slice, and a shard then a gather over two gloo ranks gives
+back the whole tensor.
 """
 
 import collections
+
+import torch_ranks
 
 import jax
 import numpy as np
@@ -24,7 +29,7 @@ from d4pg_tpu.learner.state import init_state as jax_init_state
 from d4pg_tpu.parallel import partition as jpartition
 from d4pg_tpu_torch.config import ExperimentConfig
 from d4pg_tpu_torch.learner.state import init_state
-from d4pg_tpu_torch.parallel import partition
+from d4pg_tpu_torch.parallel import RankMesh, partition, spawn_local
 from d4pg_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 pytestmark = pytest.mark.torchport
@@ -241,3 +246,107 @@ def test_mlp_state_resolves_replicated():
         obs_dim=3, act_dim=2), jax.random.key(0))
     assert {n for n in jpartition.tree_names(jst) if "torso" not in n} <= \
         set(specs) | {"key"}
+
+
+def test_state_placements_split_the_encoder_over_out_channels():
+    """Every tensor of a pixel state: the conv weights (OIHW) and biases
+    split on dim 0, the rest replicated; each placement is the
+    reference's spec for the tensor's wire name, in the port's layout."""
+    cfg = ExperimentConfig(**_pixel_kw()).resolve().learner_config(
+        obs_dim=(8, 8, 9), act_dim=2, device="cpu")
+    state = init_state(cfg, 0, "cpu")
+    placements = partition.state_placements(state)
+    jcfg = JaxExperimentConfig(**_pixel_kw()).resolve().learner_config(
+        obs_dim=(8, 8, 9), act_dim=2)
+    jspecs = {n.replace("torso/", ""): s
+              for n, s in _flat(jpartition.state_specs(jcfg))}
+    n_split = 0
+    for field, attr in partition.MODULE_FIELDS:
+        named = getattr(state, attr).state_dict()
+        assert set(placements[attr]) == set(named)
+        for name, t in named.items():
+            dim = placements[attr][name]
+            split = ".conv" in name and name.startswith("encoder.")
+            assert dim == (0 if split else None), (attr, name)
+            n_split += split
+            spec = jspecs[partition.wire_name(field, name, t.dim())]
+            want = [d for d, a in enumerate(spec) if a == MODEL_AXIS]
+            assert dim == (partition.torch_dim(want[0], t.dim()) if want
+                           else None), (attr, name)
+    assert n_split == 4 * 8  # 4 networks x 4 convs x (weight, bias)
+
+
+def test_torch_dim_maps_the_flax_layouts():
+    assert [partition.torch_dim(d, 4) for d in range(4)] == [2, 3, 1, 0]
+    assert [partition.torch_dim(d, 2) for d in range(2)] == [1, 0]
+    assert partition.torch_dim(0, 1) == 0
+
+
+@pytest.mark.parametrize("spec, ndim, want", [
+    (PS(None, None, None, MODEL_AXIS), 4, 0),  # HWIO out -> OIHW dim 0
+    (PS(None, MODEL_AXIS), 2, 0),              # Dense [in, out] -> [out, in]
+    (PS(MODEL_AXIS), 1, 0),
+    (PS(None, None), 2, None),
+    (PS(MODEL_AXIS, None, None, MODEL_AXIS), 4, ValueError),
+    (PS(DATA_AXIS, MODEL_AXIS), 2, ValueError),
+])
+def test_placement_resolves_one_split_dim_or_refuses(spec, ndim, want):
+    if want is ValueError:
+        with pytest.raises(ValueError, match="not a split of one"):
+            partition._placement(spec, ndim)
+    else:
+        assert partition._placement(spec, ndim) == want
+
+
+def test_wire_name_is_the_reference_leaf_name():
+    assert (partition.wire_name("critic_params", "encoder.conv1.weight", 4)
+            == "critic_params/params/encoder/conv1/kernel")
+    assert (partition.wire_name("actor_params", "fc1.weight", 2)
+            == "actor_params/params/fc1/kernel")
+    assert (partition.wire_name("actor_params", "encoder.ln.weight", 1)
+            == "actor_params/params/encoder/ln/scale")
+    assert (partition.wire_name("target_critic_params", "fc1.bias", 1)
+            == "target_critic_params/params/fc1/bias")
+
+
+def _leaves(rng):
+    return {"conv": (rng.standard_normal((8, 3, 3, 3)).astype(np.float32),
+                     0),
+            "bias": (rng.standard_normal(8).astype(np.float32), 0),
+            "fc": (rng.standard_normal((5, 4)).astype(np.float32), None)}
+
+
+def test_shard_fns_cut_each_model_ranks_slice(rng):
+    tree = _leaves(rng)
+    placements = {n: d for n, (_, d) in tree.items()}
+    locals_ = []
+    for r in range(2):
+        mesh = RankMesh(world=2, rank=r, device=torch.device("cpu"),
+                        model_parallel=2)
+        shard, _ = partition.make_shard_and_gather_fns(placements, mesh)
+        locals_.append({n: shard[n](a) for n, (a, _) in tree.items()})
+    for n, (a, dim) in tree.items():
+        if dim is None:
+            for loc in locals_:
+                np.testing.assert_array_equal(loc[n].numpy(), a)
+        else:
+            assert locals_[0][n].shape[0] == a.shape[0] // 2
+            np.testing.assert_array_equal(
+                torch.cat([loc[n] for loc in locals_], dim).numpy(), a)
+    odd = RankMesh(world=3, rank=0, device=torch.device("cpu"),
+                   model_parallel=3)
+    shard, _ = partition.make_shard_and_gather_fns({"bias": 0}, odd)
+    with pytest.raises(ValueError, match="do not divide"):
+        shard["bias"](np.ones(8, np.float32))
+
+
+def test_shard_and_gather_round_trip_over_two_ranks(rng):
+    tree = _leaves(rng)
+    outs = spawn_local(torch_ranks.shard_gather_round_trip, 2,
+                       args=(tree,), model_parallel=2)
+    for r, out in enumerate(outs):
+        assert out["coords"] == (0, r)
+        for n, (a, dim) in tree.items():
+            np.testing.assert_array_equal(out["whole"][n], a)
+            want = a if dim is None else np.split(a, 2, axis=dim)[r]
+            np.testing.assert_array_equal(out["local"][n], want)

@@ -16,9 +16,10 @@ resume refusals), ``--serve 1`` with a remote actor on a thread,
 ``tests/test_actor_procs.py``), ``--serve_policy 1`` with an actor acting
 through ``--policy_port`` on a thread, ``--sample_on_ingest 1`` under
 each ``--sampler`` arm and ``--learners 2`` (each training and
-publishing monotone versions through the aggregator), the refusal of
-every flag value that still selects an unported path, and whole-slice
-parity on both paths: with the same
+publishing monotone versions through the aggregator), the merge
+transport (``auto`` resolving as the reference's, its four refusals,
+and ``--learners 2 --data_parallel 2`` as mesh-native replicas in one
+process, trained and resumed), and whole-slice parity on both paths: with the same
 initial weights carried across and exploration off, the rows both
 drivers hold in replay when the first grad step starts match within atol
 1e-5 (and on the host path the first chunk's slots and IS weights are
@@ -289,22 +290,6 @@ def test_fused_on_with_host_storage_raises(tmp_path):
         ttrain.train(_cfg(tmp_path, replay_storage="host"))
 
 
-UNPORTED = [
-    (dict(agg_transport="collective"), "item 15"),
-    (dict(learners=2, data_parallel=2), "item 15"),
-]
-
-
-@pytest.mark.parametrize("kw,item", UNPORTED,
-                         ids=[",".join(k) + "=" + str(list(k.values())[0])
-                              for k, _ in UNPORTED])
-def test_unported_flag_values_raise(tmp_path, kw, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        ttrain.train(_cfg(tmp_path, **kw))
-    assert item in str(err.value)
-    assert not list(Path(tmp_path).rglob("*.pt"))
-
-
 def test_actor_main_parses_the_serving_flags():
     from d4pg_tpu_torch import actor_main
 
@@ -453,23 +438,6 @@ def test_family_flag_misuse_raises_as_in_the_reference(tmp_path, kw, match):
     with pytest.raises(ValueError, match=match):
         ttrain.train(_cfg(tmp_path, **kw))
     assert not list(Path(tmp_path).rglob("*.pt"))
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(agg_transport="collective", env="Pendulum-v1"), "item 15"),
-    (dict(learners=2, data_parallel=2, env="pixel-point"), "item 15")],
-    ids=["agg_transport-Pendulum", "learners-mesh-pixels"])
-def test_unported_flags_raise_before_the_env_is_built(tmp_path, monkeypatch,
-                                                      kw, item):
-    """An unported flag names its ROADMAP item before ``make_env_fn``
-    builds an env: where gymnasium is missing, an unported flag with
-    ``--env Pendulum-v1`` must not end in gymnasium's ImportError."""
-    def no_env(*args, **kwargs):
-        raise AssertionError("an env was built before check_ported")
-
-    monkeypatch.setattr(ttrain, "make_env_fn", no_env)
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.train(_cfg(tmp_path, **kw))
 
 
 def test_normalize_obs_with_pixels_is_a_config_error(tmp_path):
@@ -944,6 +912,94 @@ def test_learners_two_train_and_resume(tmp_path, monkeypatch):
     resumed = ttrain.train(dataclasses.replace(cfg, resume=True, n_cycles=1))
     assert np.isfinite(resumed["critic_loss"])
     assert all(r.state.step == 2 * 3 + 3 for r in seen["replicas"])
+
+
+# the reference's four transport refusals (``d4pg_tpu/train.py:1067-1087``)
+TRANSPORT_REFUSALS = [
+    (dict(agg_transport="collective", learners=2), "single-host device mesh"),
+    (dict(agg_transport="collective", learners=2, num_processes=2,
+          coordinator="127.0.0.1:1"), "single-host device mesh"),
+    (dict(agg_transport="collective", learners=2, data_parallel=2,
+          sample_on_ingest=True), "pair it with --agg_transport socket"),
+    (dict(agg_transport="collective", learners=1, data_parallel=2),
+     "needs --learners > 1"),
+    (dict(agg_transport="socket", learners=2, data_parallel=2),
+     "composes with single-host"),
+    (dict(learners=2, data_parallel=2, sample_on_ingest=True),
+     "composes with single-host"),
+]
+
+
+@pytest.mark.parametrize(
+    "kw,match", TRANSPORT_REFUSALS,
+    ids=["collective-no-mesh", "collective-multi-host",
+         "collective-sample-on-ingest", "collective-one-learner",
+         "socket-mesh", "auto-sample-on-ingest-mesh"])
+def test_transport_refusals_as_in_the_reference(tmp_path, monkeypatch, kw,
+                                                match):
+    """Each refusal comes before any rank starts or env is built (where
+    gymnasium is missing, ``--env Pendulum-v1`` must not end in its
+    ImportError)."""
+    def no_env(*args, **kwargs):
+        raise AssertionError("an env was built before the transport check")
+
+    monkeypatch.setattr(ttrain, "make_env_fn", no_env)
+    with pytest.raises(ValueError, match=match):
+        ttrain.train(_cfg(tmp_path, env="Pendulum-v1", fused_replay="off",
+                          **kw))
+    assert not list(Path(tmp_path).rglob("*.pt"))
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(learners=2, data_parallel=2), "collective"),
+    (dict(learners=2), "socket"),
+    (dict(sample_on_ingest=True), "socket"),
+    (dict(data_parallel=2), None),
+    (dict(), None),
+], ids=["mesh-learners", "learners", "sample-on-ingest", "mesh", "plain"])
+def test_auto_transport_resolves_as_in_the_reference(kw, want):
+    assert ttrain.agg_transport(ExperimentConfig(**TINY, **kw)) == want
+
+
+def _capture_group(monkeypatch):
+    seen = {}
+    build = ttrain.mesh_replica_group
+
+    def capture(*args, **kwargs):
+        seen["group"] = build(*args, **kwargs)
+        return seen["group"]
+
+    monkeypatch.setattr(ttrain, "mesh_replica_group", capture)
+    return seen
+
+
+def test_mesh_native_learners_train_and_resume(tmp_path, monkeypatch,
+                                               capsys):
+    """``--learners 2 --data_parallel 2 --fused_replay off`` runs one
+    process (no rank is spawned) with two mesh-native replicas: each
+    cycle both train, the merge publishes one version, and a resume goes
+    on from replica 0's checkpoint."""
+    def no_ranks(*args, **kwargs):
+        raise AssertionError("the collective transport spawned ranks")
+
+    monkeypatch.setattr(ttrain.multihost, "spawn_local", no_ranks)
+    seen = _capture_group(monkeypatch)
+    cfg = _cfg(tmp_path, learners=2, data_parallel=2, replay_storage="auto",
+               fused_replay="off")
+    metrics = ttrain.train(cfg)
+    assert np.isfinite(metrics["critic_loss"])
+    assert "2 mesh-native replicas (collective merge)" in \
+        capsys.readouterr().out
+    group = seen["group"]
+    assert group.n == 2 and group.rounds == 2
+    assert group.steps_done == 2 * 3  # ceil(6 / 2) a replica a cycle
+    assert all(group.state_slice(i).step == 6 for i in range(2))
+    assert group.versions == [2, 3]  # version 1 is the initial publish
+    resumed = ttrain.train(dataclasses.replace(cfg, resume=True, n_cycles=1))
+    assert np.isfinite(resumed["critic_loss"])
+    assert "resumed from step 6" in capsys.readouterr().out
+    assert all(seen["group"].state_slice(i).step == 6 + 3
+               for i in range(2))
 
 
 def test_learner_plane_misuse_raises_as_in_the_reference(tmp_path):

@@ -6,6 +6,8 @@ port only, never JAX (the test modules that call it import both)."""
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -24,9 +26,14 @@ def pack_state(state) -> dict:
 
 
 def unpack_state(config: D4PGConfig, payload: dict, device="cpu"):
+    """A fresh state holding copies of ``payload``'s tensors (an
+    optimizer's ``load_state_dict`` keeps the given ``step`` tensors, which
+    Adam then increments in place: two states unpacked from one payload
+    would share them)."""
     state = init_state(config, 0, device)
     for name in _PARTS:
-        getattr(state, name).load_state_dict(payload["parts"][name])
+        getattr(state, name).load_state_dict(
+            copy.deepcopy(payload["parts"][name]))
     state.step = payload["step"]
     state.generator.set_state(payload["generator"])
     return state
@@ -190,3 +197,88 @@ def global_batches(mesh, config, fields_per_rank, batch_size):
               generator=torch.Generator().manual_seed(mesh.rank))
     return {"pipeline": seen, "written": written, "params": after,
             "fused_td": tuple(m["td_error"].shape)}
+
+
+# -- the model axis ---------------------------------------------------------
+
+
+def _encoder_slices(module) -> dict:
+    return {n: t.detach().cpu().numpy().copy()
+            for n, t in module.encoder.state_dict().items()}
+
+
+def model_axis_chunk(mesh, config, payload, blocks, k, batch_size, seed):
+    """The reference's ``{data, model}`` smoke on the port: this rank's
+    data shards (of ``mesh.data_index``) filled with
+    ``blocks[data_index]``, the state replicated then split over the model
+    axis, one sharded fused chunk sampled from a generator seeded by data
+    index (the model ranks of a row draw the same slots)."""
+    from d4pg_tpu_torch.learner.fused import make_sharded_fused_chunk
+    from d4pg_tpu_torch.parallel import replicate_state
+    from d4pg_tpu_torch.replay.sharded_per import ShardedFusedReplay
+
+    torch.set_num_threads(1)
+    buf = ShardedFusedReplay(64, config.obs_shape, config.act_dim, mesh,
+                             alpha=0.6, obs_dtype=np.uint8)
+    fill(buf, blocks[mesh.data_index])
+    state = replicate_state(unpack_state(config, payload, mesh.device), mesh)
+    fn = make_sharded_fused_chunk(config, mesh, k=k, batch_size=batch_size,
+                                  alpha=0.6)
+    gen = torch.Generator().manual_seed(seed + mesh.data_index)
+    _, metrics = fn(state, buf.trees, buf.storage, buf.size, generator=gen)
+    return {"metrics": _numpy(metrics), "step": state.step,
+            "coords": (mesh.data_index, mesh.model_index),
+            "storage_obs": buf.storage.obs.numpy().copy(),
+            "actor_encoder": _encoder_slices(state.actor),
+            "critic_encoder": _encoder_slices(state.critic),
+            "conv1_shape": tuple(state.critic.encoder.conv1.weight.shape)}
+
+
+def model_axis_update(mesh, config, payload, fields, w, draws):
+    """The K-step update on a ``{data, model}`` mesh: the whole state
+    replicated then split, this rank's data block of the [K, B] stack
+    (and of the injected draws), then the networks gathered whole."""
+    from d4pg_tpu_torch.learner.update import UpdateDraws
+    from d4pg_tpu_torch.parallel import (make_sharded_multi_update,
+                                         replicate_state, shard_stacked)
+    from d4pg_tpu_torch.parallel.model_axis import gather_state
+
+    torch.set_num_threads(1)
+    state = replicate_state(unpack_state(config, payload, mesh.device), mesh)
+    update = make_sharded_multi_update(config, mesh)
+    draws = UpdateDraws(**{n: None if v is None else torch.from_numpy(v)
+                           for n, v in draws.items()})
+    metrics = update(state, shard_stacked(batch_of(fields), mesh),
+                     shard_stacked(torch.from_numpy(w), mesh),
+                     draws=shard_stacked(draws, mesh))
+    whole = gather_state(state, mesh)
+    return {"metrics": _numpy(metrics), "step": state.step,
+            "params": {m: {n: t.numpy() for n, t in ps.items()}
+                       for m, ps in whole.items()},
+            "coords": (mesh.data_index, mesh.model_index),
+            "local_conv1": tuple(state.critic.encoder.conv1.weight.shape),
+            "actor_encoder": _encoder_slices(state.actor),
+            "critic_encoder": _encoder_slices(state.critic)}
+
+
+def shard_gather_round_trip(mesh, tree):
+    """Each leaf of ``tree`` ({name: (array, placement)}) sharded to this
+    rank and gathered back whole."""
+    from d4pg_tpu_torch.parallel import partition
+
+    placements = {n: d for n, (_, d) in tree.items()}
+    shard, gather = partition.make_shard_and_gather_fns(placements, mesh)
+    local = {n: shard[n](a) for n, (a, _) in tree.items()}
+    return {"local": {n: t.numpy() for n, t in local.items()},
+            "whole": {n: gather[n](t).numpy() for n, t in local.items()},
+            "coords": (mesh.data_index, mesh.model_index)}
+
+
+def mesh_groups(mesh):
+    """This rank's coordinates and the world ranks of its two groups."""
+    import torch.distributed as dist
+
+    return {"coords": (mesh.data_index, mesh.model_index),
+            "data_group": dist.get_process_group_ranks(mesh.data_group),
+            "model_group": dist.get_process_group_ranks(mesh.model_group),
+            "backend": mesh.backend}
