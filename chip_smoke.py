@@ -305,14 +305,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      parameters outside the reference's bars under a bar that the sound
      controls stay under and a TF32 control exceeds, and none outside
      with Adam's epsilon at 1e-3 on both sides), then timed beside phase
-     15's float32 arm;
- 28. a ``kernels`` JSON line (each kernel's launches on every path that
+     15's float32 arm; both sides of every comparison on cuDNN's
+     deterministic algorithms;
+ 28. the fleet plane, the lock plane in record mode for each run and
+     the launch counters set to 0 before it (no kernel launches): (a)
+     ``run_sweep`` at N = 64 and 256 thread lanes of Humanoid rows
+     (376/17) with the default chaos, 5 s each, then ``shard_sweep`` K =
+     1 and 2 at N = 256 and 60 rows/s a lane, 3 s each: rows/s, send
+     p50/p99, drops by cause, evictions and readmissions, lock waits per
+     tier, no deadlock and no violation; (b) ``run_recovery`` at N = 64, K = 2
+     with seeded service kills: the bitwise ``recovery_probe``, MTTR;
+     (c) ``run_sampler``'s host, dealer and device arms (the device
+     arm's ring and dealer on cuda:0, ``arm='scan'``) and a dealer chaos
+     row: no deadlock, violation, trace orphan or dealt dead ticket, no
+     buffer-lock acquisition on the dealt consume paths; (d)
+     ``run_serving`` with its server on the card and one server kill;
+     (e) ``run_weights`` with 64 pullers over a depth-2 relay tree; (f)
+     the harness's actor mode with four ``actor_main`` processes
+     (``point``). Every rate is a host rate of the card's machine;
+ 29. a ``kernels`` JSON line (each kernel's launches on every path that
      runs it; the descent's time at the dealt and the sharded shapes),
      then the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -1194,7 +1212,6 @@ def phase_driver(card: str, hooks: DriverHooks) -> dict:
     profiled for the device-busy share, then two default cycles with the
     eval between cycles instead of beside them. Each run has its launch
     counters set to 0 just before and read just after."""
-    import contextlib
     import importlib.util
     import shutil
 
@@ -2151,7 +2168,6 @@ def _driver_run(hooks, driver, tag, argv, log_dir, profiled=False):
     and read just after; (result, counts, own grad-steps/s per cycle, the
     logged cycle rows, wall seconds). ``profiled``: the second cycle's
     device events land in ``hooks`` (see ``DriverHooks``)."""
-    import contextlib
 
     hooks.reset(profiled)
     zero_counts()
@@ -3740,7 +3756,6 @@ def phase_recovery_driver(card: str, hooks: DriverHooks,
     per grad step), its own grad-steps/s beside phase 11's learner-only
     resume; then a sidecar with one byte flipped gives a learner-only
     resume that says so."""
-    import contextlib
     import shutil
 
     from d4pg_tpu_torch import train as driver
@@ -4088,7 +4103,6 @@ def phase_elastic_driver(card: str, hooks: DriverHooks,
     batch 64, K = 40), ELASTIC_LANES policy lanes of ELASTIC_ROWS rows,
     one request every ELASTIC_LANE_PERIOD_S each, querying the driver's
     policy server from the autoscaler's start to its close."""
-    import contextlib
     import shutil
     import threading
 
@@ -4160,7 +4174,8 @@ def phase_elastic_driver(card: str, hooks: DriverHooks,
     crashes = REGISTRY.counter("threads.contained_crashes").value
     tee = _Tee()
     try:
-        with contextlib.redirect_stdout(tee):
+        # the lock plane in record mode for the run, as the drills run it
+        with contextlib.redirect_stdout(tee), locking.record_mode():
             result, counts, own, cycles, wall = _driver_run(
                 hooks, driver, "elastic",
                 ["--env", "point", "--fused_replay", "off",
@@ -4700,6 +4715,24 @@ MODEL_FULL_OFF_SHARE = 0.1
 # two halves): 0 in the one reading, above the ATen control's 1.4e-5
 MODEL_SAME_OFF_SHARE = 1e-4
 ADAM_EPS_PROBE = 1e-3  # 27b's probe of the cause (Adam's default: 1e-8)
+# Phase 27 runs cuDNN's deterministic algorithms on both sides of every
+# comparison (the ranks' checked updates and the single-device updates):
+# with the default ones the same update twice in one process came 6,159
+# elements apart beyond the bars above (PERF.md §6), so a gate against
+# the same arithmetic could fail on the repeat alone. 27b's timed steps
+# run the default algorithms, as the driver's model axis does.
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the body; the setting found
+    before it is put back after."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 def _tree_to(tree, device):
@@ -5078,7 +5111,6 @@ def phase_replica_driver(card: str, hooks: DriverHooks) -> dict:
     both replicas' grad steps counted (20 per cycle each), the resumed
     run from step 40; own grad-steps/s per cycle. The mesh arm projects
     with einsum and samples host trees: no kernel launches."""
-    import contextlib
     import shutil
 
     from d4pg_tpu_torch import train as driver
@@ -5174,7 +5206,8 @@ def model_axis_rank(mesh, dev, seed, fields, w, draws, timed_steps,
     sharded fused chunk over this data row's shards, the descent counted;
     or (27b, ``timed_steps``) the same update from a fresh state with
     Adam's epsilon at ``eps_probe``, gathered, then ``timed_steps`` more
-    grad steps of the first state, timed."""
+    grad steps of the first state, timed. The checked updates run cuDNN's
+    deterministic algorithms, the timed steps the default ones."""
     from d4pg_tpu_torch.learner.fused import make_sharded_fused_chunk
     from d4pg_tpu_torch.learner.state import init_state
     from d4pg_tpu_torch.learner.update import UpdateDraws
@@ -5202,8 +5235,9 @@ def model_axis_rank(mesh, dev, seed, fields, w, draws, timed_steps,
     mesh.comm_s.update(model=0.0, data=0.0)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    metrics = update(state, batches, wl, draws=dl)
-    torch.cuda.synchronize(dev)
+    with _deterministic_cudnn():
+        metrics = update(state, batches, wl, draws=dl)
+        torch.cuda.synchronize(dev)
     first_s = time.perf_counter() - t0
     result = {"coords": (mesh.data_index, mesh.model_index),
               "metrics": {n: v.cpu().numpy() for n, v in metrics.items()},
@@ -5215,7 +5249,8 @@ def model_axis_rank(mesh, dev, seed, fields, w, draws, timed_steps,
     if timed_steps:
         probe = replicate_state(init_state(cfg, seed, dev), mesh)
         _set_adam_eps(probe, eps_probe)
-        update(probe, batches, wl, draws=dl)
+        with _deterministic_cudnn():
+            update(probe, batches, wl, draws=dl)
         result["eps_probe_params"] = gathered(probe)
         del probe
         mesh.comm_s.update(model=0.0, data=0.0)
@@ -5240,10 +5275,11 @@ def model_axis_rank(mesh, dev, seed, fields, w, draws, timed_steps,
     chunk = make_sharded_fused_chunk(cfg, mesh, k=k,
                                      batch_size=w.shape[1])
     zero_counts()
-    _, m = chunk(state, buf.trees, buf.storage, buf.size,
-                 generator=torch.Generator(device=dev).manual_seed(
-                     270 + mesh.data_index))
-    torch.cuda.synchronize(dev)
+    with _deterministic_cudnn():
+        _, m = chunk(state, buf.trees, buf.storage, buf.size,
+                     generator=torch.Generator(device=dev).manual_seed(
+                         270 + mesh.data_index))
+        torch.cuda.synchronize(dev)
     result["chunk_launches"] = launch_counts()
     result["chunk_idx"] = m["idx"].cpu().numpy()
     result["chunk_finite"] = bool(torch.isfinite(m["critic_loss"]).all())
@@ -5314,7 +5350,8 @@ def _single_update(cfg, dev, fields, w, draws, eps: float | None = None,
     sets Adam's epsilon; ``tf32`` lets convolutions and matmuls round
     their operands to TF32 (the lower-precision control); ``cudnn=False``
     runs the convolutions through ATen's own kernels (another algorithm
-    for the same float32 math); ``halves`` computes each encoder
+    for the same float32 math); cuDNN runs its deterministic algorithms,
+    as the ranks' checked updates do; ``halves`` computes each encoder
     convolution as its two halves of out-channels joined, the
     arithmetic of the model axis at two ranks in one process."""
     from types import SimpleNamespace
@@ -5328,10 +5365,12 @@ def _single_update(cfg, dev, fields, w, draws, eps: float | None = None,
     if eps is not None:
         _set_adam_eps(state, eps)
     flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled)
+             torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled,
+             torch.backends.cudnn.deterministic)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cudnn.enabled = cudnn
+    torch.backends.cudnn.deterministic = True  # as the ranks check
     conv = encoder_module.conv_same
 
     def conv_halves(layer, x, pads, dtype):
@@ -5352,7 +5391,8 @@ def _single_update(cfg, dev, fields, w, draws, eps: float | None = None,
         torch.cuda.synchronize(dev)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled) = flags
+         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled,
+         torch.backends.cudnn.deterministic) = flags
         encoder_module.conv_same = conv
     params = {m: {n: t.detach().cpu().numpy() for n, t in
                   getattr(state, m).state_dict().items()}
@@ -5603,6 +5643,210 @@ def phase_model_axis(dev, card: str, pixel: dict) -> dict:
             "wall_s": [wall_a, wall_b]}
 
 
+# phase 28: the fleet plane (host and TCP work beside the card)
+FLEET_NS = (64, 256)  # thread lanes of the N sweep
+FLEET_SECONDS = 5.0  # per N-sweep row
+FLEET_SHARD_SECONDS = 3.0  # per shard-sweep row
+FLEET_SHARD_RATE = 60.0  # rows/s per lane in the shard sweep (N = 256)
+FLEET_ACTOR_TICKS = 1000  # pool ticks per real actor lane (28f)
+
+
+def _fleet_rows(tag: str, rows: list, card: str) -> None:
+    for row in rows:
+        lat, drops = row["send_latency_ms"], row["drops"]
+        waits = {tier: round(per["wait_ns"] / 1e6, 3)
+                 for tier, per in sorted(row["locks"]["per_lock"].items())}
+        print(f"[fleet {tag}] N = {row['n_actors']}, K = "
+              f"{row['ingest_shards']} ({row['codec']}): "
+              f"{row['rows_per_sec']} rows/s of {row['demand_rows_per_sec']}"
+              f" offered, send p50 {lat['p50']} ms p99 {lat['p99']} ms, "
+              f"drops chaos {drops['chaos_rows']} backpressure "
+              f"{drops['backpressure_rows']} shed {drops['shed_rows']} rows, "
+              f"crashes {row['crashes']}, evictions {row['evictions']}, "
+              f"readmissions {row['readmissions']}, lock waits ms {waits} "
+              f"(host rates of the card's machine, {card})")
+
+
+def _fleet_gate(tag: str, rows: list) -> None:
+    for row in rows:
+        check(row["deadlocks"] == 0,
+              f"fleet {tag} N={row['n_actors']}: {row['deadlocks']} deadlocks")
+        check(row["locks"]["hierarchy_violations"] == 0,
+              f"fleet {tag} N={row['n_actors']}: lock violations "
+              f"{row['locks']['violation_samples']}")
+        check(row["rows_per_sec"] > 0, f"fleet {tag}: rows flowed")
+
+
+def phase_fleet(card: str) -> dict:
+    """28: the fleet plane. (a) ``run_sweep`` at N = 64 and 256 thread
+    lanes and ``shard_sweep`` K = 1, 2 at N = 256 (Humanoid rows, the
+    default chaos); (b) ``run_recovery`` (N = 64, K = 2, seeded service
+    kills); (c) ``run_sampler``'s three arms, the device arm on cuda:0,
+    and its chaos row; (d) ``run_serving`` with its server on the card
+    and one server kill; (e) ``run_weights`` (64 pullers, a depth-2
+    relay tree); (f) the harness's actor mode with four ``actor_main``
+    processes. Each with the lock plane in record mode and the launch
+    counters set to 0 before it: the fleet launches none of the port's
+    kernels."""
+    from d4pg_tpu_torch.fleet import sweep as fsweep
+    from d4pg_tpu_torch.fleet import ChaosConfig, FleetConfig, FleetHarness
+
+    flight = str(ROOT / "runs" / "chip_smoke" / "fleet_flight")
+    out = {"launches": {k: 0 for k in launch_counts()}}
+
+    def drill(tag, fn):
+        zero_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        check(not any(counts.values()),
+              f"fleet {tag}: no kernel of the port launched ({counts})")
+        for k, v in counts.items():
+            out["launches"][k] += v
+        print(f"[fleet {tag}] {wall:.2f} s of wall clock ({card})")
+        out[tag] = result
+        return result
+
+    # 28a: the fan-out and the ingest shards
+    sweep = drill("sweep", lambda: fsweep.run_sweep(
+        ns=FLEET_NS, duration_s=FLEET_SECONDS, flight_dir=flight))
+    _fleet_gate("sweep", sweep["sweep"])
+    _fleet_rows("sweep", sweep["sweep"], card)
+    shards = drill("shards", lambda: fsweep.shard_sweep(
+        ks=(1, 2), n_actors=FLEET_NS[-1], duration_s=FLEET_SHARD_SECONDS,
+        rows_per_sec=FLEET_SHARD_RATE, flight_dir=flight))
+    _fleet_gate("shards", shards["sweep"])
+    _fleet_rows("shards", shards["sweep"], card)
+    keys = ("ingest_shards", "rows_per_sec", "speedup_vs_k1",
+            "lock_wait_ms", "stage_ms")
+    print(f"[fleet shards] scaling "
+          f"{[{k: sc[k] for k in keys} for sc in shards['scaling']]} "
+          f"({card})")
+
+    # 28b: service kills, restores and the bitwise probe
+    rec = drill("recovery", lambda: fsweep.run_recovery(
+        n_actors=64, duration_s=6.0, ingest_shards=2, flight_dir=flight))
+    check(rec["oracle"]["oracle_bitwise_equal"] is True,
+          "fleet recovery: restore equals the uninterrupted run, bitwise")
+    check(rec["kills"] >= 1 and rec["restarts"] == rec["kills"]
+          and rec["failed_restarts"] == 0,
+          f"fleet recovery: kills {rec['kills']}, restarts "
+          f"{rec['restarts']}, failed {rec['failed_restarts']}")
+    check(rec["deadlocks"] == 0 and rec["hierarchy_violations"] == 0,
+          f"fleet recovery: deadlocks {rec['deadlocks']}, violations "
+          f"{rec['hierarchy_violations']}")
+    print(f"[fleet recovery] {rec['kills']} kills, MTTR {rec['mttr_s']} s, "
+          f"rows lost to the crash {rec['rows_lost_to_crash']}, fenced "
+          f"{rec['rows_fenced']} rows in {rec['frames_fenced']} frames, "
+          f"{rec['rows_inserted']} rows inserted, reconnect storm "
+          f"{rec['reconnect_storm']} ({card})")
+
+    # 28c: host, dealer and device sample paths; the device arm's ring and
+    # dealer on cuda:0 with the reference's arm='scan'
+    smp = drill("sampler", lambda: fsweep.run_sampler(
+        n_actors=64, duration_s=2.0, device="cuda:0", flight_dir=flight))
+    for arm in ("host", "dealer", "device"):
+        row = smp["ab"][arm]
+        check(row["deadlocks"] == 0 and row["hierarchy_violations"] == 0
+              and row["trace_orphans"] == 0 and row["blocks_consumed"] > 0,
+              f"fleet sampler {arm}: {row}")
+    for arm in ("dealer", "device"):
+        row = smp["ab"][arm]
+        check(row["sample_path_buffer_acqs"] == 0
+              and row["sampler"]["dealt_dead_tickets"] == 0,
+              f"fleet sampler {arm}: consume path and dealt tickets {row}")
+    check(smp["ab"]["device"]["device"] == "cuda:0",
+          f"fleet sampler: the device arm ran on {smp['ab']['device']}")
+    ch = smp["chaos"]
+    check(ch["deadlocks"] == 0 and ch["hierarchy_violations"] == 0
+          and ch["trace_orphans"] == 0
+          and ch["sampler"]["dealt_dead_tickets"] == 0
+          and ch["consumer"]["sample_path_buffer_acqs"] == 0
+          and ch["consumer"]["consumer_kills"] >= 1
+          and ch["fenced_frames"] >= 1,
+          f"fleet sampler chaos: {ch['consumer']}, dead tickets "
+          f"{ch['sampler']['dealt_dead_tickets']}")
+    for arm in ("host", "dealer", "device"):
+        row = smp["ab"][arm]
+        print(f"[fleet sampler {arm}] wire_to_grad p95 "
+              f"{row['wire_to_grad_p95_ms']} ms, deal_to_grad p95 "
+              f"{row['deal_to_grad_p95_ms']} ms, blocks consumed "
+              f"{row['blocks_consumed']}, blocks dealt "
+              f"{(row['sampler'] or {}).get('dealt_blocks')}, rows inserted "
+              f"{row['rows_inserted']}, buffer-lock acquisitions on the "
+              f"consume path {row['sample_path_buffer_acqs']} ({card})")
+    print(f"[fleet sampler chaos] {ch['consumer']}, shed rows "
+          f"{ch['shed_rows']}, fenced frames {ch['fenced_frames']} ({card})")
+
+    # 28d: the serving drill, its server on the card, one server kill
+    srv = drill("serving", lambda: fsweep.run_serving(
+        lane_counts=(4,), envs_per_lane=4, duration_s=1.5, server_kills=1,
+        device="cuda:0"))
+    sc = srv["chaos"]
+    check(sc["device"] == "cuda:0", f"fleet serving: server on {sc['device']}")
+    check(sc["server_kills"] == 1 and all(m is not None
+                                          for m in sc["mttr_s"]),
+          f"fleet serving: kills {sc['server_kills']}, MTTR {sc['mttr_s']}")
+    check(sc["torn"]["accepted"] == 0 and sc["trace"]["orphans"] == 0
+          and sc["hierarchy_violations"] == 0,
+          f"fleet serving: torn {sc['torn']}, orphans "
+          f"{sc['trace']['orphans']}, violations {sc['hierarchy_violations']}")
+    for row in srv["sweep"]:
+        check(row["hierarchy_violations"] == 0
+              and row["trace_orphans"] == 0, f"fleet serving row {row}")
+        print(f"[fleet serving] {row['n_lanes']} lanes: "
+              f"{row['actions_per_sec']} actions/s, request latency "
+              f"{row['latency_ms']} ms, occupancy {row['batch_occupancy']}"
+              f" ({card})")
+    pair = srv["batching"]
+    print(f"[fleet serving] batched vs unbatched at {pair['n_lanes']} lanes:"
+          f" {pair['batched_actions_per_sec']} vs "
+          f"{pair['unbatched_actions_per_sec']} actions/s (x{pair['speedup']})"
+          f"; chaos: MTTR {sc['mttr_s']} s, torn {sc['torn']}, "
+          f"{sc['actions_per_sec']} actions/s ({card})")
+
+    # 28e: the broadcast plane
+    w = drill("weights", lambda: fsweep.run_weights(
+        n_pullers=64, relay_depth=2, duration_s=3.0))
+    check(w["torn"]["accepted"] == 0 and w["ledger"]["monotone"] is True
+          and w["ledger"]["unpublished_accepted"] == 0
+          and w["trace"]["orphans"] == 0 and w["hierarchy_violations"] == 0
+          and w["oracle"]["delta_failures"] == 0
+          and w["oracle"]["quant_failures"] == 0,
+          f"fleet weights: torn {w['torn']}, ledger {w['ledger']}, orphans "
+          f"{w['trace']['orphans']}, oracle {w['oracle']}")
+    print(f"[fleet weights] {w['n_pullers']} pullers over a depth-"
+          f"{w['relay_depth']} relay tree: "
+          f"{w['snapshots_per_sec']} snapshots/s, delta hit rate "
+          f"{w['delta_hit_rate']}, {w['bytes_per_sec']} B/s, staleness "
+          f"{w['staleness_ms']} ms, {w['pullers_converged']} converged "
+          f"({card})")
+
+    # 28f: four real actor processes of the port (point) into K = 2
+    act = drill("actors", lambda: FleetHarness(FleetConfig(
+        n_actors=4, mode="actor", max_ticks=FLEET_ACTOR_TICKS,
+        ingest_shards=2, chaos=ChaosConfig(seed=0), send_timeout=5.0,
+        heartbeat_timeout=30.0, flight_dir=flight)).run())
+    check(act["deadlocks"] == 0
+          and act["locks"]["hierarchy_violations"] == 0
+          and act["ingest"]["order_breaks"] == 0,
+          f"fleet actors: deadlocks {act['deadlocks']}, locks "
+          f"{act['locks']['hierarchy_violations']}, {act['ingest']}")
+    steps = sum(act["lane_env_steps"])
+    check(len(act["lane_env_steps"]) == 4
+          and all(s == FLEET_ACTOR_TICKS * act["num_envs"]
+                  for s in act["lane_env_steps"])
+          and 0 < act["rows_inserted"] <= steps,
+          f"fleet actors: env steps {act['lane_env_steps']}, rows "
+          f"{act['rows_inserted']}")
+    print(f"[fleet actors] 4 actor_main processes: {steps} env steps, "
+          f"{act['rows_inserted']} rows in {act['duration_s']} s from the "
+          f"spawn ({act['rows_per_sec']} rows/s, the processes' start "
+          f"included) ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5674,6 +5918,7 @@ def main() -> int:
     mesh_ab = phase_mesh_ab(dev, card)
     replica_drv = phase_replica_driver(card, hooks)
     model_axis = phase_model_axis(dev, card, pixel)
+    fleet = phase_fleet(card)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -5739,6 +5984,8 @@ def main() -> int:
         kern["replica_driver_launches"] = \
             replica_drv["launches"][kern["name"]]
         kern["model_axis_launches"] = model_axis["launches"][kern["name"]]
+        # this slice: the fleet's drills (28a-f), none
+        kern["fleet_launches"] = fleet["launches"][kern["name"]]
         if kern["name"] == "descent":
             # the dealt plane's shape: one launch per deal over Q = K * B
             # flat queries (22a), and the driver's Q = 40 * 64 at 2^20

@@ -1,30 +1,33 @@
 """Tiered locks: one declared lock hierarchy, checked at run time.
 
-Counterpart of ``d4pg_tpu/core/locking.py`` (``HIERARCHY``,
-``TieredLock``, ``TieredCondition``). ``HIERARCHY`` maps tier names to
-integer tiers, outermost first; the rule is monotone tier descent per
-thread: a thread may only acquire a lock whose tier is strictly below
-every tier it already holds. Every acquisition checks descent (a
-thread-local list, cheap next to the lock itself) and raises
-``LockHierarchyError`` on an inversion.
+Counterpart of ``d4pg_tpu/core/locking.py``. ``HIERARCHY`` maps tier
+names to integer tiers, outermost first; the rule is monotone tier
+descent per thread: a thread may only acquire a lock whose tier is
+strictly below every tier it already holds. Sequential acquisition is
+always legal; equal-tier nesting is a violation.
 
-Each violation is also recorded on the flight recorder
-(``obs.flight``, a ``lock_violation`` event) and counted
-(``violation_count``, the learner chaos drill's lock oracle) before it
-raises.
-
-Only the tiers of the ported components are declared. Left out: the
-reference's debug switch and contention counters (``enable_debug``,
-``lock_stats``) and the ``locks`` registry provider built on them, which
-its fleet harness reads (ROADMAP Queue 1 item 17c).
+Production mode (the default) delegates straight to ``threading`` with no
+bookkeeping. ``enable_debug`` arms the sentinels: every acquisition
+checks descent and counts contention per lock (acquisitions, contended
+acquisitions, wait time, the longest hold, ``Condition.wait`` calls),
+aggregated by tier in ``lock_stats``. ``raise_on_violation=False`` is
+record mode: a violation is counted and kept (``violation_count``,
+``hierarchy_violations``) instead of raised. The fleet harness and every
+drill of ``fleet/`` run in record mode and report the count, since a
+raise inside a worker thread would read as a deadlock. Either way a
+violation is recorded on the flight recorder (``obs.flight``, a
+``lock_violation`` event). The ``locks`` registry provider exports the
+counters and the tally.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
 from d4pg_tpu_torch.obs.flight import record_event
+from d4pg_tpu_torch.obs.registry import REGISTRY as _obs_registry
 
 # Outermost (largest tier) first; the tiers keep the reference's values.
 HIERARCHY: dict[str, int] = {
@@ -64,6 +67,9 @@ HIERARCHY: dict[str, int] = {
 }
 
 
+_MAX_VIOLATION_RECORDS = 64
+
+
 class LockHierarchyError(RuntimeError):
     """A thread acquired a tiered lock out of declared order."""
 
@@ -74,48 +80,155 @@ class _TLS(threading.local):
 
 
 _tls = _TLS()
-_violations_lock = threading.Lock()  # outside the hierarchy: a leaf
-_violations = 0
+
+_debug = False
+_raise_on_violation = True
+_registry_lock = threading.Lock()
+_instances: list["TieredLock | TieredCondition"] = []
+_violations: list[str] = []
+_violation_count = 0
+
+
+def enable_debug(raise_on_violation: bool = True) -> None:
+    """Turn on descent assertions + contention counting. ``raise_on_
+    violation=False`` records violations instead of raising — the fleet
+    harness runs in record mode (a raise inside a worker thread would
+    kill the ingest plane mid-measurement and read as a deadlock) and
+    asserts the count is zero afterwards."""
+    global _debug, _raise_on_violation
+    _raise_on_violation = raise_on_violation
+    _debug = True
+
+
+def disable_debug() -> None:
+    global _debug
+    _debug = False
+
+
+def debug_enabled() -> bool:
+    return _debug
+
+
+def reset_stats() -> None:
+    global _violations, _violation_count
+    with _registry_lock:
+        _violations = []
+        _violation_count = 0
+        for inst in _instances:
+            inst._reset_stats()
+
+
+def hierarchy_violations() -> list[str]:
+    with _registry_lock:
+        return list(_violations)
 
 
 def violation_count() -> int:
-    """Hierarchy violations raised in this process so far."""
-    with _violations_lock:
-        return _violations
+    with _registry_lock:
+        return _violation_count
 
 
-def _count_violation() -> None:
-    global _violations
-    with _violations_lock:
-        _violations += 1
+def lock_stats() -> dict[str, dict]:
+    """Contention counters aggregated by tier name (all shard conditions
+    fold into one ``shard`` row, etc.). ``wait_ns`` is time spent
+    blocked on contended acquisitions; ``cond_waits`` counts
+    ``Condition.wait`` calls (intentional waiting, kept separate from
+    contention)."""
+    agg: dict[str, dict] = {}
+    with _registry_lock:
+        instances = list(_instances)
+    for inst in instances:
+        row = agg.setdefault(inst.tier_name, {
+            "tier": inst.tier, "acquisitions": 0, "contended": 0,
+            "wait_ns": 0, "max_hold_ns": 0, "cond_waits": 0,
+        })
+        row["acquisitions"] += inst._acquisitions
+        row["contended"] += inst._contended
+        row["wait_ns"] += inst._wait_ns
+        row["max_hold_ns"] = max(row["max_hold_ns"], inst._max_hold_ns)
+        row["cond_waits"] += getattr(inst, "_cond_waits", 0)
+    return agg
 
 
-class _Tiered:
-    """A ``threading`` lock or condition carrying a tier: the descent
-    check before each acquisition, the thread's held stack after it."""
+def held_tiers() -> list[tuple[int, str]]:
+    """The current thread's held (tier, name) stack — for tests."""
+    return list(_tls.held)
 
-    def __init__(self, tier_name: str, inner):
-        if tier_name not in HIERARCHY:
-            raise ValueError(f"unknown lock tier {tier_name!r}; declare it "
-                             f"in core.locking.HIERARCHY")
+
+@contextlib.contextmanager
+def record_mode():
+    """Arm the sentinels in record mode for the body, then put back the
+    mode that was set before it. The drills of ``fleet/`` run under it
+    and report ``violation_count()`` less its value at their start."""
+    global _debug, _raise_on_violation
+    before = (_debug, _raise_on_violation)
+    enable_debug(raise_on_violation=False)
+    try:
+        yield
+    finally:
+        _debug, _raise_on_violation = before
+
+
+def _record_violation(msg: str) -> None:
+    global _violation_count
+    with _registry_lock:
+        _violation_count += 1
+        if len(_violations) < _MAX_VIOLATION_RECORDS:
+            _violations.append(msg)
+    # Flight-recorder event (obs/flight), recorded OUTSIDE the registry
+    # lock: a hierarchy violation is exactly the event whose surrounding
+    # context the postmortem ring exists to preserve — the fleet harness
+    # dumps the ring whenever this count is nonzero at run end.
+    record_event("lock_violation", msg=msg)
+    if _raise_on_violation:
+        raise LockHierarchyError(msg)
+
+
+class _TieredBase:
+    """Shared bookkeeping: descent check + contention counters. The
+    counters are only mutated by the acquiring/holding thread (pre-hold
+    wait folds in right after the acquire lands), so they need no extra
+    synchronization; cross-instance aggregation happens at snapshot
+    time in ``lock_stats``."""
+
+    def __init__(self, tier_name: str, tier: int | None = None):
+        if tier is None:
+            if tier_name not in HIERARCHY:
+                raise ValueError(
+                    f"unknown lock tier {tier_name!r}; declare it in "
+                    f"core.locking.HIERARCHY or pass tier= explicitly")
+            tier = HIERARCHY[tier_name]
         self.tier_name = tier_name
-        self.tier = HIERARCHY[tier_name]
-        self._inner = inner
+        self.tier = int(tier)
+        self._reset_stats()
+        with _registry_lock:
+            _instances.append(self)
+
+    def _reset_stats(self) -> None:
+        self._acquisitions = 0
+        self._contended = 0
+        self._wait_ns = 0
+        self._max_hold_ns = 0
+        self._held_since = 0
 
     def _check_and_push(self) -> None:
         held = _tls.held
-        if held and self.tier >= min(t for t, _ in held):
-            chain = " -> ".join(n for _, n in held)
-            msg = (f"hierarchy violation: acquiring '{self.tier_name}' "
-                   f"(tier {self.tier}) while holding [{chain}]; declared "
-                   f"order is monotone descent "
-                   f"({', '.join(f'{k}={v}' for k, v in HIERARCHY.items())})")
-            _count_violation()
-            record_event("lock_violation", msg=msg)
-            raise LockHierarchyError(msg)
+        if held:
+            floor = min(t for t, _ in held)
+            if self.tier >= floor:
+                chain = " -> ".join(n for _, n in held)
+                _record_violation(
+                    f"hierarchy violation: acquiring '{self.tier_name}' "
+                    f"(tier {self.tier}) while holding [{chain}] (floor "
+                    f"tier {floor}); declared order is monotone descent "
+                    f"({', '.join(f'{k}={v}' for k, v in HIERARCHY.items())})")
         held.append((self.tier, self.tier_name))
 
     def _pop(self) -> bool:
+        # Unconditional on release (debug on or off): a debug-mode flip
+        # between a thread's acquire and its release must never strand a
+        # phantom entry on the thread-local stack (daemon service threads
+        # outlive the harness bracket that armed the sentinels).
         held = _tls.held
         for i in range(len(held) - 1, -1, -1):
             if held[i] == (self.tier, self.tier_name):
@@ -123,18 +236,53 @@ class _Tiered:
                 return True
         return False
 
+    def _on_acquired(self, waited_ns: int, contended: bool) -> None:
+        self._acquisitions += 1
+        if contended:
+            self._contended += 1
+            self._wait_ns += waited_ns
+        self._held_since = time.perf_counter_ns()
+
+    def _on_release(self) -> None:
+        if self._held_since:
+            hold = time.perf_counter_ns() - self._held_since
+            if hold > self._max_hold_ns:
+                self._max_hold_ns = hold
+            self._held_since = 0
+
+
+class TieredLock(_TieredBase):
+    """``threading.Lock`` carrying a tier from the declared hierarchy."""
+
+    def __init__(self, tier_name: str, tier: int | None = None):
+        super().__init__(tier_name, tier)
+        self._inner = threading.Lock()
+
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        if not _debug:
+            return self._inner.acquire(blocking, timeout)
         self._check_and_push()
-        got = self._inner.acquire(blocking, timeout)
-        if not got:
+        t0 = time.perf_counter_ns()
+        got = self._inner.acquire(False)
+        contended = not got
+        if not got and blocking:
+            got = self._inner.acquire(True, timeout)
+        if got:
+            self._on_acquired(time.perf_counter_ns() - t0, contended)
+        else:
             self._pop()
         return got
 
     def release(self) -> None:
+        if _debug:
+            self._on_release()
         self._pop()
         self._inner.release()
 
-    def __enter__(self):
+    def locked(self) -> bool:
+        return self._inner.locked()
+
+    def __enter__(self) -> "TieredLock":
         self.acquire()
         return self
 
@@ -142,36 +290,66 @@ class _Tiered:
         self.release()
 
 
-class TieredLock(_Tiered):
-    """``threading.Lock`` carrying a tier from the declared hierarchy."""
-
-    def __init__(self, tier_name: str):
-        super().__init__(tier_name, threading.Lock())
-
-    def locked(self) -> bool:
-        return self._inner.locked()
-
-
-class TieredCondition(_Tiered):
+class TieredCondition(_TieredBase):
     """``threading.Condition`` carrying a tier. ``wait`` releases the
-    underlying lock, so the held-stack entry is closed across the wait and
-    reopened on wake (not re-checked: descent was asserted when the
-    condition was entered, and the thread's other held locks cannot have
-    changed while it was blocked)."""
+    underlying lock, so the held-stack entry and the hold-time segment
+    are closed across the wait and reopened on wake (the re-acquisition
+    after a wake is not re-checked: descent was asserted when the
+    condition was first entered, and the thread's other held locks
+    cannot have changed while it was blocked in ``wait``)."""
 
-    def __init__(self, tier_name: str):
-        super().__init__(tier_name, threading.Condition())
+    def __init__(self, tier_name: str, tier: int | None = None):
+        super().__init__(tier_name, tier)
+        self._inner = threading.Condition()
+        self._cond_waits = 0
+
+    def _reset_stats(self) -> None:
+        super()._reset_stats()
+        self._cond_waits = 0
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        if not _debug:
+            return self._inner.acquire(blocking, timeout)
+        self._check_and_push()
+        t0 = time.perf_counter_ns()
+        got = self._inner.acquire(False)
+        contended = not got
+        if not got and blocking:
+            got = self._inner.acquire(True, timeout)
+        if got:
+            self._on_acquired(time.perf_counter_ns() - t0, contended)
+        else:
+            self._pop()
+        return got
+
+    def release(self) -> None:
+        if _debug:
+            self._on_release()
+        self._pop()
+        self._inner.release()
+
+    def __enter__(self) -> "TieredCondition":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
 
     def wait(self, timeout: float | None = None) -> bool:
+        if _debug:
+            self._cond_waits += 1
+            self._on_release()
         popped = self._pop()
         try:
             return self._inner.wait(timeout)
         finally:
-            if popped:
+            if popped:  # re-open exactly the entry the wait released
                 _tls.held.append((self.tier, self.tier_name))
+            if _debug:
+                self._held_since = time.perf_counter_ns()
 
     def wait_for(self, predicate, timeout: float | None = None):
-        # threading.Condition.wait_for in terms of this wait()
+        # mirror threading.Condition.wait_for in terms of our wait()
         endtime = None
         waittime = timeout
         result = predicate()
@@ -192,3 +370,20 @@ class TieredCondition(_Tiered):
 
     def notify_all(self) -> None:
         self._inner.notify_all()
+
+
+def _locks_snapshot() -> dict:
+    """The unified-registry view of the lock plane: per-tier contention
+    counters + the hierarchy-violation tally. Same consistency contract
+    as the bespoke accessors it wraps (counters are owner-thread-mutated
+    and aggregated at snapshot time; see ``lock_stats``)."""
+    return {
+        "debug": _debug,
+        "hierarchy_violations": violation_count(),
+        "per_lock": lock_stats(),
+    }
+
+
+# module-level function: strong registration is fine (the lock plane
+# lives for the process, like the registry itself)
+_obs_registry.register_provider("locks", _locks_snapshot)

@@ -499,11 +499,16 @@ def _run_arm(cfg: ElasticChaosConfig, elastic: bool,
 def run_elastic_chaos(cfg: ElasticChaosConfig | None = None, **overrides
                       ) -> dict:
     """Run the A/B drill and return its report (the reference's drill
-    block). The lock hierarchy is always checked in this package: a
-    violation raises in its thread and is counted (and contained)."""
+    block). The lock plane runs in record mode: a violation is counted,
+    not raised."""
     cfg = dataclasses.replace(cfg or ElasticChaosConfig(), **overrides)
-    agent_cfg = cfg.agent_config()
     device = resolve_device(cfg.device)
+    with locking.record_mode():
+        return _run(cfg, device)
+
+
+def _run(cfg: ElasticChaosConfig, device: torch.device) -> dict:
+    agent_cfg = cfg.agent_config()
     violations_before = locking.violation_count()
     crashes_before = REGISTRY.counter("threads.contained_crashes").value
     TRACE.reset()

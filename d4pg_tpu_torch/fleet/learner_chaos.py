@@ -27,8 +27,9 @@ Oracles (the report's keys):
      victim's applied submissions did not move
      (``replayed_fenced == replayed_inflight``; the reference compares
      the global version, which the live lanes move meanwhile);
-  3. **locks**: no hierarchy violation in the run
-     (``hierarchy_violations``, from ``core.locking.violation_count``);
+  3. **locks**: no hierarchy violation in the run, the lock plane in
+     record mode (``hierarchy_violations``, from
+     ``core.locking.violation_count``);
   4. **trace**: with the recorder sampling every frame, each submitted
      frame ends (commit on a merge, shed on a fence or a tear): 0
      orphans.
@@ -182,6 +183,11 @@ def run_learner_chaos(cfg: LearnerChaosConfig | None = None,
     """One learner-chaos run; returns its report (see the module
     docstring)."""
     cfg = dataclasses.replace(cfg or LearnerChaosConfig(), **overrides)
+    with locking.record_mode():
+        return _run(cfg)
+
+
+def _run(cfg: LearnerChaosConfig) -> dict:
     violations_before = locking.violation_count()
     TRACE.reset()
     TRACE.enable(sample_rate=1.0)

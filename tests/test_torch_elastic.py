@@ -838,11 +838,12 @@ def test_autoscale_driver_wires_every_knob(tmp_path, monkeypatch, capsys):
     seen = _capture_elastic(monkeypatch, start_lane)
     violations = locking.violation_count()
     crashes = REGISTRY.counter("threads.contained_crashes").value
-    metrics = ttrain.main([
-        *TINY_ARGV, "--log_dir", str(tmp_path), "--fused_replay", "off",
-        "--sample_on_ingest", "1", "--sampler", "pallas", "--learners", "2",
-        "--serve", "1", "--serve_policy", "1", "--autoscale", "1",
-        "--autoscale_interval_s", "0.02"])
+    with locking.record_mode():  # every acquisition of the run checked
+        metrics = ttrain.main([
+            *TINY_ARGV, "--log_dir", str(tmp_path), "--fused_replay", "off",
+            "--sample_on_ingest", "1", "--sampler", "pallas",
+            "--learners", "2", "--serve", "1", "--serve_policy", "1",
+            "--autoscale", "1", "--autoscale_interval_s", "0.02"])
     assert np.isfinite(metrics["critic_loss"])
     out = capsys.readouterr().out
     assert ("elastic: autoscaler up, knobs=['dealer_deals', "

@@ -83,6 +83,16 @@ MESH_AXES = {
     "d4pg_tpu_torch.learner.mesh_replicas", "d4pg_tpu_torch.fleet.mesh_ab",
     "d4pg_tpu_torch.parallel.model_axis",
 }
+# the fleet plane (harness, chaos policy, sweeps, drills) and offline
+# analysis
+FLEET_AND_ANALYSIS = {
+    "d4pg_tpu_torch.fleet.chaos", "d4pg_tpu_torch.fleet.sender",
+    "d4pg_tpu_torch.fleet.harness", "d4pg_tpu_torch.fleet.sweep",
+    "d4pg_tpu_torch.fleet.weight_chaos", "d4pg_tpu_torch.fleet.serving_chaos",
+    "d4pg_tpu_torch.fleet.sampler_chaos", "d4pg_tpu_torch.analysis",
+    "d4pg_tpu_torch.analysis.ewma", "d4pg_tpu_torch.analysis.logger",
+    "d4pg_tpu_torch.analysis.plots", "d4pg_tpu_torch.analysis.actor_scaling",
+}
 
 
 def test_port_imports_with_jax_blocked():
@@ -102,6 +112,7 @@ def test_port_imports_with_jax_blocked():
     assert ELASTIC <= imported, ELASTIC - imported
     assert PARALLEL <= imported, PARALLEL - imported
     assert MESH_AXES <= imported, MESH_AXES - imported
+    assert FLEET_AND_ANALYSIS <= imported, FLEET_AND_ANALYSIS - imported
 
 
 def test_port_sources_import_no_jax_or_reference():

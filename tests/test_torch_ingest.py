@@ -39,6 +39,7 @@ from d4pg_tpu_torch.learner.loop import FusedLoop
 from d4pg_tpu_torch.learner.pipeline import IngestDispatchError, IngestOverlap
 from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
+from torch_lock_modes import debug_mode  # noqa: F401  (a fixture)
 
 pytestmark = pytest.mark.torchport
 
@@ -254,7 +255,8 @@ def test_lock_tiers_are_the_reference_tiers():
     ("wstore", "service"),   # a weight read held across a service call
     ("commit", "commit"),    # an equal tier is not a descent
 ])
-def test_inverted_acquisition_raises_and_leaves_the_stack_clean(outer, inner):
+def test_inverted_acquisition_raises_and_leaves_the_stack_clean(outer, inner,
+                                                              debug_mode):
     first = locking.TieredCondition(outer)
     second = locking.TieredLock(inner)
     with first:
@@ -267,7 +269,7 @@ def test_inverted_acquisition_raises_and_leaves_the_stack_clean(outer, inner):
     assert locking._tls.held == []
 
 
-def test_descent_holds_across_a_condition_wait():
+def test_descent_holds_across_a_condition_wait(debug_mode):
     service = locking.TieredLock("service")
     cond = locking.TieredCondition("shard")
     with service, cond:

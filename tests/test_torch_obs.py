@@ -30,6 +30,7 @@ from d4pg_tpu_torch.obs import containment as tcontainment
 from d4pg_tpu_torch.obs import flight as tflight
 from d4pg_tpu_torch.obs import registry as tregistry
 from d4pg_tpu_torch.obs import trace as ttrace
+from torch_lock_modes import debug_mode  # noqa: F401  (a fixture)
 
 pytestmark = pytest.mark.torchport
 
@@ -279,7 +280,7 @@ def test_flight_recorder_ring_bounded_and_dump(tmp_path):
     assert len(kept) == 3 and kept[-1].endswith("r4.json")
 
 
-def test_lock_violation_is_flight_recorded():
+def test_lock_violation_is_flight_recorded(debug_mode):
     from d4pg_tpu_torch.core import locking
 
     tflight.RECORDER.reset()

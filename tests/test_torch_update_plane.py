@@ -43,6 +43,7 @@ from d4pg_tpu_torch.learner.state import D4PGConfig, init_state
 from d4pg_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from d4pg_tpu_torch.replay.schedule import SharedBetaSchedule
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
+from torch_lock_modes import debug_mode  # noqa: F401  (a fixture)
 
 pytestmark = pytest.mark.torchport
 
@@ -345,7 +346,7 @@ def test_chaos_kill_schedule_matches_the_reference():
                     == JaxCfg(seed=seed).kill_schedule(kills, 1))
 
 
-def test_violation_counter_counts_an_inversion():
+def test_violation_counter_counts_an_inversion(debug_mode):
     from d4pg_tpu_torch.core import locking
 
     before = locking.violation_count()

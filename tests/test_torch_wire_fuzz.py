@@ -12,16 +12,18 @@ tree onto the actor's torch names (``io/from_jax.torch_layout``), and a
 bare leaf names no layer; the driver only ever publishes an actor.
 """
 
+import contextlib
 import io
 import socket
 import threading
 import time
+import types
 import zlib
 
 import numpy as np
 import pytest
 
-from d4pg_tpu_torch.core import wire
+from d4pg_tpu_torch.core import locking, wire
 from d4pg_tpu_torch.distributed.transport import (
     ProtocolError,
     TransitionReceiver,
@@ -48,19 +50,24 @@ def _batch(n=4, obs_dim=3, act_dim=2, seed=0):
     )
 
 
-class _CrashTrap:
+@contextlib.contextmanager
+def _crash_trap():
     """Capture unhandled thread exceptions: a dead serve thread is a
-    test failure even when the socket side looks fine."""
-
-    def __enter__(self):
-        self.crashes = []
-        self._orig = threading.excepthook
-        threading.excepthook = lambda a: self.crashes.append(a)
-        return self
-
-    def __exit__(self, *exc):
-        threading.excepthook = self._orig
-        return False
+    test failure even when the socket side looks fine. The lock plane
+    runs in record mode meanwhile; ``violations`` is the count of
+    hierarchy violations the body made."""
+    trap = types.SimpleNamespace(crashes=[], violations=0)
+    orig = threading.excepthook
+    threading.excepthook = trap.crashes.append
+    try:
+        with locking.record_mode():
+            before = locking.violation_count()
+            try:
+                yield trap
+            finally:
+                trap.violations = locking.violation_count() - before
+    finally:
+        threading.excepthook = orig
 
 
 def _fake_server(handler):
@@ -95,7 +102,7 @@ def test_ingest_receiver_counts_hostile_frames_and_survives():
     from d4pg_tpu_torch.obs.registry import REGISTRY
 
     crashes0 = REGISTRY.counter("threads.contained_crashes").value
-    with _CrashTrap() as trap:
+    with _crash_trap() as trap:
         received = []
         recv = TransitionReceiver(lambda b, aid, c: received.append(b),
                                   host="127.0.0.1")
@@ -157,6 +164,7 @@ def test_ingest_receiver_counts_hostile_frames_and_survives():
         finally:
             recv.close()
     assert not trap.crashes, trap.crashes
+    assert trap.violations == 0
     # hostile frames ride the narrow protocol-error paths; the broad
     # top-frame containment (which would hide a crash from the trap
     # above) must not have fired either
@@ -291,7 +299,7 @@ def test_update_server_hostile_header_drops_conn_without_thread_death():
     from d4pg_tpu_torch.obs.registry import REGISTRY
 
     crashes0 = REGISTRY.counter("threads.contained_crashes").value
-    with _CrashTrap() as trap:
+    with _crash_trap() as trap:
         agg = Aggregator(WeightStore())
         server = AggregatorServer(agg)
         try:
@@ -306,6 +314,7 @@ def test_update_server_hostile_header_drops_conn_without_thread_death():
             server.close()
             agg.close()
     assert not trap.crashes, trap.crashes
+    assert trap.violations == 0
     # same bar as the ingest fuzz: the broad containment (invisible to
     # the excepthook trap) must not have absorbed a crash either
     assert REGISTRY.counter("threads.contained_crashes").value == crashes0
