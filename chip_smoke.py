@@ -336,6 +336,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -369,6 +370,43 @@ PORTED_KERNELS = ("projection_kernel", "ce_forward_kernel",
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+class _Threads:
+    """A phase's worker threads, run so that an exception in one reaches
+    the phase instead of vanishing into ``threading.excepthook``: each
+    thread keeps its exception, and ``join`` re-raises the first one once
+    every thread has been joined. ``on_error`` runs in the failing thread
+    (a barrier's ``abort``, so that the other lanes stop waiting)."""
+
+    def __init__(self, on_error=None):
+        self.threads: list[threading.Thread] = []
+        self.errors: list[BaseException] = []
+        self._on_error = on_error
+
+    def start(self, target, *args, daemon: bool = False) -> None:
+        t = threading.Thread(target=self._run, args=(target, args),
+                             daemon=daemon)
+        self.threads.append(t)
+        t.start()
+
+    def _run(self, target, args) -> None:
+        try:
+            target(*args)
+        except BaseException as e:  # noqa: BLE001 — re-raised by join
+            self.errors += [e]
+            if self._on_error is not None:
+                self._on_error()
+
+    def join(self, timeout: float | None = None, reraise: bool = True) -> None:
+        for t in self.threads:
+            t.join(timeout)
+        if reraise:
+            self.reraise()
+
+    def reraise(self) -> None:
+        if self.errors:
+            raise self.errors[0]
 
 
 def card_line() -> str:
@@ -2302,8 +2340,6 @@ class CpuMeter:
     wraps, summed per name over every thread that calls them."""
 
     def __init__(self):
-        import threading
-
         self.seconds: dict[str, float] = {}
         self._lock = threading.Lock()
 
@@ -2882,7 +2918,6 @@ def _serving_pass(dev, store, actor, chaos=None) -> dict:
     the card (the clients share this process with the server); every
     timed response held against ``act_deterministic`` on the card (atol
     1e-5)."""
-    import threading
 
     from d4pg_tpu_torch.learner.update import act_deterministic
     from d4pg_tpu_torch.serving import (
@@ -2909,6 +2944,7 @@ def _serving_pass(dev, store, actor, chaos=None) -> dict:
     # before the timed requests start together
     barrier = threading.Barrier(
         SERVE_LANES, action=lambda: start.append(time.perf_counter()))
+    lanes = _Threads(on_error=barrier.abort)
 
     def lane(i):
         for r in range(SERVE_WARMUP):
@@ -2924,13 +2960,11 @@ def _serving_pass(dev, store, actor, chaos=None) -> dict:
         while server.serving_stats()["version"] == 0:
             check(time.monotonic() < deadline, "serving: the server adopts")
             time.sleep(0.01)
-        threads = [threading.Thread(target=lane, args=(i,))
-                   for i in range(SERVE_LANES)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-            check(not t.is_alive(), "serving: a lane finished")
+        for i in range(SERVE_LANES):
+            lanes.start(lane, i)
+        lanes.join(timeout=300)
+        check(not any(t.is_alive() for t in lanes.threads),
+              "serving: every lane finished")
         wall = time.perf_counter() - start[0]
         stats = server.serving_stats()
         client_stats = [c.stats() for c in clients]
@@ -3035,7 +3069,6 @@ def phase_serving_driver(card: str, hooks: DriverHooks, remote: dict | None
     import ast
     import os
     import shutil
-    import threading
 
     from d4pg_tpu_torch import train as driver
     from d4pg_tpu_torch.config import ExperimentConfig
@@ -3047,6 +3080,7 @@ def phase_serving_driver(card: str, hooks: DriverHooks, remote: dict | None
     runs.mkdir(parents=True)
     ports = [_free_port() for _ in range(3)]
     children, logs, servers, seen = [], [], [], {}
+    spawner = _Threads()
     base = server_mod.PolicyInferenceServer
 
     def spawn_children():
@@ -3075,7 +3109,7 @@ def phase_serving_driver(card: str, hooks: DriverHooks, remote: dict | None
             super().__init__(*args, **kwargs)
             servers.append(self)
             seen["apps_before"] = compute_app_pids()
-            threading.Thread(target=spawn_children, daemon=True).start()
+            spawner.start(spawn_children, daemon=True)
 
         def close(self):
             # the children stop (and report their clients) first
@@ -3116,9 +3150,11 @@ def phase_serving_driver(card: str, hooks: DriverHooks, remote: dict | None
             hooks, driver, "serving", argv, runs)
     finally:
         server_mod.PolicyInferenceServer, driver.RemotePlanes = saved
+        spawner.join(timeout=120.0, reraise=False)
         _interrupt(children)
         for log in logs:
             log.close()
+    spawner.reraise()
     steps = 40 * len(own)
     check(steps == 120, f"driver serving: {steps} grad steps timed")
     want = {k: steps if k in fused_kernels(arm) else 0 for k in counts}
@@ -3417,7 +3453,6 @@ def phase_dealt_driver(card: str, hooks: DriverHooks,
     threads, which run the grad steps (and of the main thread, as 20c
     measures it)."""
     import shutil
-    import threading
 
     from d4pg_tpu_torch import train as driver
     from d4pg_tpu_torch.config import ExperimentConfig
@@ -3850,7 +3885,6 @@ def phase_update_plane(dev, card: str) -> dict:
     fenced after its round's grad steps, before its submission: its own
     submit and the replay of its last frame come back ``fenced``, no
     dead-epoch update merged, the version stream monotone."""
-    import threading
 
     from d4pg_tpu_torch.distributed.replay_service import ReplayService
     from d4pg_tpu_torch.distributed.update_plane import (AggregatorServer,
@@ -3959,12 +3993,10 @@ def phase_update_plane(dev, card: str) -> dict:
                 r.run_round(K)
                 ran[i] += 1
 
-        threads = [threading.Thread(target=rounds_until, args=(i, r))
-                   for i, r in enumerate(reps)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        rounds = _Threads()
+        for i, r in enumerate(reps):
+            rounds.start(rounds_until, i, r)
+        rounds.join()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
@@ -4104,7 +4136,6 @@ def phase_elastic_driver(card: str, hooks: DriverHooks,
     one request every ELASTIC_LANE_PERIOD_S each, querying the driver's
     policy server from the autoscaler's start to its close."""
     import shutil
-    import threading
 
     from d4pg_tpu_torch import train as driver
     from d4pg_tpu_torch.config import ExperimentConfig
@@ -4123,7 +4154,7 @@ def phase_elastic_driver(card: str, hooks: DriverHooks,
                             device=driver.learner_device(cfg)).selected
     seen: dict = {"active": []}
     stop = threading.Event()
-    lanes, clients = [], []
+    lanes, clients = _Threads(), []
     plane, learners = driver.elastic_plane, driver.learner_plane
     activate = driver.ReplicaTarget.activate
 
@@ -4141,16 +4172,14 @@ def phase_elastic_driver(card: str, hooks: DriverHooks,
             clients.append(RemotePolicyClient(
                 server.config, ActorConfig(), "127.0.0.1", server.port,
                 lane_id=i, seed=i, timeout=5.0))
-            lanes.append(threading.Thread(target=lane, args=(clients[-1],),
-                                          daemon=True))
-            lanes[-1].start()
+            lanes.start(lane, clients[-1], daemon=True)
         close = scaler.close
 
         def closing():
-            # the lanes end before the autoscaler and the server close
+            # the lanes end before the autoscaler and the server close;
+            # a lane's exception is raised by the phase after the run
             stop.set()
-            for t in lanes:
-                t.join(timeout=30.0)
+            lanes.join(timeout=30.0, reraise=False)
             close()
 
         scaler.close = closing
@@ -4187,6 +4216,7 @@ def phase_elastic_driver(card: str, hooks: DriverHooks,
         forwards.remove()
         driver.elastic_plane, driver.learner_plane = plane, learners
         driver.ReplicaTarget.activate = activate
+    lanes.reraise()
     said = tee.buf.getvalue()
     check(f"elastic: autoscaler up, knobs={sorted(KNOBS)}" in said,
           "driver elastic: the banner names the five knobs")
@@ -4220,7 +4250,7 @@ def phase_elastic_driver(card: str, hooks: DriverHooks,
           "driver elastic: no contained crash")
     lane_stats = [c.stats() for c in clients]
     served = sum(st["served"] for st in lane_stats)
-    check(served > 0 and not any(t.is_alive() for t in lanes),
+    check(served > 0 and not any(t.is_alive() for t in lanes.threads),
           "driver elastic: the policy lanes were served and ended")
     own_all = [grad_steps / len(own) / span for span in hooks.spans]
     per_knob = _decisions_per_knob(records)
@@ -4755,7 +4785,6 @@ def _stack_trees(trees):
 def _host_merge(trees, mode):
     """The host ``Aggregator`` fed one round-synchronous round of
     ``params_of`` trees (replica i at lag i; sync: the barrier)."""
-    import threading
 
     from d4pg_tpu_torch.distributed.weights import WeightStore
     from d4pg_tpu_torch.learner.aggregator import Aggregator
@@ -4763,13 +4792,10 @@ def _host_merge(trees, mode):
     agg = Aggregator(WeightStore(), mode=mode)
     epochs = [agg.register(i) for i in range(len(trees))]
     if mode == "sync":
-        threads = [threading.Thread(target=agg.submit,
-                                    args=(i, epochs[i], trees[i], 0),
-                                    daemon=True) for i in range(len(trees))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=120.0)
+        submits = _Threads()
+        for i in range(len(trees)):
+            submits.start(agg.submit, i, epochs[i], trees[i], 0, daemon=True)
+        submits.join(timeout=120.0)
     else:
         for i, tree in enumerate(trees):
             agg.submit(i, epochs[i], tree, 0)

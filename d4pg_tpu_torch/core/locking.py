@@ -30,6 +30,8 @@ from d4pg_tpu_torch.obs.flight import record_event
 from d4pg_tpu_torch.obs.registry import REGISTRY as _obs_registry
 
 # Outermost (largest tier) first; the tiers keep the reference's values.
+# The port's lint mirrors this table (``lint/lockgraph._TIER_VALUES``),
+# pinned equal by tests/test_torch_lint_clean.py.
 HIERARCHY: dict[str, int] = {
     # The elastic control plane: the autoscaler's targets, tick and
     # counters, above every data-plane tier. Its loop holds no lock across

@@ -6,12 +6,14 @@ wire planes is declared here once, with the same values, so a frame the
 port encodes is byte for byte the frame the reference encodes and each
 side decodes the other's. The port's planes (``distributed/transport``,
 ``distributed/weight_server``, ``distributed/weight_plane``,
-``serving/protocol``) import from here. The port speaks the ingest
-frames (v1 npz, v2 raw with the count, trace and generation extensions,
-the generation greeting), the v1 and v2 weight frames and the serving
-frames; the update plane and the replay sidecar are declared for
-completeness and wait for ROADMAP Queue 1 items 15 and 17. The
-reference's static mirror of this table (its lint pass) is not ported.
+``serving/protocol``, ``distributed/update_plane``) import from here.
+The port speaks every frame of the table: the ingest frames (v1 npz, v2
+raw with the count, trace and generation extensions, the generation
+greeting), the v1 and v2 weight frames, the update plane's frames, the
+serving frames and the replay sidecar. The port's lint mirrors this
+table (``lint/wiregraph._DECLARED``, pinned equal by
+``tests/test_torch_lint_clean.py``) and holds every pack and unpack site
+of the package to it.
 """
 
 from __future__ import annotations

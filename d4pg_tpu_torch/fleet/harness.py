@@ -398,9 +398,10 @@ class FleetHarness:
             for i in range(cfg.n_actors)
         ]
         threads = [
-            # ThrottledSender.run owns the lane's top-frame broad handler
-            # and counts the crash
-            threading.Thread(target=lane.run, daemon=True,
+            # lane.run is an instance-attribute target the static graph
+            # cannot resolve; ThrottledSender.run owns the lane's top-frame
+            # broad handler and counts the crash
+            threading.Thread(target=lane.run, daemon=True,  # jaxlint: contained-by=ThrottledSender.run
                              name=f"fleet-lane-{i}")
             for i, lane in enumerate(lanes)
         ]

@@ -1,0 +1,1066 @@
+"""failgraph — exception-flow & ledger-conservation whole-program pass.
+
+Counterpart of ``d4pg_tpu/lint/failgraph.py``.
+
+Third member of the whole-program family (lockgraph: tiers/cycles,
+wiregraph: frame registry symmetry).  This one models the *failure*
+surface of the five wire planes: a dozen long-lived thread roles whose
+reliability story — zero trace orphans, every admitted frame counted
+exactly once — was previously enforced only by runtime chaos oracles.
+An uncontained exception between chaos runs silently kills a plane;
+these rules make that a lint failure instead.
+
+Three families over an exception-edge-aware CFG:
+
+- ``thread-crash-containment`` (16): any callable reachable as a
+  ``threading.Thread`` target must catch-and-COUNT at its top frame
+  (broad handler whose body increments a registry counter / records a
+  flight event), or carry an audited ``# jaxlint: contained-by=<handler>``
+  declaration naming a contained-and-counted wrapper.  An escaping raise
+  is a dead plane.
+- ``span-terminal-missing`` (17): every trace ``begin`` site must reach
+  a commit/shed terminal on all paths *including exception edges* — the
+  static form of the zero-orphan invariant the chaos smokes assert at
+  runtime.  Begins whose trace root is handed off (returned, stored into
+  a structure, passed to a non-obs call) are *escrowed*: lifecycle
+  responsibility moved to the receiving frame, which is analyzed there.
+- ``ledger-conservation`` (18): paths from a frame-admission counter
+  increment that reach function exit with neither a disposition counter
+  nor a terminal hand-off are flagged — rows admitted on such a path
+  vanish from the ledger.  Counter identity is the bare attribute/key
+  name, same resolution bar as lockgraph's lock names.
+
+The CFG is statement-granularity with per-``try`` dispatch nodes: a
+raising statement gets an exception edge to the innermost enclosing
+dispatch, which fans out to handler entries plus (when no handler is
+broad) an escape continuation — the exceptional copy of any ``finally``
+body, then the parent dispatch, ultimately EXIT_EXC.  Declared
+simplifications: ``return`` jumps straight to EXIT_NORM, ``break``/
+``continue`` straight to their loop targets (intervening finallys are
+assumed non-raising for control-transfer purposes), and a small no-raise
+allowlist (obs calls, container ops, time/threading probes) keeps
+exception edges to the calls that can actually fail.
+
+Pure stdlib (ast) — same contract as the rest of the package.
+"""
+
+from __future__ import annotations
+
+import ast
+import re
+from dataclasses import dataclass, field
+
+from d4pg_tpu_torch.lint.context import (
+    FunctionNode,
+    ModuleContext,
+    dotted_name,
+    iter_defs,
+    last_part,
+)
+from d4pg_tpu_torch.lint.findings import Finding
+
+FAIL_RULES = (
+    "thread-crash-containment",
+    "span-terminal-missing",
+    "ledger-conservation",
+)
+
+_CONTAINED_BY = re.compile(r"#\s*jaxlint:\s*contained-by=([\w\.\-,]+)")
+
+# Receivers whose ``.begin(tid, ...)`` opens a trace span (obs/trace.py
+# module singletons and test-local recorders).
+_TRACE_RECV = re.compile(r"(?i)(trace|recorder|tracer)")
+
+# Trace-terminal methods: reaching one settles a span's lifecycle.
+_TERMINALS = {"terminal_shed", "mark_committed", "mark_grad"}
+
+# Frame-admission counters (family 18 anchors).  Declared, like the wire
+# registry: these are the names whose increment means "work entered the
+# system here and the ledger owes a disposition for it".
+_ADMISSION_COUNTERS = {"frames", "rows_in", "requests"}
+
+# Counter names that ARE dispositions — an admission path that bumps one
+# of these has accounted for the admitted work.  Substring match on the
+# bare attribute/key name.
+_DISPOSITION = re.compile(
+    r"(applied|fenced|fence|torn|shed|commit|reject|drop|fail|skip|error"
+    r"|crash|evict|tombston|order_break|responses|no_params|bad_request"
+    r"|decode_err|retr|dead|stale)")
+
+# Hand-off calls: the admitted work (or span root) moves to another
+# frame's custody — conservation holds, the receiving frame is analyzed
+# separately.
+_HANDOFF_ATTRS = {"append", "appendleft", "extend", "put", "add",
+                  "publish", "publish_versioned", "submit", "insert"}
+
+# Calls that count a crash / record evidence (family 16 counting check).
+_COUNT_ATTRS = {"inc", "observe", "record", "set"}
+_COUNT_NAMES = {"record_event", "contained_crash"}
+
+# No-raise allowlist for CFG exception edges (families 17/18): obs
+# primitives, container ops, time/threading probes.  Everything else —
+# including ``with``-enters (tiered-lock hierarchy checks raise) — gets
+# an exception edge.
+_NO_RAISE_ATTRS = {
+    "begin", "record_span", "terminal_shed", "mark_committed", "mark_grad",
+    "record", "record_event", "inc", "observe", "set", "clear",
+    "is_set", "wait", "notify", "notify_all", "is_alive",
+    "append", "appendleft", "extend", "popleft", "pop", "discard", "add",
+    "get", "items", "keys", "values", "monotonic", "time", "perf_counter",
+    "sleep",
+}
+_NO_RAISE_NAMES = {
+    "len", "isinstance", "hasattr", "getattr", "id", "bool", "repr", "str",
+    "int", "float", "min", "max", "abs", "round", "sorted", "list", "dict",
+    "set", "tuple", "range", "enumerate", "zip", "print", "next",
+    "record_event", "monotonic", "perf_counter",
+}
+
+_MAX_CANDIDATES = 8
+
+
+# --------------------------------------------------------------------------
+# Program index
+# --------------------------------------------------------------------------
+
+@dataclass
+class _FnInfo:
+    key: str
+    name: str
+    qual: str
+    cls: str | None
+    path: str
+    node: ast.AST
+    ctx: ModuleContext
+    contained_by: tuple[str, ...] = ()   # annotation on the def line
+
+
+@dataclass
+class _Spawn:
+    """One ``threading.Thread(target=...)`` call site."""
+
+    path: str
+    line: int
+    col: int
+    src: str                  # textual form of the target expr
+    owner: _FnInfo            # enclosing function (or <module> pseudo-fn)
+    target: ast.expr
+    contained_by: tuple[str, ...] = ()
+
+
+@dataclass
+class _Program:
+    infos: list[_FnInfo]
+    by_key: dict[str, _FnInfo]
+    by_name: dict[str, list[_FnInfo]]
+    by_class: dict[tuple[str | None, str], list[_FnInfo]]
+    bases: dict[str, set[str]]        # class -> base names (textual)
+    spawns: list[_Spawn]
+
+
+def _contained_lines(source: str) -> dict[int, tuple[str, ...]]:
+    out: dict[int, tuple[str, ...]] = {}
+    for i, text in enumerate(source.splitlines(), start=1):
+        m = _CONTAINED_BY.search(text)
+        if m:
+            out[i] = tuple(h.strip() for h in m.group(1).split(",")
+                           if h.strip())
+    return out
+
+
+def _spawn_annotation(lines: dict[int, tuple[str, ...]],
+                      call: ast.Call) -> tuple[str, ...]:
+    end = getattr(call, "end_lineno", call.lineno) or call.lineno
+    for ln in range(call.lineno, end + 1):
+        if ln in lines:
+            return lines[ln]
+    return ()
+
+
+class _SpawnWalker(ast.NodeVisitor):
+    """Collect Thread(target=...) spawns and local name aliases inside one
+    function body (nested defs excluded — they are their own functions)."""
+
+    def __init__(self) -> None:
+        self.spawns: list[tuple[ast.Call, ast.expr]] = []
+        self.aliases: dict[str, ast.expr] = {}
+
+    def visit_FunctionDef(self, node: ast.FunctionDef) -> None:
+        pass
+
+    visit_AsyncFunctionDef = visit_FunctionDef
+    visit_Lambda = visit_FunctionDef
+    visit_ClassDef = visit_FunctionDef
+
+    def visit_Assign(self, node: ast.Assign) -> None:
+        if len(node.targets) == 1 and isinstance(node.targets[0], ast.Name):
+            self.aliases[node.targets[0].id] = node.value
+        self.generic_visit(node)
+
+    def visit_Call(self, node: ast.Call) -> None:
+        if last_part(dotted_name(node.func)) == "Thread":
+            for kw in node.keywords:
+                if kw.arg == "target":
+                    self.spawns.append((node, kw.value))
+        self.generic_visit(node)
+
+
+def build_program(ctxs: list[ModuleContext]) -> _Program:
+    infos: list[_FnInfo] = []
+    bases: dict[str, set[str]] = {}
+    spawn_raw: list[tuple[ModuleContext, _FnInfo, ast.Call, ast.expr,
+                          dict[str, ast.expr]]] = []
+    for ctx in ctxs:
+        ann = _contained_lines(ctx.source)
+        for node in ast.walk(ctx.tree):
+            if isinstance(node, ast.ClassDef):
+                bases.setdefault(node.name, set()).update(
+                    b for b in (last_part(dotted_name(e))
+                                for e in node.bases) if b)
+        mod_fns: list[tuple[_FnInfo, ast.AST]] = []
+        for node, qual, cls in iter_defs(ctx.tree):
+            info = _FnInfo(
+                key=f"{ctx.path}::{qual}", name=node.name, qual=qual,
+                cls=cls, path=ctx.path, node=node, ctx=ctx,
+                contained_by=ann.get(node.lineno, ()))
+            infos.append(info)
+            mod_fns.append((info, node))
+        mod_stmts = [s for s in ctx.tree.body
+                     if not isinstance(s, FunctionNode + (ast.ClassDef,))]
+        mod_info = _FnInfo(key=f"{ctx.path}::<module>", name="<module>",
+                           qual="<module>", cls=None, path=ctx.path,
+                           node=ast.Module(body=mod_stmts, type_ignores=[]),
+                           ctx=ctx)
+        infos.append(mod_info)
+        for info, node in mod_fns + [(mod_info, mod_info.node)]:
+            w = _SpawnWalker()
+            for stmt in node.body:
+                w.visit(stmt)
+            for call, target in w.spawns:
+                spawn_raw.append((ctx, info, call, target, w.aliases))
+
+    by_key = {f.key: f for f in infos}
+    by_name: dict[str, list[_FnInfo]] = {}
+    by_class: dict[tuple[str | None, str], list[_FnInfo]] = {}
+    for f in infos:
+        by_name.setdefault(f.name, []).append(f)
+        by_class.setdefault((f.cls, f.name), []).append(f)
+
+    spawns: list[_Spawn] = []
+    for ctx, owner, call, target, aliases in spawn_raw:
+        ann = _contained_lines(ctx.source)
+        spawns.append(_Spawn(
+            path=ctx.path, line=call.lineno, col=call.col_offset,
+            src=ast.unparse(target), owner=owner, target=target,
+            contained_by=_spawn_annotation(ann, call)))
+    prog = _Program(infos=infos, by_key=by_key, by_name=by_name,
+                    by_class=by_class, bases=bases, spawns=spawns)
+    prog._aliases = {id(s): a for (c, o, call, t, a), s    # type: ignore[attr-defined]
+                     in zip(spawn_raw, spawns)}
+    return prog
+
+
+def _class_family(prog: _Program, cls: str) -> set[str]:
+    """cls plus textual ancestors and descendants — the set a ``self.m``
+    spawn can dynamically bind into (covers subclass overrides like
+    WeightPlaneServer._serve spawned from WeightServer._accept).
+    Siblings through a shared base are NOT family: ``self.m`` from class
+    C never dispatches into an unrelated subclass of C's base."""
+    up = {cls}
+    changed = True
+    while changed:
+        changed = False
+        for c in list(up):
+            bs = prog.bases.get(c, set())
+            if not bs <= up:
+                up |= bs
+                changed = True
+    down = {cls}
+    changed = True
+    while changed:
+        changed = False
+        for c, bs in prog.bases.items():
+            if bs & down and c not in down:
+                down.add(c)
+                changed = True
+    return up | down
+
+
+def _resolve_target(prog: _Program, spawn: _Spawn) -> list[_FnInfo]:
+    """Candidate functions a Thread target expression can invoke."""
+    expr = spawn.target
+    aliases = getattr(prog, "_aliases", {}).get(id(spawn), {})
+    exprs = [expr]
+    if isinstance(expr, ast.Name) and expr.id in aliases:
+        al = aliases[expr.id]
+        exprs = ([al.body, al.orelse] if isinstance(al, ast.IfExp)
+                 else [al])
+    out: list[_FnInfo] = []
+    for e in exprs:
+        out.extend(_resolve_one(prog, spawn, e))
+    seen: set[str] = set()
+    uniq = [f for f in out if not (f.key in seen or seen.add(f.key))]
+    return uniq
+
+
+def _resolve_one(prog: _Program, spawn: _Spawn,
+                 expr: ast.expr) -> list[_FnInfo]:
+    owner = spawn.owner
+    if isinstance(expr, ast.Attribute):
+        meth = expr.attr
+        recv_self = (isinstance(expr.value, ast.Name)
+                     and expr.value.id in ("self", "cls"))
+        if recv_self and owner.cls:
+            fam = _class_family(prog, owner.cls)
+            cands = [f for f in prog.by_name.get(meth, ())
+                     if f.cls in fam]
+            if cands:
+                return cands
+        cands = prog.by_name.get(meth, [])
+        return cands if 0 < len(cands) <= 1 else []
+    if isinstance(expr, ast.Name):
+        name = expr.id
+        # nested def of the spawning function
+        parents = owner.ctx.parents
+        nested = [f for f in prog.by_name.get(name, ())
+                  if f.path == owner.path
+                  and parents.get(f.node) is (None if owner.name == "<module>"
+                                              else owner.node)]
+        if nested:
+            return nested
+        local = [f for f in prog.by_name.get(name, ())
+                 if f.path == owner.path]
+        if local:
+            return local
+        cands = prog.by_name.get(name, [])
+        return cands if 0 < len(cands) <= _MAX_CANDIDATES else []
+    if isinstance(expr, ast.Lambda):
+        return []
+    return []
+
+
+# --------------------------------------------------------------------------
+# Family 16 — containment analysis (ancestry-based, no CFG needed)
+# --------------------------------------------------------------------------
+
+def _is_broad(handler: ast.ExceptHandler) -> bool:
+    t = handler.type
+    if t is None:
+        return True
+    names = ([last_part(dotted_name(e)) for e in t.elts]
+             if isinstance(t, ast.Tuple) else [last_part(dotted_name(t))])
+    return bool({"Exception", "BaseException"} & set(names))
+
+
+def _expr_raises_strict(node: ast.AST) -> int:
+    """Family 16 bar: ANY call / raise / assert can kill the thread.
+    Returns the first raising line, or 0."""
+    for sub in ast.walk(node):
+        if isinstance(sub, FunctionNode):
+            continue
+        if isinstance(sub, (ast.Call, ast.Raise, ast.Assert)):
+            return getattr(sub, "lineno", 0) or 0
+    return 0
+
+
+def _strip_nested_stmts(stmts: list[ast.stmt]):
+    for s in stmts:
+        yield from _strip_nested(s)
+
+
+def _strip_nested(node: ast.AST):
+    """Walk a subtree, skipping nested function/class bodies."""
+    stack = [node]
+    while stack:
+        n = stack.pop()
+        yield n
+        for child in ast.iter_child_nodes(n):
+            if isinstance(child, FunctionNode + (ast.ClassDef,)):
+                continue
+            stack.append(child)
+
+
+@dataclass
+class _ContainScan:
+    escapes: list[int] = field(default_factory=list)
+    # (handler, was_try_already_protected)
+    broads: list[tuple[ast.ExceptHandler, bool]] = field(default_factory=list)
+    any_raising: bool = False
+
+
+def _scan_contain(stmts: list[ast.stmt], protected: bool,
+                  out: _ContainScan) -> None:
+    for s in stmts:
+        if isinstance(s, FunctionNode + (ast.ClassDef,)):
+            continue
+        if isinstance(s, ast.Try):
+            broad = any(_is_broad(h) for h in s.handlers)
+            _scan_contain(s.body, protected or broad, out)
+            for h in s.handlers:
+                if _is_broad(h):
+                    # The broad handler IS the containment: its body is the
+                    # crash path, so bookkeeping calls there don't re-open
+                    # the escape.  An explicit raise still does.
+                    out.broads.append((h, protected))
+                    _scan_contain(h.body, True, out)
+                    if not protected:
+                        for sub in _strip_nested_stmts(h.body):
+                            if isinstance(sub, ast.Raise):
+                                out.escapes.append(sub.lineno)
+                                break
+                else:
+                    _scan_contain(h.body, protected, out)
+            _scan_contain(s.orelse, protected, out)
+            _scan_contain(s.finalbody, protected, out)
+            continue
+        head_exprs: list[ast.AST] = []
+        bodies: list[list[ast.stmt]] = []
+        if isinstance(s, ast.If):
+            head_exprs, bodies = [s.test], [s.body, s.orelse]
+        elif isinstance(s, ast.While):
+            head_exprs, bodies = [s.test], [s.body, s.orelse]
+        elif isinstance(s, (ast.For, ast.AsyncFor)):
+            head_exprs, bodies = [s.iter], [s.body, s.orelse]
+        elif isinstance(s, (ast.With, ast.AsyncWith)):
+            head_exprs, bodies = list(s.items), [s.body]
+        if bodies:
+            for e in head_exprs:
+                line = _expr_raises_strict(e)
+                if line:
+                    out.any_raising = True
+                    if not protected:
+                        out.escapes.append(line)
+            for b in bodies:
+                _scan_contain(b, protected, out)
+            continue
+        line = _expr_raises_strict(s)
+        if line:
+            out.any_raising = True
+            if not protected:
+                out.escapes.append(line)
+
+
+def _body_counts(prog: _Program, owner: _FnInfo, stmts: list[ast.stmt],
+                 depth: int = 0) -> bool:
+    """Does this statement list count the crash?  Direct counter/flight
+    call, an AugAssign on a counter attribute, or a call resolving to a
+    function whose body counts (depth-bounded — covers the shared
+    ``obs.containment.contained_crash`` helper)."""
+    callees: list[tuple[str, bool]] = []
+    for s in stmts:
+        for sub in _strip_nested(s):
+            if isinstance(sub, ast.AugAssign) and isinstance(
+                    sub.target, (ast.Attribute, ast.Subscript)):
+                return True
+            if not isinstance(sub, ast.Call):
+                continue
+            name = last_part(dotted_name(sub.func))
+            if name in _COUNT_NAMES:
+                return True
+            if isinstance(sub.func, ast.Attribute):
+                if sub.func.attr in _COUNT_ATTRS:
+                    return True
+                recv_self = (isinstance(sub.func.value, ast.Name)
+                             and sub.func.value.id == "self")
+                callees.append((sub.func.attr, recv_self))
+            elif isinstance(sub.func, ast.Name):
+                callees.append((sub.func.id, False))
+    if depth >= 2:
+        return False
+    for name, recv_self in callees:
+        if recv_self and owner.cls:
+            cands = prog.by_class.get((owner.cls, name), [])
+        else:
+            cands = prog.by_name.get(name, [])
+        if len(cands) > _MAX_CANDIDATES:
+            continue
+        for cand in cands:
+            if _body_counts(prog, cand, list(cand.node.body), depth + 1):
+                return True
+    return False
+
+
+def _containment(prog: _Program, fn: _FnInfo) -> tuple[str, int]:
+    """('contained'|'no-raise'|'escapes'|'uncounted', witness_line)."""
+    cached = getattr(prog, "_contain_cache", None)
+    if cached is None:
+        cached = prog._contain_cache = {}        # type: ignore[attr-defined]
+    if fn.key in cached:
+        return cached[fn.key]
+    cached[fn.key] = ("no-raise", 0)             # recursion guard
+    out = _ContainScan()
+    _scan_contain(list(fn.node.body), False, out)
+    if out.escapes:
+        res = ("escapes", out.escapes[0])
+    elif not out.any_raising:
+        res = ("no-raise", 0)
+    else:
+        uncounted = [h for h, prot in out.broads if not prot
+                     and not _body_counts(prog, fn, h.body)]
+        res = (("uncounted", uncounted[0].lineno) if uncounted
+               else ("contained", 0))
+    cached[fn.key] = res
+    return res
+
+
+def _resolve_handler(prog: _Program, owner: _FnInfo,
+                     spec: str) -> list[_FnInfo]:
+    if "." in spec:
+        cls, meth = spec.rsplit(".", 1)
+        return prog.by_class.get((cls, meth), [])
+    cands = [f for f in prog.by_name.get(spec, ())
+             if f.path == owner.path] or list(prog.by_name.get(spec, ()))
+    return cands if len(cands) <= _MAX_CANDIDATES else []
+
+
+# --------------------------------------------------------------------------
+# CFG with exception edges (families 17/18)
+# --------------------------------------------------------------------------
+
+class _Node:
+    __slots__ = ("line", "stmt", "succ", "exc", "kind", "guard")
+
+    def __init__(self, kind: str = "stmt", line: int = 0,
+                 stmt: ast.stmt | None = None) -> None:
+        self.kind = kind              # stmt | dispatch | exit | exit_exc
+        self.line = line
+        self.stmt = stmt
+        self.succ: list["_Node"] = []
+        self.exc: "_Node | None" = None
+        # (var_name, truthy_branch_index) for If tests like ``if tid:``
+        self.guard: tuple[str, int] | None = None
+
+
+def _call_no_raise(call: ast.Call) -> bool:
+    if isinstance(call.func, ast.Attribute):
+        return call.func.attr in _NO_RAISE_ATTRS
+    if isinstance(call.func, ast.Name):
+        return call.func.id in _NO_RAISE_NAMES
+    return False
+
+
+def _expr_raises(node: ast.AST) -> bool:
+    """Families 17/18 bar: calls outside the no-raise allowlist, raise,
+    assert, and with-enters."""
+    for sub in ast.walk(node):
+        if isinstance(sub, FunctionNode):
+            continue
+        if isinstance(sub, (ast.Raise, ast.Assert, ast.withitem)):
+            return True
+        if isinstance(sub, ast.Call) and not _call_no_raise(sub):
+            return True
+    return False
+
+
+class _CFG:
+    def __init__(self) -> None:
+        self.exit_norm = _Node("exit")
+        self.exit_exc = _Node("exit_exc")
+        self.entry: _Node = self.exit_norm
+        self.stmt_nodes: dict[int, list[_Node]] = {}   # id(stmt) -> nodes
+
+    def _node(self, stmt: ast.stmt, succ: list[_Node],
+              disp: _Node, raising: bool) -> _Node:
+        n = _Node("stmt", getattr(stmt, "lineno", 0) or 0, stmt)
+        n.succ = succ
+        if raising:
+            n.exc = disp
+        self.stmt_nodes.setdefault(id(stmt), []).append(n)
+        return n
+
+    def seq(self, stmts: list[ast.stmt], succ: _Node, disp: _Node,
+            loops: list[tuple[_Node, _Node]]) -> _Node:
+        nxt = succ
+        for s in reversed(stmts):
+            nxt = self.stmt(s, nxt, disp, loops)
+        return nxt
+
+    def stmt(self, s: ast.stmt, succ: _Node, disp: _Node,
+             loops: list[tuple[_Node, _Node]]) -> _Node:
+        if isinstance(s, FunctionNode + (ast.ClassDef,)):
+            return self._node(s, [succ], disp, raising=False)
+        if isinstance(s, ast.Try):
+            return self._try(s, succ, disp, loops)
+        if isinstance(s, ast.If):
+            n = self._node(s, [], disp, raising=_expr_raises(s.test))
+            n.succ = [self.seq(s.body, succ, disp, loops),
+                      self.seq(s.orelse, succ, disp, loops)
+                      if s.orelse else succ]
+            n.guard = _guard_of(s.test)
+            return n
+        if isinstance(s, ast.While):
+            n = self._node(s, [], disp, raising=_expr_raises(s.test))
+            body = self.seq(s.body, n, disp, loops + [(succ, n)])
+            infinite = (isinstance(s.test, ast.Constant)
+                        and bool(s.test.value))
+            n.succ = [body] if infinite else [body, succ]
+            return n
+        if isinstance(s, (ast.For, ast.AsyncFor)):
+            n = self._node(s, [], disp, raising=_expr_raises(s.iter))
+            body = self.seq(s.body, n, disp, loops + [(succ, n)])
+            after = (self.seq(s.orelse, succ, disp, loops)
+                     if s.orelse else succ)
+            n.succ = [body, after]
+            return n
+        if isinstance(s, (ast.With, ast.AsyncWith)):
+            body = self.seq(s.body, succ, disp, loops)
+            return self._node(s, [body], disp, raising=True)
+        if isinstance(s, ast.Return):
+            n = self._node(s, [self.exit_norm], disp,
+                           raising=s.value is not None
+                           and _expr_raises(s.value))
+            return n
+        if isinstance(s, ast.Raise):
+            n = self._node(s, [], disp, raising=True)
+            return n
+        if isinstance(s, ast.Break):
+            return self._node(s, [loops[-1][0] if loops else succ],
+                              disp, raising=False)
+        if isinstance(s, ast.Continue):
+            return self._node(s, [loops[-1][1] if loops else succ],
+                              disp, raising=False)
+        return self._node(s, [succ], disp, raising=_expr_raises(s))
+
+    def _try(self, s: ast.Try, succ: _Node, disp: _Node,
+             loops: list[tuple[_Node, _Node]]) -> _Node:
+        # escape continuation: exceptional finally copy -> parent dispatch
+        if s.finalbody:
+            fin_exc = self.seq(s.finalbody, disp, disp, loops)
+            after = self.seq(s.finalbody, succ, disp, loops)
+        else:
+            fin_exc = disp
+            after = succ
+        dispatch = _Node("dispatch", s.lineno)
+        broad = any(_is_broad(h) for h in s.handlers)
+        for h in s.handlers:
+            dispatch.succ.append(self.seq(h.body, after, fin_exc, loops))
+        if not broad:
+            dispatch.succ.append(fin_exc)
+        body_succ = (self.seq(s.orelse, after, fin_exc, loops)
+                     if s.orelse else after)
+        return self.seq(s.body, body_succ, dispatch, loops)
+
+
+def _guard_of(test: ast.expr) -> tuple[str, int] | None:
+    """Recognize truthiness guards on a single name: ``if tid:`` (truthy
+    branch 0), ``if not tid:`` / ``if tid is None:`` (truthy branch 1),
+    ``if tid is not None:`` (truthy branch 0)."""
+    if isinstance(test, ast.Name):
+        return (test.id, 0)
+    if (isinstance(test, ast.UnaryOp) and isinstance(test.op, ast.Not)
+            and isinstance(test.operand, ast.Name)):
+        return (test.operand.id, 1)
+    if (isinstance(test, ast.Compare) and isinstance(test.left, ast.Name)
+            and len(test.ops) == 1
+            and isinstance(test.comparators[0], ast.Constant)
+            and test.comparators[0].value is None):
+        if isinstance(test.ops[0], ast.Is):
+            return (test.left.id, 1)
+        if isinstance(test.ops[0], ast.IsNot):
+            return (test.left.id, 0)
+    return None
+
+
+def _build_cfg(prog: _Program, fn: _FnInfo) -> _CFG:
+    cached = getattr(prog, "_cfg_cache", None)
+    if cached is None:
+        cached = prog._cfg_cache = {}            # type: ignore[attr-defined]
+    if fn.key in cached:
+        return cached[fn.key]
+    cfg = _CFG()
+    cfg.entry = cfg.seq(list(fn.node.body), cfg.exit_norm,
+                        cfg.exit_exc, [])
+    cached[fn.key] = cfg
+    return cfg
+
+
+def _reach_exit(cfg: _CFG, start_stmt: ast.stmt, root: str | None,
+                settles, want_exc_only: bool) -> tuple[int, int] | None:
+    """BFS from the node(s) of ``start_stmt``.  Returns (exit_line_kind
+    witness) as (witness_line, 1 if exceptional else 0) for the first
+    unsettled path reaching a forbidden exit, else None.  ``settles`` is
+    a predicate over ast.stmt; settled nodes are not expanded.  ``root``
+    enables guard refinement: begin/admission implies root is truthy."""
+    starts = cfg.stmt_nodes.get(id(start_stmt), [])
+    if not starts:
+        return None
+    seen: set[int] = set()
+    # queue entries: (node, witness_line_of_last_exc_edge)
+    queue: list[tuple[_Node, int]] = []
+    for n in starts:
+        for s2 in n.succ:
+            queue.append((s2, 0))
+        if n.exc is not None:
+            queue.append((n.exc, n.line))
+    while queue:
+        node, wit = queue.pop(0)
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        if node.kind == "exit_exc":
+            return (wit, 1)
+        if node.kind == "exit":
+            if not want_exc_only:
+                return (wit or node.line, 0)
+            continue
+        if node.kind == "stmt" and node.stmt is not None \
+                and settles(node.stmt):
+            continue
+        succ = node.succ
+        if node.guard and root and node.guard[0] == root:
+            succ = [node.succ[node.guard[1]]] \
+                if len(node.succ) > node.guard[1] else node.succ
+        for s2 in succ:
+            queue.append((s2, wit))
+        if node.exc is not None:
+            queue.append((node.exc, node.line))
+    return None
+
+
+# --------------------------------------------------------------------------
+# Family 17 — span terminals
+# --------------------------------------------------------------------------
+
+def _is_trace_begin(call: ast.Call) -> bool:
+    if not (isinstance(call.func, ast.Attribute)
+            and call.func.attr == "begin"):
+        return False
+    recv = last_part(dotted_name(call.func.value)) or ""
+    return bool(_TRACE_RECV.search(recv))
+
+
+def _begin_root(call: ast.Call, stmt: ast.stmt) -> str | None:
+    """The local name carrying the trace id: assignment target of the
+    begin, else the begin's first argument name."""
+    if isinstance(stmt, ast.Assign) and len(stmt.targets) == 1 \
+            and isinstance(stmt.targets[0], ast.Name):
+        return stmt.targets[0].id
+    if call.args:
+        a = call.args[0]
+        if isinstance(a, ast.Name):
+            return a.id
+        if isinstance(a, ast.Subscript) and isinstance(a.value, ast.Name):
+            return a.value.id
+    return None
+
+
+def _is_obs_call(call: ast.Call) -> bool:
+    name = last_part(dotted_name(call.func))
+    return name in (_TERMINALS | {"begin", "record_span", "record_event",
+                                  "record", "inc", "observe"})
+
+
+def _root_escrowed(fn: _FnInfo, begin_stmt: ast.stmt, root: str) -> bool:
+    """True when the trace root is handed off out of this frame: returned,
+    yielded, stored into a structure, or passed to a non-obs call."""
+    def uses_root(e: ast.AST) -> bool:
+        return any(isinstance(x, ast.Name) and x.id == root
+                   for x in ast.walk(e))
+
+    for sub in _strip_nested(fn.node):
+        if sub is begin_stmt:
+            continue
+        if isinstance(sub, (ast.Return, ast.Yield, ast.YieldFrom)):
+            if sub.value is not None and uses_root(sub.value):
+                return True
+        elif isinstance(sub, ast.Assign):
+            if any(isinstance(t, (ast.Attribute, ast.Subscript))
+                   for t in sub.targets) and uses_root(sub.value):
+                return True
+        elif isinstance(sub, ast.Call) and not _is_obs_call(sub):
+            args: list[ast.AST] = list(sub.args)
+            args.extend(kw.value for kw in sub.keywords)
+            if any(uses_root(a) for a in args):
+                return True
+    return False
+
+
+def _stmt_settles_span(stmt: ast.stmt) -> bool:
+    for sub in _strip_nested(stmt):
+        if not isinstance(sub, ast.Call):
+            continue
+        name = last_part(dotted_name(sub.func))
+        if name in _TERMINALS:
+            return True
+        if name == "record_span" and len(sub.args) >= 2 \
+                and isinstance(sub.args[1], ast.Constant) \
+                and sub.args[1].value in ("commit", "grad", "shed"):
+            return True
+    return False
+
+
+@dataclass
+class _SpanSite:
+    fn: _FnInfo
+    line: int
+    root: str | None
+    status: str            # settled | escrow | orphan
+    witness: int = 0
+
+
+def _check_spans(prog: _Program, fn: _FnInfo) -> list[_SpanSite]:
+    sites: list[_SpanSite] = []
+    begin_stmts: list[tuple[ast.stmt, ast.Call]] = []
+    for sub in _strip_nested(fn.node):
+        if isinstance(sub, ast.stmt):
+            for inner in ast.walk(sub):
+                if isinstance(inner, ast.Call) and _is_trace_begin(inner) \
+                        and getattr(sub, "lineno", None) == inner.lineno:
+                    begin_stmts.append((sub, inner))
+                    break
+    if not begin_stmts:
+        return sites
+    cfg = _build_cfg(prog, fn)
+    for stmt, call in begin_stmts:
+        root = _begin_root(call, stmt)
+        if root and _root_escrowed(fn, stmt, root):
+            sites.append(_SpanSite(fn, stmt.lineno, root, "escrow"))
+            continue
+        hit = _reach_exit(cfg, stmt, root, _stmt_settles_span,
+                          want_exc_only=True)
+        if hit:
+            sites.append(_SpanSite(fn, stmt.lineno, root, "orphan",
+                                   witness=hit[0]))
+        else:
+            sites.append(_SpanSite(fn, stmt.lineno, root, "settled"))
+    return sites
+
+
+# --------------------------------------------------------------------------
+# Family 18 — ledger conservation
+# --------------------------------------------------------------------------
+
+def _counter_name(target: ast.expr) -> str | None:
+    if isinstance(target, ast.Attribute):
+        return target.attr
+    if isinstance(target, ast.Subscript) \
+            and isinstance(target.slice, ast.Constant) \
+            and isinstance(target.slice.value, str):
+        return target.slice.value
+    return None
+
+
+def _stmt_settles_ledger(stmt: ast.stmt) -> bool:
+    for sub in _strip_nested(stmt):
+        if isinstance(sub, ast.AugAssign):
+            name = _counter_name(sub.target)
+            if name and name not in _ADMISSION_COUNTERS \
+                    and _DISPOSITION.search(name):
+                return True
+        if not isinstance(sub, ast.Call):
+            continue
+        name = last_part(dotted_name(sub.func))
+        if name in _TERMINALS or name in ("record_event", "inc", "observe"):
+            return True
+        if isinstance(sub.func, ast.Attribute) \
+                and sub.func.attr in _HANDOFF_ATTRS:
+            return True
+    return False
+
+
+@dataclass
+class _LedgerSite:
+    fn: _FnInfo
+    line: int
+    counter: str
+    status: str            # balanced | leak
+    witness: int = 0
+    exceptional: bool = False
+
+
+def _check_ledger(prog: _Program, fn: _FnInfo) -> list[_LedgerSite]:
+    sites: list[_LedgerSite] = []
+    anchors: list[tuple[ast.stmt, str]] = []
+    for sub in _strip_nested(fn.node):
+        if isinstance(sub, ast.AugAssign):
+            name = _counter_name(sub.target)
+            if name in _ADMISSION_COUNTERS:
+                anchors.append((sub, name))
+    if not anchors:
+        return sites
+    cfg = _build_cfg(prog, fn)
+    for stmt, name in anchors:
+        hit = _reach_exit(cfg, stmt, None, _stmt_settles_ledger,
+                          want_exc_only=False)
+        if hit:
+            sites.append(_LedgerSite(fn, stmt.lineno, name, "leak",
+                                     witness=hit[0], exceptional=bool(hit[1])))
+        else:
+            sites.append(_LedgerSite(fn, stmt.lineno, name, "balanced"))
+    return sites
+
+
+# --------------------------------------------------------------------------
+# Graph artifact + analyze
+# --------------------------------------------------------------------------
+
+@dataclass
+class FailGraph:
+    functions: int = 0
+    modules: int = 0
+    # thread role rows: (spawn_site, target_qual_or_src, status)
+    threads: list[tuple[str, str, str]] = field(default_factory=list)
+    # span rows: (site, root, status)
+    spans: list[tuple[str, str, str]] = field(default_factory=list)
+    # ledger rows: (site, counter, status)
+    ledger: list[tuple[str, str, str]] = field(default_factory=list)
+    # contained-by annotation audit surface: spec -> ok | unresolved | weak
+    handlers: dict[str, str] = field(default_factory=dict)
+    findings: list[Finding] = field(default_factory=list)
+
+
+_PACKAGE_ROOT = "/d4pg_tpu_torch/"
+
+
+def _short(path: str) -> str:
+    """A site's path relative to the port's package root."""
+    return (path.rsplit(_PACKAGE_ROOT, 1)[-1] if _PACKAGE_ROOT in path
+            else path)
+
+
+def analyze(ctxs: list[ModuleContext],
+            rules: list[str] | None = None) -> FailGraph:
+    prog = build_program(ctxs)
+    graph = FailGraph(functions=len(prog.infos), modules=len(ctxs))
+    active = set(rules if rules is not None else FAIL_RULES)
+
+    def emit(rule: str, path: str, line: int, col: int, msg: str) -> None:
+        if rule in active:
+            graph.findings.append(Finding(path, line, col, rule, msg))
+
+    # ---- family 16 ------------------------------------------------------
+    def check_declared(spawn: _Spawn, specs: tuple[str, ...]) -> str:
+        status = "contained-by"
+        for spec in specs:
+            cands = _resolve_handler(prog, spawn.owner, spec)
+            if not cands:
+                graph.handlers[spec] = "unresolved"
+                emit("thread-crash-containment", spawn.path, spawn.line,
+                     spawn.col,
+                     f"contained-by={spec}: handler does not resolve to a "
+                     f"known function — the containment declaration is "
+                     f"unauditable")
+                status = "contained-by!"
+                continue
+            bad = [c for c in cands
+                   if _containment(prog, c)[0] not in ("contained",
+                                                       "no-raise")]
+            if bad:
+                st, wit = _containment(prog, bad[0])
+                graph.handlers[spec] = "weak"
+                emit("thread-crash-containment", spawn.path, spawn.line,
+                     spawn.col,
+                     f"contained-by={spec}: declared handler "
+                     f"{bad[0].qual} is not itself contained-and-counted "
+                     f"({st} at {_short(bad[0].path)}:{wit}) — same bar "
+                     f"as an inline containment")
+                status = "contained-by!"
+            else:
+                graph.handlers.setdefault(spec, "ok")
+        return status
+
+    for spawn in prog.spawns:
+        site = f"{_short(spawn.path)}:{spawn.line}"
+        if spawn.contained_by:
+            status = check_declared(spawn, spawn.contained_by)
+            graph.threads.append((site, spawn.src, status))
+            continue
+        cands = _resolve_target(prog, spawn)
+        if not cands:
+            emit("thread-crash-containment", spawn.path, spawn.line,
+                 spawn.col,
+                 f"threading.Thread target {spawn.src!r} does not resolve "
+                 f"to a known function — an uncontained raise there is a "
+                 f"silently dead plane; name the containing frame with "
+                 f"`# jaxlint: contained-by=<handler>` or pass a def the "
+                 f"graph can see")
+            graph.threads.append((site, spawn.src, "unresolved"))
+            continue
+        worst = "contained"
+        for cand in cands:
+            if cand.contained_by:
+                status = check_declared(spawn, cand.contained_by)
+                if status.endswith("!"):
+                    worst = status
+                continue
+            st, wit = _containment(prog, cand)
+            if st == "escapes":
+                worst = st
+                emit("thread-crash-containment", spawn.path, spawn.line,
+                     spawn.col,
+                     f"thread target {cand.qual} can die silently: "
+                     f"{_short(cand.path)}:{wit} raises outside any "
+                     f"except-Exception containment — a dead plane; wrap "
+                     f"the top frame and count the crash "
+                     f"(obs.containment.contained_crash)")
+            elif st == "uncounted":
+                if worst == "contained":
+                    worst = st
+                emit("thread-crash-containment", spawn.path, spawn.line,
+                     spawn.col,
+                     f"thread target {cand.qual}: broad handler at "
+                     f"{_short(cand.path)}:{wit} swallows crashes without "
+                     f"counting them — increment a registry counter or "
+                     f"record a flight event so the death is observable")
+        graph.threads.append(
+            (site, " | ".join(c.qual for c in cands), worst))
+
+    # ---- families 17/18 -------------------------------------------------
+    for fn in prog.infos:
+        if fn.name == "<module>":
+            continue
+        for span in _check_spans(prog, fn):
+            site = f"{_short(fn.path)}:{span.line}"
+            graph.spans.append((site, span.root or "?", span.status))
+            if span.status == "orphan":
+                emit("span-terminal-missing", fn.path, span.line, 0,
+                     f"trace begin in {fn.qual} can exit on an exception "
+                     f"edge (via line {span.witness}) without reaching a "
+                     f"commit/shed terminal — orphaned span; shed in an "
+                     f"except/finally before the raise escapes")
+        for led in _check_ledger(prog, fn):
+            site = f"{_short(fn.path)}:{led.line}"
+            graph.ledger.append((site, led.counter, led.status))
+            if led.status == "leak":
+                how = ("an exception edge" if led.exceptional
+                       else "a normal path")
+                emit("ledger-conservation", fn.path, led.line, 0,
+                     f"admission counter '{led.counter}' incremented in "
+                     f"{fn.qual} but {how} (via line {led.witness}) "
+                     f"reaches function exit with neither a disposition "
+                     f"counter nor a terminal hand-off — rows admitted "
+                     f"there vanish from the ledger")
+    return graph
+
+
+def format_failgraph(graph: FailGraph) -> str:
+    lines = [
+        f"failgraph: {graph.modules} modules, {graph.functions} functions, "
+        f"{len(graph.threads)} thread spawns, {len(graph.spans)} span "
+        f"begins, {len(graph.ledger)} admission counters",
+        "",
+        "thread roles (spawn site -> target [containment]):",
+    ]
+    for site, target, status in sorted(graph.threads):
+        lines.append(f"  {site} -> {target} [{status}]")
+    lines.append("")
+    lines.append("span lifecycle (begin site, root, status):")
+    for site, root, status in sorted(graph.spans):
+        lines.append(f"  {site} {root} [{status}]")
+    lines.append("")
+    lines.append("ledger (admission site, counter, status):")
+    for site, counter, status in sorted(graph.ledger):
+        lines.append(f"  {site} {counter} [{status}]")
+    if graph.handlers:
+        lines.append("")
+        lines.append("declared containment handlers:")
+        for spec, status in sorted(graph.handlers.items()):
+            lines.append(f"  contained-by={spec} [{status}]")
+    lines.append("")
+    if graph.findings:
+        lines.append(f"{len(graph.findings)} finding(s):")
+        for f in graph.findings:
+            lines.append(f"  {f.format()}")
+    else:
+        lines.append("findings: none")
+    return "\n".join(lines)

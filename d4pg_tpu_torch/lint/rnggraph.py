@@ -1,0 +1,856 @@
+"""rnggraph — whole-program RNG-provenance & determinism pass.
+
+Counterpart of ``d4pg_tpu/lint/rnggraph.py``. A member of the
+whole-program family (lockgraph: tiers/cycles, wiregraph: protocol
+registry, failgraph: exception flow).  This one models the *determinism* surface:
+every gating oracle in the repo — chaos scripts bit-for-bit from
+``(seed, k, i)``, the elastic traffic model's pure offered-load
+recurrence, the seeded-stream sampler oracles — stands on hand-kept RNG
+stream discipline (one SeedSequence branch per component, fixed draws
+per event, skip-before-RNG-use), none of which was checked statically.
+The defect class has bitten the reference twice (a backpressure stream
+desync, a layout-dependent ``random_shift`` draw); a silently
+diverged stream shows up as an unattributable return-curve bug, not a
+loud failure.
+
+The pass discovers every RNG stream in the analyzed program —
+``np.random.SeedSequence`` spawn/branch sites, ``default_rng(...)``
+constructors, stdlib ``random.Random`` — and builds a provenance table (owning component, branch site, draw
+sites, thread reachability via failgraph's spawn-target resolution).
+Three families run over it, scoped to *determinism-scoped* code — the
+fleet/elastic/replay/obs/analysis planes plus chaos/traffic/sampler/
+ledger/bench modules, widened through the cross-module call graph to a
+fixpoint (a helper called from scoped code is scoped):
+
+- ``rng-ambient-stream`` (22): a draw from numpy's module-level legacy
+  global (``np.random.randn`` &c), a stdlib ``random.*`` draw, an
+  unseeded ``default_rng()`` / ``RandomState()`` / ``SeedSequence()``,
+  or an RNG constructor seeded from wall clock / pid / urandom.  Any
+  of these inside determinism-scoped code breaks seeded replay.
+- ``rng-stream-thread-escape`` (23): one Generator whose draw sites
+  are reachable from two *distinct* thread-spawn targets without its
+  own SeedSequence branch — thread interleaving then orders the draws,
+  which silently voids every per-actor ``(seed, k, i)`` claim.  A
+  ``# jaxlint: stream-owner=<Component.attr>`` annotation declares a
+  caller-owned branch and is audited like ``contained-by=``.
+- ``rng-draw-count-drift`` (24): a seeded stream drawn conditionally
+  on one path and reused — the backpressure desync shape.  The documented
+  skip-before-RNG-use idiom is the ONE clean form: an event either
+  consumes its full fixed draw count or exits before the first draw.
+  Per loop iteration (= one event) the body's nonzero draw counts
+  must be a single value; a draw reached with a path-dependent stream
+  offset fires at the draw site.
+
+The reference also upgrades its ``prng-key-reuse`` family (which reads
+``jax.random`` keys) across call boundaries here; neither that family
+nor its upgrade is carried into the port.
+
+Pure stdlib (ast) — same contract as the rest of the package.
+"""
+
+from __future__ import annotations
+
+import ast
+import builtins
+import re
+from dataclasses import dataclass, field
+
+from d4pg_tpu_torch.lint.context import ModuleContext, dotted_name, last_part
+from d4pg_tpu_torch.lint.failgraph import (
+    _MAX_CANDIDATES,
+    _class_family,
+    _FnInfo,
+    _Program,
+    _resolve_target,
+    _short,
+    _strip_nested,
+    build_program,
+)
+from d4pg_tpu_torch.lint.findings import Finding
+
+RNG_RULES = (
+    "rng-ambient-stream",
+    "rng-stream-thread-escape",
+    "rng-draw-count-drift",
+)
+
+_STREAM_OWNER = re.compile(r"#\s*jaxlint:\s*stream-owner=([\w\.\-,]+)")
+
+# Determinism scope roots: package directories whose code carries a
+# seeded-replay contract, plus module stems that do wherever they live
+# (a root script such as the reference's bench.py).  lint/ is never scoped — its
+# sources *name* these APIs without running them.
+_SCOPE_DIRS = {"fleet", "elastic", "replay", "obs", "analysis"}
+_SCOPE_STEM = re.compile(r"(chaos|traffic|sampler|ledger|bench)")
+
+# Generator draw surface (modern Generator + legacy RandomState + stdlib
+# Random).  Draws are only attributed to receivers the pass has already
+# resolved to a stream, so generic names here cannot misfire on
+# unrelated objects.
+_DRAW_METHODS = frozenset({
+    "beta", "binomial", "bytes", "chisquare", "choice", "dirichlet",
+    "exponential", "gamma", "geometric", "gumbel", "hypergeometric",
+    "integers", "laplace", "logistic", "lognormal", "logseries",
+    "multinomial", "multivariate_normal", "negative_binomial",
+    "noncentral_chisquare", "normal", "pareto", "permutation", "permuted",
+    "poisson", "power", "random", "rayleigh", "shuffle",
+    "standard_cauchy", "standard_exponential", "standard_gamma",
+    "standard_normal", "standard_t", "triangular", "uniform", "vonmises",
+    "wald", "weibull", "zipf",
+    "rand", "randn", "randint", "random_sample", "sample", "choices",
+    "randrange", "gauss", "normalvariate", "betavariate", "expovariate",
+    "getrandbits", "randbytes",
+})
+
+# Ambient numpy legacy-global surface: any of these dotted off
+# ``np.random`` draws from (or mutates) the hidden process-wide stream.
+_LEGACY_GLOBAL = _DRAW_METHODS | {"seed", "get_state", "set_state"}
+
+# stdlib ``random.<fn>`` module-level draws (the hidden global Random).
+_STDLIB_DRAWS = frozenset({
+    "random", "randint", "uniform", "choice", "choices", "shuffle",
+    "sample", "randrange", "gauss", "normalvariate", "betavariate",
+    "expovariate", "triangular", "getrandbits", "randbytes", "seed",
+})
+
+# Calls whose result is nondeterministic across runs: seeding an RNG
+# from one of these destroys replay even though the ctor "has a seed".
+_WALLCLOCK = frozenset({
+    "time", "time_ns", "perf_counter", "perf_counter_ns", "monotonic",
+    "monotonic_ns", "urandom", "uuid1", "uuid4", "getpid",
+})
+
+_NP_BASES = {"np", "numpy", "onp"}
+
+# Bare-name calls spelled like builtins are the builtin (``next(it)``,
+# ``set(...)``): resolving them into same-named methods would invent
+# call edges the program never takes.
+_BUILTIN_NAMES = frozenset(dir(builtins))
+
+# Bounded path-sensitivity for the family-24 interpreter: a count-set
+# larger than this collapses to its {min, max} envelope.
+_MAX_COUNTS = 6
+
+
+# --------------------------------------------------------------------------
+# Stream discovery
+# --------------------------------------------------------------------------
+
+@dataclass
+class _Stream:
+    key: str                 # 'Cls.attr' | 'mod:NAME' | 'qual:name@line'
+    kind: str                # 'attr' | 'module' | 'local'
+    path: str
+    line: int
+    col: int
+    owner: str               # owning component (class, module, function)
+    name: str                # attribute / variable name
+    cls: str | None          # class for attr streams
+    ctor: str                # default_rng | RandomState | Random | ...
+    seed: str                # branched | seeded | unseeded | wallclock
+    wrap: str = ""           # DrawLedger.wrap() stream label, if any
+    owner_decl: tuple[str, ...] = ()   # stream-owner= annotation specs
+    draws: list[tuple[str, int, str]] = field(default_factory=list)
+    threads: set[str] = field(default_factory=set)
+    fn_key: str = ""         # enclosing function (local streams)
+
+
+def _owner_lines(source: str) -> dict[int, tuple[str, ...]]:
+    out: dict[int, tuple[str, ...]] = {}
+    for i, text in enumerate(source.splitlines(), start=1):
+        m = _STREAM_OWNER.search(text)
+        if m:
+            out[i] = tuple(s.strip() for s in m.group(1).split(",")
+                           if s.strip())
+    return out
+
+
+def _stmt_annotation(lines: dict[int, tuple[str, ...]],
+                     stmt: ast.stmt) -> tuple[str, ...]:
+    end = getattr(stmt, "end_lineno", stmt.lineno) or stmt.lineno
+    for ln in range(stmt.lineno, end + 1):
+        if ln in lines:
+            return lines[ln]
+    return ()
+
+
+def _rng_ctor_kind(call: ast.Call) -> str | None:
+    """'default_rng' | 'RandomState' | 'Generator' | 'Random' |
+    'SeedSequence' when ``call`` constructs an RNG stream, else None.
+    (The reference also discovers ``jax.random`` key makers here.)"""
+    dotted = dotted_name(call.func)
+    if not dotted:
+        return None
+    parts = dotted.split(".")
+    fn = parts[-1]
+    if fn in ("default_rng", "RandomState", "Generator", "SeedSequence"):
+        return fn
+    if fn == "Random" and (len(parts) == 1 or parts[0] == "random"):
+        return "Random"
+    return None
+
+
+def _unwrap_ledger(call: ast.Call) -> tuple[ast.Call, str]:
+    """See through ``LEDGER.wrap("name", <ctor>)`` — the runtime twin's
+    counting proxy — to the wrapped constructor."""
+    if (isinstance(call.func, ast.Attribute) and call.func.attr == "wrap"
+            and len(call.args) == 2
+            and isinstance(call.args[1], ast.Call)):
+        label = ""
+        if isinstance(call.args[0], ast.Constant) \
+                and isinstance(call.args[0].value, str):
+            label = call.args[0].value
+        return call.args[1], label
+    return call, ""
+
+
+def _seed_status(call: ast.Call, kind: str,
+                 aliases: dict[str, ast.expr]) -> str:
+    """branched | seeded | unseeded | wallclock for an RNG ctor call."""
+    args = list(call.args) + [kw.value for kw in call.keywords
+                              if kw.arg in ("seed", "entropy", None)]
+    for a in args:
+        for sub in ast.walk(a):
+            if isinstance(sub, ast.Call):
+                name = last_part(dotted_name(sub.func))
+                if name in _WALLCLOCK:
+                    return "wallclock"
+    if not args:
+        return "unseeded"
+    if len(args) == 1 and isinstance(args[0], ast.Constant) \
+            and args[0].value is None:
+        return "unseeded"
+    for a in args:
+        exprs = [a]
+        if isinstance(a, ast.Name) and a.id in aliases:
+            exprs.append(aliases[a.id])
+        for e in exprs:
+            for sub in ast.walk(e):
+                if isinstance(sub, ast.Call):
+                    name = last_part(dotted_name(sub.func))
+                    if name == "SeedSequence" or name == "spawn":
+                        return "branched"
+    return "seeded"
+
+
+def _discover_streams(prog: _Program) -> list[_Stream]:
+    streams: list[_Stream] = []
+    for fn in prog.infos:
+        ann = _owner_lines(fn.ctx.source)
+        aliases: dict[str, ast.expr] = {}
+        for stmt in fn.node.body if hasattr(fn.node, "body") else []:
+            for sub in _strip_nested(stmt):
+                if not isinstance(sub, ast.Assign) or len(sub.targets) != 1:
+                    continue
+                target, value = sub.targets[0], sub.value
+                if isinstance(target, ast.Name) \
+                        and isinstance(value, ast.Call):
+                    aliases[target.id] = value
+                if not isinstance(value, ast.Call):
+                    continue
+                call, wrap_label = _unwrap_ledger(value)
+                kind = _rng_ctor_kind(call)
+                if kind is None or kind in ("SeedSequence", "Generator"):
+                    continue
+                seed = _seed_status(call, kind, aliases)
+                specs = _stmt_annotation(ann, sub)
+                if isinstance(target, ast.Attribute) \
+                        and isinstance(target.value, ast.Name) \
+                        and target.value.id == "self" and fn.cls:
+                    streams.append(_Stream(
+                        key=f"{fn.cls}.{target.attr}", kind="attr",
+                        path=fn.path, line=sub.lineno, col=sub.col_offset,
+                        owner=fn.cls, name=target.attr, cls=fn.cls,
+                        ctor=kind, seed=seed, wrap=wrap_label,
+                        owner_decl=specs, fn_key=fn.key))
+                elif isinstance(target, ast.Name):
+                    if fn.name == "<module>":
+                        streams.append(_Stream(
+                            key=f"{_short(fn.path)}:{target.id}",
+                            kind="module", path=fn.path, line=sub.lineno,
+                            col=sub.col_offset, owner=_short(fn.path),
+                            name=target.id, cls=None, ctor=kind, seed=seed,
+                            wrap=wrap_label, owner_decl=specs,
+                            fn_key=fn.key))
+                    else:
+                        streams.append(_Stream(
+                            key=f"{fn.qual}:{target.id}@{sub.lineno}",
+                            kind="local", path=fn.path, line=sub.lineno,
+                            col=sub.col_offset, owner=fn.qual,
+                            name=target.id, cls=fn.cls, ctor=kind,
+                            seed=seed, wrap=wrap_label, owner_decl=specs,
+                            fn_key=fn.key))
+    return streams
+
+
+def _branch_sites(prog: _Program) -> list[tuple[str, str]]:
+    """SeedSequence constructions and ``.spawn()`` calls — the branch
+    points of the stream tree, listed for the review artifact."""
+    out: list[tuple[str, str]] = []
+    seen: set[tuple[str, int]] = set()
+    for fn in prog.infos:
+        if fn.name == "<module>" and not fn.node.body:
+            continue
+        for sub in _strip_nested(fn.node):
+            if not isinstance(sub, ast.Call):
+                continue
+            name = last_part(dotted_name(sub.func))
+            if name not in ("SeedSequence", "spawn"):
+                continue
+            at = (fn.path, sub.lineno)
+            if at in seen:
+                continue
+            seen.add(at)
+            src = ast.unparse(sub)
+            if len(src) > 72:
+                src = src[:69] + "..."
+            out.append((f"{_short(fn.path)}:{sub.lineno}", src))
+    return out
+
+
+# --------------------------------------------------------------------------
+# Call graph (conservative: self-family methods + bare local names) and
+# determinism-scope fixpoint
+# --------------------------------------------------------------------------
+
+def _call_edges(prog: _Program) -> dict[str, set[str]]:
+    edges: dict[str, set[str]] = {}
+    for fn in prog.infos:
+        out: set[str] = set()
+        for sub in _strip_nested(fn.node):
+            if not isinstance(sub, ast.Call):
+                continue
+            f = sub.func
+            if isinstance(f, ast.Name):
+                cands = prog.by_name.get(f.id, [])
+                local = [c for c in cands if c.path == fn.path]
+                if not local and f.id in _BUILTIN_NAMES:
+                    continue
+                cands = local or (cands if len(cands) <= _MAX_CANDIDATES
+                                  else [])
+                out.update(c.key for c in cands)
+            elif isinstance(f, ast.Attribute) \
+                    and isinstance(f.value, ast.Name) \
+                    and f.value.id in ("self", "cls") and fn.cls:
+                fam = _class_family(prog, fn.cls)
+                out.update(c.key for c in prog.by_name.get(f.attr, ())
+                           if c.cls in fam)
+        edges[fn.key] = out
+    return edges
+
+
+def _path_scoped(path: str) -> bool:
+    short = _short(path)
+    if "/lint/" in path or short.startswith("lint/"):
+        return False
+    parts = short.split("/")
+    if set(parts[:-1]) & _SCOPE_DIRS:
+        return True
+    return bool(_SCOPE_STEM.search(parts[-1]))
+
+
+def _scoped_keys(prog: _Program, edges: dict[str, set[str]]) -> set[str]:
+    scoped = {f.key for f in prog.infos if _path_scoped(f.path)}
+    frontier = list(scoped)
+    while frontier:
+        k = frontier.pop()
+        for c in edges.get(k, ()):
+            if c not in scoped:
+                scoped.add(c)
+                frontier.append(c)
+    return scoped
+
+
+def _closure(edges: dict[str, set[str]], root: str,
+             cache: dict[str, set[str]]) -> set[str]:
+    if root in cache:
+        return cache[root]
+    seen = {root}
+    frontier = [root]
+    while frontier:
+        k = frontier.pop()
+        for c in edges.get(k, ()):
+            if c not in seen:
+                seen.add(c)
+                frontier.append(c)
+    cache[root] = seen
+    return seen
+
+
+# --------------------------------------------------------------------------
+# Draw-site attribution + thread reachability
+# --------------------------------------------------------------------------
+
+def _attach_draws(prog: _Program, streams: list[_Stream]) -> None:
+    by_attr: dict[str, list[_Stream]] = {}
+    by_module: dict[tuple[str, str], _Stream] = {}
+    by_local: dict[tuple[str, str], _Stream] = {}
+    for s in streams:
+        if s.kind == "attr":
+            by_attr.setdefault(s.name, []).append(s)
+        elif s.kind == "module":
+            by_module[(s.path, s.name)] = s
+        else:
+            by_local[(s.fn_key, s.name)] = s
+    fam_cache: dict[str, set[str]] = {}
+    for fn in prog.infos:
+        for sub in _strip_nested(fn.node):
+            if not isinstance(sub, ast.Call) \
+                    or not isinstance(sub.func, ast.Attribute) \
+                    or sub.func.attr not in _DRAW_METHODS:
+                continue
+            recv = dotted_name(sub.func.value)
+            if not recv:
+                continue
+            site = (fn.path, sub.lineno, fn.key)
+            if recv.startswith("self.") and recv.count(".") == 1 and fn.cls:
+                attr = recv.split(".", 1)[1]
+                if fn.cls not in fam_cache:
+                    fam_cache[fn.cls] = _class_family(prog, fn.cls)
+                for s in by_attr.get(attr, ()):
+                    if s.cls in fam_cache[fn.cls]:
+                        s.draws.append(site)
+            elif "." not in recv:
+                local = by_local.get((fn.key, recv))
+                if local is not None:
+                    local.draws.append(site)
+                else:
+                    mod = by_module.get((fn.path, recv))
+                    if mod is not None:
+                        mod.draws.append(site)
+
+
+def _thread_reach(prog: _Program, edges: dict[str, set[str]],
+                  streams: list[_Stream]) -> None:
+    cache: dict[str, set[str]] = {}
+    targets: dict[str, set[str]] = {}
+    for spawn in prog.spawns:
+        for cand in _resolve_target(prog, spawn):
+            targets.setdefault(cand.qual, set()).update(
+                _closure(edges, cand.key, cache))
+    for s in streams:
+        draw_fns = {fk for (_, _, fk) in s.draws}
+        for qual, reach in targets.items():
+            if draw_fns & reach:
+                s.threads.add(qual)
+
+
+# --------------------------------------------------------------------------
+# Family 22 — ambient / nondeterministic streams in determinism scope
+# --------------------------------------------------------------------------
+
+def _check_ambient(prog: _Program, scoped: set[str], emit) -> None:
+    for fn in prog.infos:
+        if fn.key not in scoped:
+            continue
+        aliases: dict[str, ast.expr] = {}
+        for sub in _strip_nested(fn.node):
+            if isinstance(sub, ast.Assign) and len(sub.targets) == 1 \
+                    and isinstance(sub.targets[0], ast.Name) \
+                    and isinstance(sub.value, ast.Call):
+                aliases[sub.targets[0].id] = sub.value
+            if not isinstance(sub, ast.Call):
+                continue
+            dotted = dotted_name(sub.func)
+            if not dotted:
+                continue
+            parts = dotted.split(".")
+            where = "in determinism-scoped code"
+            if len(parts) == 3 and parts[0] in _NP_BASES \
+                    and parts[1] == "random" and parts[2] in _LEGACY_GLOBAL:
+                emit("rng-ambient-stream", fn.path, sub.lineno,
+                     sub.col_offset,
+                     f"np.random.{parts[2]} draws from numpy's hidden "
+                     f"module-level global stream {where} ({fn.qual}) — "
+                     f"seeded replay cannot own it; use a component "
+                     f"default_rng(SeedSequence(seed, spawn_key=...)) "
+                     f"branch instead")
+                continue
+            if len(parts) == 2 and parts[0] == "random" \
+                    and parts[1] in _STDLIB_DRAWS:
+                emit("rng-ambient-stream", fn.path, sub.lineno,
+                     sub.col_offset,
+                     f"stdlib random.{parts[1]} draws from the hidden "
+                     f"process-global Random {where} ({fn.qual}) — "
+                     f"replace with a seeded component stream")
+                continue
+            kind = _rng_ctor_kind(sub)
+            if kind is None:
+                continue
+            status = _seed_status(sub, kind, aliases)
+            if status == "wallclock":
+                emit("rng-ambient-stream", fn.path, sub.lineno,
+                     sub.col_offset,
+                     f"{kind} seeded from a wall-clock/pid/urandom value "
+                     f"{where} ({fn.qual}) — the seed changes every run, "
+                     f"so the stream can never replay; derive it from "
+                     f"the component SeedSequence instead")
+            elif status == "unseeded" and kind != "Generator":
+                emit("rng-ambient-stream", fn.path, sub.lineno,
+                     sub.col_offset,
+                     f"unseeded {kind}() {where} ({fn.qual}) — OS-entropy "
+                     f"streams break seeded replay; pass a seed or a "
+                     f"SeedSequence branch")
+
+
+# --------------------------------------------------------------------------
+# Family 23 — stream shared across thread-spawn targets
+# --------------------------------------------------------------------------
+
+def _check_thread_escape(streams: list[_Stream],
+                         handlers: dict[str, str],
+                         resolve_owner, emit) -> None:
+    for s in streams:
+        if s.kind == "local" or len(s.threads) < 2:
+            continue
+        if s.owner_decl:
+            for spec in s.owner_decl:
+                status = resolve_owner(spec)
+                if status != "ok":
+                    emit("rng-stream-thread-escape", s.path, s.line, s.col,
+                         f"stream-owner={spec} on {s.key} does not resolve "
+                         f"to a SeedSequence-branched (or seeded) stream "
+                         f"the graph can see — the ownership declaration "
+                         f"is unauditable")
+            continue
+        if s.seed == "branched":
+            continue
+        roles = " and ".join(sorted(s.threads)[:4])
+        emit("rng-stream-thread-escape", s.path, s.line, s.col,
+             f"stream {s.key} is drawn from {len(s.threads)} distinct "
+             f"thread-spawn targets ({roles}) without its own "
+             f"SeedSequence branch — interleaving orders the draws and "
+             f"silently voids the per-component (seed, k, i) replay "
+             f"claim; give each consumer its own "
+             f"SeedSequence(seed, spawn_key=...) branch or declare "
+             f"`# jaxlint: stream-owner=<Component.attr>`")
+
+
+# --------------------------------------------------------------------------
+# Family 24 — draw-count drift (the backpressure desync shape)
+# --------------------------------------------------------------------------
+
+class _DriftScan:
+    """Per-function abstract interpreter: tracks, per stream, the set of
+    possible draw counts since function (or loop-body) entry.  A draw
+    reached with more than one possible count has a path-dependent
+    stream offset → drift.  Loop bodies are one *event*: the body's
+    nonzero per-iteration draw counts must be a single value (paths that
+    exit before the first draw are the documented skip-before-RNG-use
+    idiom and stay clean)."""
+
+    def __init__(self, fn: _FnInfo, tracked: set[str], emit) -> None:
+        self.fn = fn
+        self.tracked = set(tracked)   # receiver spellings: self.X / name
+        self.emit = emit
+        self.first_draw: dict[str, tuple[int, int]] = {}
+        self.returns: list[dict[str, frozenset]] = []
+        self._fired: set[tuple[str, int]] = set()
+
+    # -- state helpers -----------------------------------------------------
+    @staticmethod
+    def _cap(counts: frozenset) -> frozenset:
+        if len(counts) > _MAX_COUNTS:
+            return frozenset({min(counts), max(counts)})
+        return counts
+
+    def _merge(self, states: list[dict]) -> dict | None:
+        live = [st for st in states if st is not None]
+        if not live:
+            return None
+        out: dict[str, frozenset] = {}
+        for key in {k for st in live for k in st}:
+            out[key] = self._cap(frozenset().union(
+                *(st.get(key, frozenset({0})) for st in live)))
+        return out
+
+    def _fire(self, stream: str, line: int, col: int, why: str) -> None:
+        at = (stream, line)
+        if at in self._fired:
+            return
+        self._fired.add(at)
+        self.emit("rng-draw-count-drift", self.fn.path, line, col,
+                  f"seeded stream '{stream}' in {self.fn.qual} {why} — "
+                  f"the backpressure desync shape; draw a fixed count per event "
+                  f"and put any skip BEFORE the first draw "
+                  f"(skip-before-RNG-use), so the event index stays "
+                  f"aligned with the RNG state")
+
+    # -- expression scan ---------------------------------------------------
+    def _scan_expr(self, expr: ast.AST, state: dict) -> None:
+        for sub in _strip_nested(expr):
+            if not isinstance(sub, ast.Call):
+                continue
+            if isinstance(sub.func, ast.Attribute) \
+                    and sub.func.attr in _DRAW_METHODS:
+                recv = dotted_name(sub.func.value)
+                if recv in self.tracked:
+                    counts = state.get(recv, frozenset({0}))
+                    self.first_draw.setdefault(
+                        recv, (sub.lineno, sub.col_offset))
+                    if len(counts) > 1:
+                        self._fire(
+                            recv, sub.lineno, sub.col_offset,
+                            f"is drawn at a point its offset is "
+                            f"path-dependent (possible prior draws: "
+                            f"{sorted(counts)})")
+                    state[recv] = self._cap(
+                        frozenset(c + 1 for c in counts))
+                    continue
+            # a tracked stream handed to another frame: its draw count
+            # becomes that frame's business — resync, don't guess
+            for arg in list(sub.args) + [kw.value for kw in sub.keywords]:
+                if isinstance(arg, ast.Name) and arg.id in self.tracked:
+                    state[arg.id] = frozenset({0})
+
+    # -- statement walk ----------------------------------------------------
+    def run(self, stmts: list[ast.stmt]) -> None:
+        state: dict[str, frozenset] = {}
+        end = self._block(stmts, state, loops=0, conts=None, brks=None)
+        if end is not None:
+            self.returns.append(end)
+
+    def _block(self, stmts, state, loops, conts, brks):
+        """Returns the fall-through state (None if unreachable); early
+        returns land in self.returns, continue/break states in
+        conts/brks."""
+        cur: dict | None = state
+        for stmt in stmts:
+            if cur is None:
+                return None
+            cur = self._stmt(stmt, cur, loops, conts, brks)
+        return cur
+
+    def _stmt(self, stmt, state, loops, conts, brks):
+        if isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            return state
+        if isinstance(stmt, ast.Assign) and len(stmt.targets) == 1:
+            self._scan_expr(stmt.value, state)
+            target = stmt.targets[0]
+            if isinstance(target, ast.Name) \
+                    and isinstance(stmt.value, ast.Call):
+                call, _ = _unwrap_ledger(stmt.value)
+                kind = _rng_ctor_kind(call)
+                if kind in ("default_rng", "RandomState", "Random"):
+                    self.tracked.add(target.id)
+                    state[target.id] = frozenset({0})
+                    return state
+            if isinstance(target, ast.Name) and target.id in state:
+                del state[target.id]
+                self.tracked.discard(target.id)
+            return state
+        if isinstance(stmt, ast.If):
+            self._scan_expr(stmt.test, state)
+            a, b = dict(state), dict(state)
+            ea = self._block(stmt.body, a, loops, conts, brks)
+            eb = self._block(stmt.orelse, b, loops, conts, brks)
+            return self._merge([ea, eb])
+        if isinstance(stmt, (ast.While, ast.For)):
+            head = stmt.test if isinstance(stmt, ast.While) else stmt.iter
+            self._scan_expr(head, state)
+            # one iteration == one event: analyze the body from a zeroed
+            # ledger and require its nonzero draw counts to agree
+            body_state: dict[str, frozenset] = {}
+            body_conts: list[dict] = []
+            body_brks: list[dict] = []
+            end = self._block(stmt.body, body_state, loops + 1,
+                              body_conts, body_brks)
+            outcomes = [o for o in [end] + body_conts if o is not None]
+            drawn = {k for o in outcomes for k in o}
+            for key in drawn:
+                nonzero = {c for o in outcomes
+                           for c in o.get(key, frozenset({0})) if c > 0}
+                if len(nonzero) > 1:
+                    line, col = self.first_draw.get(
+                        key, (stmt.lineno, stmt.col_offset))
+                    self._fire(
+                        key, line, col,
+                        f"draws a path-dependent count per loop "
+                        f"iteration ({sorted(nonzero)} possible)")
+            self._block(stmt.orelse, dict(state), loops, conts, brks)
+            return state
+        if isinstance(stmt, (ast.With, ast.AsyncWith)):
+            for item in stmt.items:
+                self._scan_expr(item.context_expr, state)
+            return self._block(stmt.body, state, loops, conts, brks)
+        if isinstance(stmt, ast.Try):
+            a = dict(state)
+            ea = self._block(stmt.body, a, loops, conts, brks)
+            ends = [ea]
+            for h in stmt.handlers:
+                hb = dict(state)
+                ends.append(self._block(h.body, hb, loops, conts, brks))
+            merged = self._merge(ends)
+            if merged is None:
+                return None
+            if stmt.orelse:
+                merged = self._block(stmt.orelse, merged, loops, conts,
+                                     brks)
+            if merged is not None and stmt.finalbody:
+                merged = self._block(stmt.finalbody, merged, loops,
+                                     conts, brks)
+            return merged
+        if isinstance(stmt, ast.Return):
+            if stmt.value is not None:
+                self._scan_expr(stmt.value, state)
+            self.returns.append(state)
+            return None
+        if isinstance(stmt, ast.Raise):
+            return None
+        if isinstance(stmt, ast.Continue):
+            if conts is not None:
+                conts.append(state)
+            return None
+        if isinstance(stmt, ast.Break):
+            if brks is not None:
+                brks.append(state)
+            return None
+        for value in ast.iter_child_nodes(stmt):
+            if isinstance(value, ast.expr):
+                self._scan_expr(value, state)
+        return state
+
+
+def _check_drift(prog: _Program, streams: list[_Stream],
+                 scoped: set[str], emit) -> None:
+    by_fn_attr: dict[str | None, set[str]] = {}
+    by_module: dict[str, set[str]] = {}
+    fam_cache: dict[str, set[str]] = {}
+    for s in streams:
+        if s.kind == "attr":
+            by_fn_attr.setdefault(s.cls, set()).add(f"self.{s.name}")
+        elif s.kind == "module":
+            by_module.setdefault(s.path, set()).add(s.name)
+    for fn in prog.infos:
+        if fn.key not in scoped or fn.name == "<module>":
+            continue
+        tracked: set[str] = set(by_module.get(fn.path, ()))
+        if fn.cls:
+            if fn.cls not in fam_cache:
+                fam_cache[fn.cls] = _class_family(prog, fn.cls)
+            for cls in fam_cache[fn.cls]:
+                tracked |= by_fn_attr.get(cls, set())
+        scan = _DriftScan(fn, tracked, emit)
+        scan.run(list(fn.node.body))
+        # persistent streams (attr/module) outlive the frame: distinct
+        # nonzero per-call totals desync every later consumer
+        persistent = {t for t in scan.tracked
+                      if t.startswith("self.") or t in tracked}
+        for key in persistent:
+            totals = {c for st in scan.returns
+                      for c in st.get(key, frozenset({0}))}
+            nonzero = {c for c in totals if c > 0}
+            if len(nonzero) > 1 and key in scan.first_draw:
+                line, col = scan.first_draw[key]
+                scan._fire(key, line, col,
+                           f"leaves the frame having drawn a "
+                           f"path-dependent total ({sorted(nonzero)} "
+                           f"possible)")
+
+
+# --------------------------------------------------------------------------
+# Graph artifact + analyze
+# --------------------------------------------------------------------------
+
+@dataclass
+class RngGraph:
+    functions: int = 0
+    modules: int = 0
+    scoped: int = 0
+    # stream rows: (ctor site, owner key, ctor, seed, draws, threads)
+    streams: list[tuple[str, str, str, str, int, str]] = field(
+        default_factory=list)
+    # branch rows: (site, source text)
+    branches: list[tuple[str, str]] = field(default_factory=list)
+    # stream-owner annotation audit: spec -> ok | weak | unresolved
+    handlers: dict[str, str] = field(default_factory=dict)
+    findings: list[Finding] = field(default_factory=list)
+
+
+def analyze(ctxs: list[ModuleContext],
+            rules: list[str] | None = None) -> RngGraph:
+    prog = build_program(ctxs)
+    graph = RngGraph(functions=len(prog.infos), modules=len(ctxs))
+    active = set(rules if rules is not None else RNG_RULES)
+
+    def emit(rule: str, path: str, line: int, col: int, msg: str) -> None:
+        if rule in active:
+            graph.findings.append(Finding(path, line, col, rule, msg))
+
+    streams = _discover_streams(prog)
+    graph.branches = _branch_sites(prog)
+    edges = _call_edges(prog)
+    scoped = _scoped_keys(prog, edges)
+    graph.scoped = len(scoped)
+    _attach_draws(prog, streams)
+    _thread_reach(prog, edges, streams)
+
+    # stream-owner audit: a spec must name a discovered attr stream with
+    # a visible seeded (or SeedSequence-branched) constructor
+    by_key = {s.key: s for s in streams if s.kind == "attr"}
+
+    def resolve_owner(spec: str) -> str:
+        owner = by_key.get(spec)
+        if owner is None:
+            graph.handlers[spec] = "unresolved"
+            return "unresolved"
+        if owner.seed in ("branched", "seeded"):
+            graph.handlers.setdefault(spec, "ok")
+            return "ok"
+        graph.handlers[spec] = "weak"
+        return "weak"
+
+    for s in streams:
+        for spec in s.owner_decl:
+            status = resolve_owner(spec)
+            if status != "ok" and s.threads is not None \
+                    and len(s.threads) < 2:
+                # not the thread-escape path: still surface the broken
+                # declaration under the ambient family so it can't rot
+                emit("rng-ambient-stream", s.path, s.line, s.col,
+                     f"stream-owner={spec} on {s.key} is {status}: the "
+                     f"named owner stream must be a discovered, seeded "
+                     f"(or SeedSequence-branched) component stream")
+
+    _check_ambient(prog, scoped, emit)
+    _check_thread_escape(streams, graph.handlers, resolve_owner, emit)
+    _check_drift(prog, streams, scoped, emit)
+
+    for s in streams:
+        site = f"{_short(s.path)}:{s.line}"
+        seed = s.seed if not s.wrap else f"{s.seed}+ledger:{s.wrap}"
+        threads = "|".join(sorted(s.threads)) if s.threads else "-"
+        graph.streams.append(
+            (site, s.key, s.ctor, seed, len(s.draws), threads))
+    return graph
+
+
+def format_rnggraph(graph: RngGraph) -> str:
+    lines = [
+        f"rnggraph: {graph.modules} modules, {graph.functions} functions "
+        f"({graph.scoped} determinism-scoped), {len(graph.streams)} "
+        f"streams, {len(graph.branches)} branch sites",
+        "",
+        "streams (ctor site -> owner [ctor/seed] draws threads):",
+    ]
+    for site, owner, ctor, seed, draws, threads in sorted(graph.streams):
+        lines.append(f"  {site} -> {owner} [{ctor}/{seed}] "
+                     f"draws={draws} threads={threads}")
+    lines.append("")
+    lines.append("branch sites (SeedSequence / spawn):")
+    for site, src in sorted(graph.branches):
+        lines.append(f"  {site} {src}")
+    if graph.handlers:
+        lines.append("")
+        lines.append("declared stream owners:")
+        for spec, status in sorted(graph.handlers.items()):
+            lines.append(f"  stream-owner={spec} [{status}]")
+    lines.append("")
+    if graph.findings:
+        lines.append(f"{len(graph.findings)} finding(s):")
+        for f in graph.findings:
+            lines.append(f"  {f.format()}")
+    else:
+        lines.append("findings: none")
+    return "\n".join(lines)

@@ -153,7 +153,9 @@ class DeviceSampleDealer(SampleDealer):
                 self._wb_lag.observe(1e3 * (time.monotonic() - t_enq))
                 live = self._gen[idx] == gen
                 if not live.all():
-                    self.writeback_dropped_stale += int((~live).sum())
+                    # _settle_locked runs under the sampler lock that
+                    # SampleDealer.ingest_and_deal holds
+                    self.writeback_dropped_stale += int((~live).sum())  # jaxlint: guarded-by=_sampler_lock
                     idx, pri = idx[live], pri[live]
                 if len(idx):
                     idx_parts.append(idx)
@@ -188,12 +190,14 @@ class DeviceSampleDealer(SampleDealer):
         if self._audit and self._dead:
             flat = idx.cpu().numpy().ravel()
             hits = {int(s) for s in self._src_seq[flat]} & self._dead
-            self.dealt_dead_tickets += len(hits)
+            # _draw_block_locked runs under the sampler lock that
+            # SampleDealer.ingest_and_deal holds
+            self.dealt_dead_tickets += len(hits)  # jaxlint: guarded-by=_sampler_lock
         tid = self._last_tid  # the newest committed insert
         self._beta.advance(self.k)
         self._deal_seq += 1
-        self.dealt_blocks += 1
-        self.dealt_rows += self.k * self.batch_size
+        self.dealt_blocks += 1  # jaxlint: guarded-by=_sampler_lock
+        self.dealt_rows += self.k * self.batch_size  # jaxlint: guarded-by=_sampler_lock
         return DealtBlock(rows, w, idx, gen_blk, beta, t, tid,
                           self._deal_seq)
 

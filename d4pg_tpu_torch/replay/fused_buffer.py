@@ -257,7 +257,12 @@ class FusedDeviceReplay:
     def storage(self) -> TransitionBatch:
         return self._store.arrays
 
-    def stage_block(self) -> int:
+    # Every caller of the mutating learner-side entry points below
+    # reaches them through ReplayService.ingest_stage/ingest_commit/
+    # drain_device/load_replay_state, i.e. under the service's buffer
+    # lock; the guarded-by annotations declare that caller contract to
+    # the unguarded-shared-write lock-graph rule.
+    def stage_block(self) -> int:  # jaxlint: guarded-by=_buffer_lock
         """Copy the next pending frame into the dedicated block and start
         its host-to-device copy (see the module docstring). No-op while a
         block is in flight (the depth is one). Returns rows staged."""
@@ -283,7 +288,7 @@ class FusedDeviceReplay:
         REGISTRY.counter("fused.rows_staged").inc(n)
         return n
 
-    def commit_staged(self) -> int:
+    def commit_staged(self) -> int:  # jaxlint: guarded-by=_buffer_lock
         """Land the staged block: ring write, then (PER) tree insert, on
         the learner's stream after the block's copy. Learner thread only.
         Returns rows committed."""
@@ -319,7 +324,9 @@ class FusedDeviceReplay:
         REGISTRY.counter("fused.blocks_committed").inc()
         return n
 
-    def apply_priorities(self, idx: torch.Tensor,
+    # priority write-back for the dealt plane: reached from the device
+    # dealer's settle inside the commit thread's buffer-lock window
+    def apply_priorities(self, idx: torch.Tensor,  # jaxlint: guarded-by=_buffer_lock
                          p_alpha: torch.Tensor) -> None:
         """Scatter settled write-back priorities (already ``** alpha``,
         float32, on the device) into the trees; duplicate slots keep the
@@ -353,8 +360,10 @@ class FusedDeviceReplay:
                                  else float(self.trees.max_priority))
         return d
 
+    # restore mutates ring and tree state: reached through ReplayService.
+    # load_replay_state under the buffer lock, like the paths above
     @torch.no_grad()
-    def load_state_dict(self, d: dict) -> None:
+    def load_state_dict(self, d: dict) -> None:  # jaxlint: guarded-by=_buffer_lock
         """Load a ``state_dict`` into this buffer (same capacity): rows,
         head and size, both trees rebuilt over the live slots, and
         generation-tracked, a fresh generation epoch."""

@@ -256,12 +256,15 @@ class SampleDealer:
         self.max_deals_per_tick = max(1, int(max_deals_per_tick))
         self._beta = beta_schedule or SharedBetaSchedule()
         # the buffer's generator construction: with the buffer's seed the
-        # dealer draws the stream a host sample_chunk loop would
-        self._rng = np.random.default_rng(seed)
+        # dealer draws the stream a host sample_chunk loop would, so the
+        # stream's identity is owned by the buffer, not the dealer
+        self._rng = np.random.default_rng(seed)  # jaxlint: stream-owner=ReplayBuffer._rng
         cap = self._trees.capacity
         self.max_priority = 1.0
         self._size = 0
-        self._gen = np.zeros(cap, np.int64)
+        # slot generations: every access after construction holds the
+        # sampler lock (ingest, deal, settle, resync)
+        self._gen = np.zeros(cap, np.int64)  # jaxlint: guarded-by=_sampler_lock
         self._src_seq = np.full(cap, -1, np.int64)
         self._tid_of = np.zeros(cap, np.uint64)  # u64 trace ids
         self._ins_seq = np.zeros(cap, np.int64)

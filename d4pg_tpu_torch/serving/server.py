@@ -402,7 +402,8 @@ class PolicyInferenceServer(ConnRegistry):
                 self.stats["write_errors"] += 1
 
     # -- the batcher --------------------------------------------------------
-    def _pop_batch_locked(self) -> list:
+    # the batcher pops inside its ``with self._pserve_cond`` window
+    def _pop_batch_locked(self) -> list:  # jaxlint: guarded-by=_pserve_cond
         """FIFO-pop pending requests up to the row budget (at least one: a
         single oversized request is served alone in its own bucket)."""
         batch, rows = [], 0

@@ -4,6 +4,7 @@ card unless the caller asks for the CPU. gymnasium is imported only
 inside the driver's ``make_env_fn``, for gymnasium ids."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -127,6 +128,55 @@ def test_port_sources_import_no_jax_or_reference():
                 continue
             found += [(path.name, n) for n in names
                       if n.split(".")[0] in BANNED]
+    assert not found, found
+
+
+_LINT_BLOCKED = """
+import json, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "d4pg_tpu"):
+    sys.modules[name] = None  # any import of them raises ImportError
+before = set(sys.modules)
+import d4pg_tpu_torch.lint
+from d4pg_tpu_torch.lint.__main__ import main
+rc = main(["--all", "--json", sys.argv[1]])
+lint_loaded = sorted(set(sys.modules) - before)
+print(json.dumps({"rc": rc, "loaded": lint_loaded}))
+"""
+
+
+def test_lint_runs_with_jax_and_the_reference_blocked():
+    """The port's lint and its CLI import and run (``--all --json``)
+    with the JAX stack and the JAX package blocked."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run(
+        [sys.executable, "-c", _LINT_BLOCKED, str(PACKAGE / "core")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    tail = json.loads(out.stdout.strip().splitlines()[-1])
+    doc = json.loads(out.stdout[:out.stdout.rindex("\n{")])
+    assert tail["rc"] == 0 and doc["mode"] == "all" and doc["findings"] == []
+    assert "d4pg_tpu_torch.lint.rnggraph" in tail["loaded"]
+    assert not [m for m in tail["loaded"]
+                if m.split(".")[0] in BANNED], tail["loaded"]
+
+
+def test_lint_imports_only_the_standard_library():
+    """Every import of ``d4pg_tpu_torch/lint/`` is the standard library or
+    the lint package itself: no torch, numpy, JAX or anything of either
+    package it analyzes (the ``--all`` run above loads torch only through
+    ``d4pg_tpu_torch/__init__.py``)."""
+    found = []
+    for path in sorted((PACKAGE / "lint").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(path.name, n) for n in names
+                      if n.split(".")[0] not in sys.stdlib_module_names
+                      and not n.startswith("d4pg_tpu_torch.lint")]
     assert not found, found
 
 
