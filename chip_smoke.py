@@ -279,8 +279,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      once per replica per grad step; own grad-steps/s per replica and
      for all N, merge ms per round, a merge under CUDA's sync debug mode
      (no stream sync, no blocking host copy) with its device span and host
-     ms, a merge under a dispatch-level counter of host copies (0; it
-     counts a non-blocking copy to pinned memory as one), a profiled
+     ms, a merge under ``io/profiling.TransferSentinel`` (0 device-to-host
+     copies; it counts a non-blocking copy to pinned memory as one), a profiled
      merge (kernels, device ms), peak memory with the ring once; (b)
      ``run_mesh_ab`` at the reference's ``MeshABConfig`` and at the
      slice's width with N = 2: both arms' updates/s and
@@ -323,7 +323,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (e) ``run_weights`` with 64 pullers over a depth-2 relay tree; (f)
      the harness's actor mode with four ``actor_main`` processes
      (``point``). Every rate is a host rate of the card's machine;
- 29. a ``kernels`` JSON line (each kernel's launches on every path that
+ 29. the runtime sentinels (``io/profiling``: ``RecompileSentinel``,
+     ``TransferSentinel``, ``ReshardSentinel``) on the slice's paths at
+     its width, each bracket holding only what the reference's brackets
+     hold, no rate timed inside one: (a) the fused chunk over a
+     200,000-row ring under ``pallas`` and ``pallas_ce`` after warm-up
+     (0 compilations, no host/device crossing, 0 reshards, no sync under
+     ``guard="disallow"``), with the host and wall ms per grad step of a
+     bracketed chunk against a bare one; (b) the ingest overlap through a
+     ``ReplayService`` (host-to-device bytes = rows staged x row bytes,
+     one copy per field per block, no device-to-host copy); (c) the
+     device dealer at phase 22a's shape (host-to-device bytes at most
+     the staged frames and the K x B uniforms, no sampled row, 0
+     reshards in the deal); (d) the sharded chunk at 25a's shape (0
+     reshards); the kernels of each path launched inside its bracket;
+ 30. a ``kernels`` JSON line (each kernel's launches on every path that
      runs it; the descent's time at the dealt and the sharded shapes),
      then the result line.
 """
@@ -4814,59 +4828,15 @@ def _max_rel(a, b) -> float:
     return worst
 
 
-class _HostCopies:
-    """Counts the operators that bring a card tensor's values to the
-    host while it is entered: a copy or cast into a CPU tensor (blocking
-    or not, pinned or not) and the operators that return a Python number
-    from a card tensor (``item``, ``equal``, ``is_nonzero``). It sees
-    every operator below autograd (a ``TorchDispatchMode``), so it needs
-    no profiler."""
-
-    def __init__(self):
-        from torch.utils._python_dispatch import TorchDispatchMode
-        from torch.utils._pytree import tree_flatten
-
-        found = self.found = []
-        aten = torch.ops.aten
-        to_number = (aten._local_scalar_dense, aten.equal, aten.is_nonzero)
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                kwargs = kwargs or {}
-                out = func(*args, **kwargs)
-                ins = [t for t in tree_flatten((args, kwargs))[0]
-                       if isinstance(t, torch.Tensor)]
-                if any(t.is_cuda for t in ins):
-                    written = [
-                        a for a, arg in zip(args, func._schema.arguments)
-                        if arg.alias_info is not None
-                        and arg.alias_info.is_write]
-                    dsts = [t for t in tree_flatten((out, written))[0]
-                            if isinstance(t, torch.Tensor)]
-                    if (any(not t.is_cuda for t in dsts)
-                            or func.overloadpacket in to_number):
-                        found.append(str(func))
-                return out
-
-        self._mode = Mode()
-
-    def __enter__(self):
-        self._mode.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        return self._mode.__exit__(*exc)
-
-
 def _profile_merge(group) -> dict:
     """Three more ``merge()`` calls (each with its publish). The first
     runs with CUDA's sync debug mode at ``error``, so any stream sync or
     blocking copy to the host inside it raises, queued behind a sleep
     kernel between CUDA events: its device span and the host's enqueue
-    ms. The second runs under ``_HostCopies``: the operators that moved
-    card values to the host, non-blocking copies included (``d2h``);
-    a non-blocking copy into pinned memory under the same counter first
-    shows that it counts one. The third runs under the profiler: its
+    ms. The second runs under ``io/profiling.TransferSentinel``: the
+    operators that moved card values to the host, non-blocking copies
+    included (``d2h``); a non-blocking copy into pinned memory under
+    another sentinel first shows that it counts one. The third runs under the profiler: its
     kernels and copies and their device time, ``None`` where the profiler
     recorded no device event (late in a long run it may not)."""
     torch.cuda.synchronize()
@@ -4885,12 +4855,15 @@ def _profile_merge(group) -> dict:
     end.record()
     end.synchronize()
     span_ms = start.elapsed_time(end) if queued else None
+    from d4pg_tpu_torch.io.profiling import TransferSentinel
+
     probe = torch.ones(8, device=group.devices[0])
-    with _HostCopies() as control:
+    with TransferSentinel() as control:
         torch.empty(8, pin_memory=True).copy_(probe, non_blocking=True)
-    check(len(control.found) == 1, f"[replicas 26a] the host-copy counter "
-          f"counts a non-blocking copy to pinned memory ({control.found})")
-    with _HostCopies() as copies:
+    check(control.d2h == 1, f"[replicas 26a] the host-copy counter "
+          f"counts a non-blocking copy to pinned memory "
+          f"({control.crossings})")
+    with TransferSentinel() as copies:
         group.merge()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -4900,7 +4873,8 @@ def _profile_merge(group) -> dict:
     events = [e for e in prof.events() if not e.is_user_annotation]
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     return {"span_ms": span_ms, "host_ms": host_ms, "syncs": 0,
-            "d2h": len(copies.found), "d2h_ops": copies.found,
+            "d2h": copies.d2h, "d2h_ops": [
+                op for way, op, _ in copies.crossings if way == "d2h"],
             "device_ms": sum(e.time_range.elapsed_us() for e in on_device)
             / 1e3 if on_device else None,
             "kernels": len(on_device) if on_device else None,
@@ -4925,7 +4899,7 @@ def phase_replica_group(dev, card: str) -> dict:
     grad-steps/s per replica and for all N, merge ms per round to the
     card's completion, launches; ``_profile_merge``: a merge under CUDA's
     sync debug mode (a stream sync or a blocking host copy raises), its
-    device span and host ms, a merge under ``_HostCopies`` (0 operators
+    device span and host ms, a merge under ``TransferSentinel`` (0 operators
     that move card values to the host), then a profiled merge's kernels
     and device ms. Peak device memory over the rounds,
     and the group's own part of it, under a ring's size (the group holds
@@ -5873,6 +5847,305 @@ def phase_fleet(card: str) -> dict:
     return out
 
 
+
+# phase 29: the runtime sentinels on the slice's paths
+SENTINEL_CHUNKS = 3  # chunks of the ingest overlap's bracket
+SENTINEL_DEALS = 4  # ingest+deal rounds of the dealer's bracket
+
+
+def _sentinels(guard: str | None = None):
+    """The three sentinels of ``io/profiling``, entered together (the
+    transfer guard ``guard``); ``with`` it, then read each."""
+    from d4pg_tpu_torch.io.profiling import (
+        RecompileSentinel,
+        ReshardSentinel,
+        TransferSentinel,
+    )
+
+    stack = contextlib.ExitStack()
+    rec = stack.enter_context(RecompileSentinel())
+    tr = stack.enter_context(TransferSentinel(guard=guard))
+    resh = stack.enter_context(ReshardSentinel())
+    return stack, rec, tr, resh
+
+
+def _sentinel_counts(rec, tr, resh) -> dict:
+    return {"compilations": rec.compilations, "h2d": tr.h2d,
+            "h2d_bytes": tr.h2d_bytes, "d2h": tr.d2h,
+            "d2h_bytes": tr.d2h_bytes, "reshards": resh.reshards,
+            "ops": dict(resh.ops)}
+
+
+def _gate_clean(tag: str, rec, resh) -> None:
+    rec.assert_clean(f"[sentinels 29] {tag}")
+    resh.assert_clean(f"[sentinels 29] {tag}")
+
+
+def phase_sentinels(dev, card: str) -> dict:
+    """29: the reference's steady-state invariants, held with the port's
+    sentinels (``io/profiling``: ``RecompileSentinel``,
+    ``TransferSentinel``, ``ReshardSentinel``) at the slice's width
+    (Humanoid: obs 376, act 17, 256x3, 51 atoms on [0, 800], B = 256, K
+    = 40). The brackets hold only what the reference's hold (the chunk
+    calls; ``IngestOverlap.commit``/``stage`` with the adds; the
+    ingest+deal ticks with the pops); the launch counters are set to 0
+    just before each and read just after, and every rate and check runs
+    outside them. (a) The fused chunk over a 200,000-row ring under each
+    projection arm, after a warm-up chunk: 0 compilations, ``h2d == d2h
+    == 0``, 0 reshards, and no sync (``guard="disallow"``: CUDA's sync
+    debug mode at ``error``); the arm's kernels and the descent K times;
+    the host's enqueue ms and the wall ms per grad step of one bracketed
+    chunk against one bare chunk, in turns (bare, bracketed, bracketed,
+    bare). (b) The ingest overlap on that ring through a
+    ``ReplayService`` (``pallas_ce``): ``SENTINEL_CHUNKS`` chunks, each
+    after ``commit`` and before a 4,096-row add and ``stage``: host-to-
+    device only from the pinned block (one copy per field per staged
+    block, bytes = rows staged x row bytes), ``d2h == 0``, 0
+    compilations. (c) The device dealer (``pallas``) at phase 22a's
+    shape (a 200,000-row generation-tracked ring, Q = K x B per deal),
+    ``SENTINEL_DEALS`` ingest+deal rounds of 4,096-row inserts after a
+    warm-up round, audit off: 0 compilations, host-to-device bytes at
+    most the staged frames and K x B float32 uniforms a deal (no sampled
+    row crosses), ``d2h == 0``, 0 reshards, the descent once a deal; and
+    ``deal`` alone under ``ReshardSentinel.inspect``. (d) The sharded
+    chunk at 25a's shape (two shards in one process, ``einsum``): 0
+    reshards (no collective at world 1: the bar is the cross-device
+    copy), 0 compilations, the descent twice a grad step. A failed bar
+    fails the script."""
+    from d4pg_tpu_torch.distributed.replay_service import ReplayService
+    from d4pg_tpu_torch.io.profiling import ReshardSentinel
+    from d4pg_tpu_torch.learner.fused import (
+        make_fused_chunk,
+        make_sharded_fused_chunk,
+    )
+    from d4pg_tpu_torch.learner.pipeline import IngestOverlap
+    from d4pg_tpu_torch.learner.state import init_state
+    from d4pg_tpu_torch.parallel import RankMesh
+    from d4pg_tpu_torch.replay.device_sampler import DeviceSampleDealer
+    from d4pg_tpu_torch.replay.fused_buffer import FusedDeviceReplay
+    from d4pg_tpu_torch.replay.schedule import SharedBetaSchedule
+    from d4pg_tpu_torch.replay.sharded_per import ShardedFusedReplay
+    from d4pg_tpu_torch.replay.staging import DealtBlockRing
+
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {name: 0 for name in launch_counts()},
+                 "paths": {}}
+
+    def add_launches(counts):
+        for name, n in counts.items():
+            out["launches"][name] += n
+
+    rng = np.random.default_rng(29)
+    per = FusedDeviceReplay(CAPACITY, OBS, ACT, alpha=0.6, device=dev)
+    for start in range(0, CAPACITY, FILL_BLOCK):
+        per.add(random_rows(rng, min(FILL_BLOCK, CAPACITY - start)))
+        per.drain()
+    row_bytes = sum(a[0].numel() * a.element_size() for a in per.storage)
+    torch.cuda.synchronize()
+
+    # (a) the fused chunk, both arms
+    states = {}
+    for arm in ("pallas", "pallas_ce"):
+        state = init_state(config(arm), seed=0, device=dev)
+        fn = make_fused_chunk(config(arm), k=K, batch_size=BATCH)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        per.trees, _ = fn(state, per.trees, per.storage, per.size,
+                          generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        times = {"bare": [], "bracketed": []}
+        for turn in ("bare", "bracketed", "bracketed", "bare"):
+            zero_counts()
+            stack = (_sentinels("disallow") if turn == "bracketed"
+                     else None)
+            t0 = time.perf_counter()
+            if stack is None:
+                per.trees, m = fn(state, per.trees, per.storage, per.size,
+                                  generator=gen)
+            else:
+                with stack[0]:
+                    per.trees, m = fn(state, per.trees, per.storage,
+                                      per.size, generator=gen)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            counts = launch_counts()
+            check(counts == {n: K if n in fused_kernels(arm) else 0
+                             for n in counts},
+                  f"[sentinels 29a] {arm} {turn} chunk launches {counts}")
+            check(bool(torch.isfinite(m["critic_loss"]).all()),
+                  f"[sentinels 29a] {arm}: finite critic_loss")
+            times[turn].append((1e3 * (t1 - t0) / K, 1e3 * (t2 - t0) / K))
+            if stack is None:
+                continue
+            add_launches(counts)
+            _, rec, tr, resh = stack
+            _gate_clean(f"fused chunk ({arm})", rec, resh)
+            check(tr.h2d == tr.d2h == 0, f"[sentinels 29a] {arm}: the "
+                  f"chunk crossed the host/device line {tr.crossings}")
+            out["paths"][f"chunk_{arm}"] = _sentinel_counts(rec, tr, resh)
+        states[arm] = state
+        host = {t: [round(h, 4) for h, _ in v] for t, v in times.items()}
+        wall = {t: [round(w, 4) for _, w in v] for t, v in times.items()}
+        out[f"cost_{arm}"] = {"host_ms": host, "wall_ms": wall}
+        print(f"[sentinels 29a] fused chunk ({arm}): 0 compilations, 0 "
+              f"crossings, 0 reshards, no sync (guard disallow); host ms "
+              f"per grad step bare {host['bare']}, under the three "
+              f"sentinels {host['bracketed']}; wall ms per grad step bare "
+              f"{wall['bare']}, under them {wall['bracketed']} ({card})")
+
+    # (b) the ingest overlap through a service, on the same ring
+    cfg = config("pallas_ce")
+    fn = make_fused_chunk(cfg, k=K, batch_size=BATCH)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = states["pallas_ce"]
+    svc = ReplayService(per)
+    ingest = IngestOverlap(svc)
+    feed = random_rows(rng, FILL_BLOCK)
+    try:
+        svc.add(feed)
+        svc.flush()
+        ingest.commit()  # nothing in flight yet: a no-op
+        ingest.stage()
+        staged0, committed0 = ingest.rows_staged, ingest.rows_committed
+        zero_counts()
+        stack = _sentinels()
+        with stack[0]:
+            for _ in range(SENTINEL_CHUNKS):
+                ingest.commit()
+                per.trees, m = fn(state, per.trees, per.storage, per.size,
+                                  generator=gen)
+                svc.add(feed)
+                svc.flush()
+                ingest.stage()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        add_launches(counts)
+        _, rec, tr, resh = stack
+        staged = ingest.rows_staged - staged0
+        committed = ingest.rows_committed - committed0
+        fields = len(per.storage)
+        check(counts == {n: SENTINEL_CHUNKS * K if n in fused_kernels(
+            "pallas_ce") else 0 for n in counts},
+              f"[sentinels 29b] launches {counts}")
+        _gate_clean("ingest overlap", rec, resh)
+        check(staged == SENTINEL_CHUNKS * FILL_BLOCK
+              and committed == SENTINEL_CHUNKS * FILL_BLOCK,
+              f"[sentinels 29b] rows staged {staged}, committed "
+              f"{committed}")
+        check(tr.h2d <= fields * SENTINEL_CHUNKS
+              and tr.h2d_bytes == staged * row_bytes and tr.d2h == 0,
+              f"[sentinels 29b] host-to-device only from the staged block: "
+              f"{tr.h2d} copies, {tr.h2d_bytes} B for {staged} rows of "
+              f"{row_bytes} B, d2h {tr.d2h} ({tr.crossings})")
+        out["paths"]["ingest"] = {**_sentinel_counts(rec, tr, resh),
+                                  "rows_staged": staged,
+                                  "row_bytes": row_bytes}
+        print(f"[sentinels 29b] ingest overlap, {SENTINEL_CHUNKS} chunks: "
+              f"{tr.h2d} host-to-device copies ({fields} fields a block), "
+              f"{tr.h2d_bytes} B = {staged} rows staged x {row_bytes} B, "
+              f"d2h {tr.d2h}, 0 compilations, 0 reshards ({card})")
+    finally:
+        ingest.release()
+        svc.close()
+    del per, states, state, svc, ingest
+    torch.cuda.synchronize()
+
+    # (c) the device dealer at phase 22a's shape
+    dbuf = FusedDeviceReplay(CAPACITY, OBS, ACT, alpha=0.6, device=dev,
+                             gen_tracked=True)
+    ring = DealtBlockRing(1)
+    dealer = DeviceSampleDealer(CAPACITY, [ring], k=K, batch_size=BATCH,
+                                beta_schedule=SharedBetaSchedule(),
+                                min_size=BATCH, seed=29, arm="pallas")
+    dealer.resync(dbuf)
+
+    def tick(rows, seq):
+        dealer.publish(dealer.ingest_and_deal([(dbuf.add(rows), seq, None)],
+                                              dbuf))
+        blocks = 0
+        while ring.pop(timeout=0) is not None:
+            blocks += 1
+        return blocks
+
+    check(tick(random_rows(rng, FILL_BLOCK), 0) == 1,
+          "[sentinels 29c] warm-up deal")
+    torch.cuda.synchronize()
+    frames = [random_rows(rng, FILL_BLOCK) for _ in range(SENTINEL_DEALS)]
+    zero_counts()
+    stack = _sentinels()
+    with stack[0]:
+        dealt = sum(tick(rows, i + 1) for i, rows in enumerate(frames))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add_launches(counts)
+    _, rec, tr, resh = stack
+    u_bytes = K * BATCH * 4
+    frame_bytes = SENTINEL_DEALS * FILL_BLOCK * row_bytes
+    check(dealt == SENTINEL_DEALS and counts == {
+        n: SENTINEL_DEALS if n == "descent" else 0 for n in counts},
+          f"[sentinels 29c] {dealt} blocks, launches {counts}")
+    _gate_clean("device ingest+deal", rec, resh)
+    check(tr.h2d_bytes <= frame_bytes + SENTINEL_DEALS * u_bytes
+          and tr.d2h == 0,
+          f"[sentinels 29c] host-to-device {tr.h2d_bytes} B over "
+          f"{frame_bytes} B of staged frames and {SENTINEL_DEALS} x "
+          f"{u_bytes} B of uniforms; d2h {tr.d2h} ({tr.crossings})")
+    deal_resh = ReshardSentinel()
+    zero_counts()
+    deal_resh.inspect(dealer.deal, dbuf,
+                      np.zeros((K, BATCH), np.float32), dbuf.size, 0.4)
+    torch.cuda.synchronize()
+    check(launch_counts()["descent"] == 1, "[sentinels 29c] deal inspected")
+    deal_resh.assert_clean("[sentinels 29c] device deal dispatch")
+    out["paths"]["dealer"] = {**_sentinel_counts(rec, tr, resh),
+                              "frame_bytes": frame_bytes,
+                              "uniform_bytes": SENTINEL_DEALS * u_bytes}
+    print(f"[sentinels 29c] device dealer, {SENTINEL_DEALS} ingest+deal "
+          f"rounds: {tr.h2d} host-to-device copies, {tr.h2d_bytes} B "
+          f"(staged frames {frame_bytes} B, uniforms "
+          f"{SENTINEL_DEALS} x {u_bytes} B), d2h {tr.d2h}, 0 compilations, "
+          f"0 reshards, deal alone 0 reshards ({card})")
+    del dbuf, dealer, ring
+    torch.cuda.synchronize()
+
+    # (d) the sharded chunk at 25a's shape
+    mesh = RankMesh.local(dev, MESH_SHARDS)
+    sbuf = ShardedFusedReplay(CAPACITY, OBS, ACT, mesh, alpha=0.6)
+    for start in range(0, CAPACITY, FILL_BLOCK):
+        sbuf.add(random_rows(rng, min(FILL_BLOCK, CAPACITY - start)))
+        sbuf.drain()
+    state = init_state(config("einsum"), seed=0, device=dev)
+    fn = make_sharded_fused_chunk(config("einsum"), mesh, k=K,
+                                  batch_size=BATCH)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    trees, _ = fn(state, sbuf.trees, sbuf.storage, sbuf.size,
+                  generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    stack = _sentinels()
+    with stack[0]:
+        trees, m = fn(state, trees, sbuf.storage, sbuf.size, generator=gen)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add_launches(counts)
+    _, rec, tr, resh = stack
+    check(counts == {n: MESH_SHARDS * K if n == "descent" else 0
+                     for n in counts},
+          f"[sentinels 29d] launches {counts}")
+    check(bool(torch.isfinite(m["critic_loss"]).all()),
+          "[sentinels 29d] finite critic_loss")
+    _gate_clean("sharded chunk", rec, resh)
+    out["paths"]["sharded_chunk"] = _sentinel_counts(rec, tr, resh)
+    print(f"[sentinels 29d] sharded chunk, {MESH_SHARDS} shards: 0 "
+          f"reshards (ops {resh.ops}), 0 compilations; h2d {tr.h2d} "
+          f"({tr.h2d_bytes} B), d2h {tr.d2h} ({tr.d2h_bytes} B) ({card})")
+    del sbuf, trees
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[sentinels 29] phase in {out['seconds']:.2f} s; launches "
+          f"inside the brackets {out['launches']} ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -5945,6 +6218,7 @@ def main() -> int:
     replica_drv = phase_replica_driver(card, hooks)
     model_axis = phase_model_axis(dev, card, pixel)
     fleet = phase_fleet(card)
+    sentinels = phase_sentinels(dev, card)
     # each kernel's launches from the run of the arm whose path it is on;
     # the driver's from its explicit-arm run (2 cycles, 80 grad steps);
     # the host path's from its timed windows (both storages, 800 grad
@@ -6012,6 +6286,10 @@ def main() -> int:
         kern["model_axis_launches"] = model_axis["launches"][kern["name"]]
         # this slice: the fleet's drills (28a-f), none
         kern["fleet_launches"] = fleet["launches"][kern["name"]]
+        # this slice: the sentinels' brackets (29a-d: each arm's chunk,
+        # the ingest overlap's chunks, the dealer's deals, the sharded
+        # chunk)
+        kern["sentinel_launches"] = sentinels["launches"][kern["name"]]
         if kern["name"] == "descent":
             # the dealt plane's shape: one launch per deal over Q = K * B
             # flat queries (22a), and the driver's Q = 40 * 64 at 2^20
@@ -6152,6 +6430,14 @@ def main() -> int:
           f"{replica_drv['runs']['train']['own_grad_steps_per_sec']}; "
           f"[model axis] 27a max abs err {model_axis['param_abs_err']:.3e}"
           f", 27b grad-steps/s {model_axis['pair_rates']} on {card}")
+    cost = {arm: {turn: [round(x, 3) for x in ms]
+                  for turn, ms in sentinels[f"cost_{arm}"]["host_ms"].items()}
+            for arm in ("pallas", "pallas_ce")}
+    print(f"[sentinels] host ms per grad step of a fused chunk, bare and "
+          f"under the three sentinels: {cost}; h2d bytes: ingest "
+          f"{sentinels['paths']['ingest']['h2d_bytes']}, dealer "
+          f"{sentinels['paths']['dealer']['h2d_bytes']}; phase "
+          f"{sentinels['seconds']:.1f} s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,9 @@ cross-entropy for ``pallas``, the fused forward and backward kernels for
 calls, each window ended by a synchronize on the card. Each of the three
 arms is timed on its own.
 
+Each timing run reports to ``io/profiling.record_build`` (the port's
+``RecompileSentinel`` counts it); a cached decision reports nothing.
+
 Static policy (no timing, reason recorded), as the reference's off its
 accelerator: ``auto`` on the CPU, where each wrapper runs its plain
 version and no kernel exists to time, and for a mesh learner, resolves
@@ -54,6 +57,7 @@ from d4pg_tpu_torch.core.distribution import (
     categorical_projection,
 )
 from d4pg_tpu_torch.core.losses import categorical_td_loss, weighted_mean
+from d4pg_tpu_torch.io.profiling import record_build
 from d4pg_tpu_torch.ops.projection import projection
 from d4pg_tpu_torch.ops.projection_ce import projection_ce
 
@@ -159,6 +163,7 @@ def autotune_projection(batch_size: int, v_min: float, v_max: float,
     module docstring); this function times whatever device it is
     given."""
     dev = resolve_device(device)
+    record_build(f"autotune_projection [{batch_size}, {n_atoms}] on {dev}")
     support = CategoricalSupport(float(v_min), float(v_max), int(n_atoms))
     timings = {variant: round(_time_variant(variant, support, batch_size,
                                             repeats, iters, dev), 4)
@@ -232,6 +237,8 @@ def autotune_sampler(capacity: int, k: int, batch_size: int,
     from d4pg_tpu_torch.replay import device_per as dper
 
     dev = resolve_device(device)
+    record_build(f"autotune_sampler [{k * batch_size}] over {capacity} on "
+                 f"{dev}")
     rng = np.random.default_rng(0)
     trees = dper.init(capacity, dev)
     n = trees.capacity

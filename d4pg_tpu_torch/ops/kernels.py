@@ -8,7 +8,9 @@ with ``ctypes``. The build runs at the first CUDA use of a kernel, into
 in the checkout only; a library whose name carries the hash of the
 current sources (``*.cu`` and the ``*.cuh`` headers they include) and
 flags is reused. Nothing is built when the module is imported, and there
-is no fallback: a failed build raises.
+is no fallback: a failed build raises. A real build and the library's
+load each report to ``io/profiling.record_build`` (the port's
+``RecompileSentinel`` counts them); a reuse reports nothing.
 """
 
 from __future__ import annotations
@@ -95,7 +97,10 @@ def build() -> tuple[Path, float, str]:
     lib = library_path()
     if lib.exists():
         return lib, 0.0, ""
+    from d4pg_tpu_torch.io.profiling import record_build
+
     nvcc = _nvcc()
+    record_build(f"kernels.build {lib.name}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -123,7 +128,10 @@ def build() -> tuple[Path, float, str]:
 @functools.cache
 def library() -> KernelLibrary:
     """The loaded kernel library, built on first call."""
+    from d4pg_tpu_torch.io.profiling import record_build
+
     path, seconds, log = build()
+    record_build(f"kernels.library {path.name}")
     cdll = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(cdll, name)

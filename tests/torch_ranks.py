@@ -282,3 +282,69 @@ def mesh_groups(mesh):
             "data_group": dist.get_process_group_ranks(mesh.data_group),
             "model_group": dist.get_process_group_ranks(mesh.model_group),
             "backend": mesh.backend}
+
+
+# -- runtime sentinels ------------------------------------------------------
+
+
+def reshard_probe(mesh, config, payload, fields, w, capacity, blocks, k,
+                  batch_size):
+    """Three brackets on this rank, each under the port's sentinels: an
+    ``all_to_all_single`` and a send/recv exchange with the other rank;
+    one sharded update after its warm-up (its gradient ``all_reduce``);
+    one sharded fused chunk after its warm-up, over this rank's shards
+    filled with ``blocks[rank]``. Returns each bracket's counts."""
+    import torch.distributed as dist
+
+    from d4pg_tpu_torch.io.profiling import (
+        RecompileSentinel,
+        ReshardSentinel,
+        TransferSentinel,
+    )
+    from d4pg_tpu_torch.learner.fused import make_sharded_fused_chunk
+    from d4pg_tpu_torch.parallel import make_sharded_update, shard_batch
+    from d4pg_tpu_torch.replay.sharded_per import ShardedFusedReplay
+
+    def counts(resh, rec=None, tr=None):
+        return {"reshards": resh.reshards, "ops": dict(resh.ops),
+                "compilations": None if rec is None else rec.compilations,
+                "transfers": None if tr is None else tr.total}
+
+    out = {}
+    x = torch.arange(4, dtype=torch.float32) + 10 * mesh.rank
+    moved, got = torch.empty(4), torch.empty(4)
+    peer = 1 - mesh.rank
+    with ReshardSentinel() as probe:
+        dist.all_to_all_single(moved, x)
+        if mesh.rank == 0:
+            dist.send(x, peer)
+            dist.recv(got, peer)
+        else:
+            dist.recv(got, peer)
+            dist.send(x, peer)
+    out["probe"] = {**counts(probe), "moved": moved.numpy(),
+                    "got": got.numpy()}
+
+    state = unpack_state(config, payload, mesh.device)
+    update = make_sharded_update(config, mesh, use_is_weights=True)
+    batch = shard_batch(batch_of(fields), mesh)
+    wl = shard_batch(torch.from_numpy(w), mesh)
+    update(state, batch, wl)  # warm-up
+    with RecompileSentinel() as rec, TransferSentinel() as tr, \
+            ReshardSentinel() as resh:
+        update(state, batch, wl)
+    out["update"] = counts(resh, rec, tr)
+
+    buf = ShardedFusedReplay(capacity, config.obs_dim, config.act_dim, mesh,
+                             alpha=0.6)
+    fill(buf, blocks[mesh.rank])
+    fn = make_sharded_fused_chunk(config, mesh, k=k, batch_size=batch_size,
+                                  alpha=0.6)
+    gen = torch.Generator().manual_seed(mesh.rank)
+    trees, _ = fn(state, buf.trees, buf.storage, buf.size,
+                  generator=gen)  # warm-up
+    with RecompileSentinel() as rec, TransferSentinel() as tr, \
+            ReshardSentinel() as resh:
+        fn(state, trees, buf.storage, buf.size, generator=gen)
+    out["chunk"] = counts(resh, rec, tr)
+    return out
