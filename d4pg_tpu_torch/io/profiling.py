@@ -1,4 +1,4 @@
-"""Step-rate tracking and the runtime sentinels.
+"""Step-rate tracking, the runtime sentinels and the hot path's spans.
 
 Counterpart of ``d4pg_tpu/io/profiling.py``: ``StepTimer`` (an EWMA of
 grad steps per second over explicitly bracketed spans, so eval, collect
@@ -58,15 +58,33 @@ The port's lint (``d4pg_tpu_torch/lint/__init__.py``) still carries none
 of the JAX-only families these sentinels twin (``recompile-hazard``,
 ``device-put-in-loop``, ``sharding-spec-drift``): they stay out by the
 decision recorded in ROADMAP item 18.
+
+**Spans.** ``span(name)`` marks one layer of the learner's hot path (the
+names are ``SPAN_NAMES``; the port has no counterpart in the reference,
+whose XLA trace names its fused ops). A span is active only while
+``torch.profiler`` is on or after ``spans.enable()``; inactive, its site
+reads one flag and does nothing else. Active, it opens a profiler range
+of its name (``_RecordFunctionFast``, which the kineto trace keeps on
+the host thread beside the operators it runs, and which is not a user
+annotation), stamps its host start and end with ``time.time_ns()`` (the
+clock of the profiler's events), links to the span it opened in, carries
+the grad step (``span("learner.step").at(state.step)``) and, on the card,
+records a CUDA event at each end. ``spans.summary()`` (the ``spans``
+provider of ``obs.REGISTRY``) reads the table; it alone waits for the
+events.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
+import itertools
 import re
 import threading
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.utils._pytree import tree_flatten
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -445,3 +463,282 @@ class ReshardSentinel:
                 f"({detail}): a tensor produced under one placement is "
                 "consumed under another; route both through the same "
                 "parallel/partition.py rule")
+
+
+# -- spans: where the learner's hot path runs (``span``, ``spans``) ----------
+
+# every span name of the port, from the loop down to the kernel wrappers
+SPAN_NAMES = (
+    "learner.chunk", "learner.step", "sampler.draw", "sampler.weights",
+    "replay.gather", "update", "update.augment", "update.target",
+    "update.critic", "update.actor", "update.soft_targets",
+    "sampler.writeback", "model.encoder", "kernel.descent",
+    "kernel.projection_ce.fwd", "kernel.projection_ce.bwd",
+    "kernel.projection", "collective.grad_reduce", "collective.is_min")
+# the span whose starts calibrate the device's clock (``SpanTable.markers``)
+MARKER = "learner.step"
+# the profiler range an active span opens, and whether spans take CUDA
+# events (module names, so tests can stand in for both)
+_Range = torch._C._profiler._RecordFunctionFast
+_on_card = torch.cuda.is_initialized
+
+
+class _Record:
+    __slots__ = ("id", "site", "parent", "step", "thread", "t0", "t1",
+                 "child_ns", "ev0", "ev1", "device_ms", "dev_ns", "range",
+                 "launches0")
+
+
+class SpanTable:
+    """The spans of one process: a ring of the newest ``capacity`` closed
+    spans (``overflow`` counts those it dropped) and the launch counters of
+    the kernel wrappers (``count_launches``), read around each
+    ``learner.step`` span.
+
+    A span takes device events when its name does not start with
+    ``kernel.`` (an event pair cannot resolve a kernel of a few µs) and
+    CUDA is initialised in the process; they go on the current stream.
+    Device times are the time the stream spent between a span's two
+    events, idle included where the host lagged behind it. Events come
+    from a pool: at each ``learner.step`` end the spans whose end event
+    the device has passed (``query``, which does not wait) are read and
+    their events go back, so the events in use are those the device has
+    not reached yet, however long the profile."""
+
+    def __init__(self, capacity: int = 65536):
+        self.capacity = int(capacity)
+        self.forced = False  # ``enable()``: active without the profiler
+        self.open = 0  # active spans open on any thread
+        self.overflow = 0
+        self._mu = threading.Lock()
+        self._tls = threading.local()
+        self._ids = itertools.count()
+        self._ring: collections.deque = collections.deque()
+        self._pending: collections.deque = collections.deque()  # unread
+        self._pool: list = []
+        self._anchor = None  # the first marker's start event
+        self._sources: dict[str, object] = {}
+        self._launches: dict[str, int] = {}
+        self._steps = 0  # markers closed, for the launches per step
+
+    def enable(self) -> None:
+        """Spans active whether or not the profiler is on."""
+        self.forced = True
+
+    def disable(self) -> None:
+        self.forced = False
+
+    def reset(self) -> None:
+        """Forget every span, the anchor and the launch counts."""
+        with self._mu:
+            for r in self._pending:
+                self._pool += [r.ev0, r.ev1]
+            self._pending.clear()
+            self._ring.clear()
+            self.overflow = 0
+            self._anchor = None
+            self._launches = {}
+            self._steps = 0
+
+    def count_launches(self, name: str, read) -> None:
+        """Report ``read()`` (a kernel wrapper's launch counter) per grad
+        step in ``summary()`` under ``name``."""
+        self._sources[name] = read
+
+    # -- the span sites' two halves (active spans only) ----------------------
+
+    def _event(self):
+        with self._mu:
+            if self._pool:
+                return self._pool.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def _enter(self, site: "Span") -> None:
+        tls = self._tls
+        stack = tls.__dict__.setdefault("stack", [])
+        r = _Record()
+        r.id = next(self._ids)
+        r.site = site
+        r.parent = stack[-1].id if stack else None
+        r.step = tls.__dict__.get("step")
+        r.thread = threading.get_ident()
+        r.child_ns = 0
+        r.ev0 = r.ev1 = r.device_ms = r.dev_ns = None
+        r.range = _Range(site.name)
+        r.range.__enter__()
+        r.t0 = time.time_ns()
+        if site.events and _on_card():
+            r.ev0 = self._event()
+            r.ev0.record()
+            if site.name == MARKER and self._anchor is None:
+                self._anchor = r.ev0
+        if site.name == MARKER:
+            r.launches0 = {k: read() for k, read in self._sources.items()}
+        stack.append(r)
+        with self._mu:
+            self.open += 1
+
+    def _exit(self, site: "Span") -> None:
+        stack = self._tls.__dict__.get("stack")
+        if not stack or stack[-1].site is not site:
+            return  # this site's enter found the spans inactive
+        r = stack.pop()
+        if r.ev0 is not None:
+            r.ev1 = self._event()
+            r.ev1.record()
+        r.t1 = time.time_ns()
+        r.range.__exit__(None, None, None)
+        r.range = None
+        if stack:
+            stack[-1].child_ns += r.t1 - r.t0
+        with self._mu:
+            self.open -= 1
+            if site.name == MARKER:
+                self._steps += 1
+                for k, read in self._sources.items():
+                    self._launches[k] = (self._launches.get(k, 0) + read()
+                                         - r.launches0[k])
+            if len(self._ring) >= self.capacity:
+                self._ring.popleft()
+                self.overflow += 1
+            self._ring.append(r)
+            if r.ev0 is not None:
+                self._pending.append(r)
+            if site.name == MARKER:
+                self._read_events(wait=False)
+
+    def _read_events(self, wait: bool) -> None:
+        """Read the pending spans' event pairs in the order they closed
+        (the order the stream reaches their ends), up to the first the
+        device has not passed, or all of them with ``wait``; their events
+        go back to the pool (the anchor's stays). Holds ``_mu``."""
+        anchor = self._anchor
+        while self._pending:
+            r = self._pending[0]
+            if wait:
+                r.ev1.synchronize()
+            elif not r.ev1.query():
+                return
+            self._pending.popleft()
+            r.device_ms = r.ev0.elapsed_time(r.ev1)
+            if r.site.name == MARKER:
+                r.dev_ns = round(anchor.elapsed_time(r.ev0) * 1e6)
+            self._pool += [ev for ev in (r.ev0, r.ev1) if ev is not anchor]
+            r.ev0 = r.ev1 = None
+
+    # -- reading the table (never on the hot path) ---------------------------
+
+    def _closed(self) -> list[_Record]:
+        with self._mu:
+            self._read_events(wait=True)
+            return sorted(self._ring, key=lambda r: r.t0)
+
+    def records(self) -> list[dict]:
+        """Every span in the table, in order of start: ``id``, ``name``,
+        ``parent`` (the id of the span it opened in on its thread, or
+        ``None``), ``step``, ``thread``, host ``start_ns`` and ``end_ns``
+        and ``device_ms`` (``None`` without events)."""
+        return [{"id": r.id, "name": r.site.name, "parent": r.parent,
+                 "step": r.step, "thread": r.thread, "start_ns": r.t0,
+                 "end_ns": r.t1, "device_ms": r.device_ms}
+                for r in self._closed()]
+
+    def markers(self, recs: list[_Record] | None = None
+                ) -> list[tuple[int, int, int]]:
+        """``(id, host ns, device ns)`` of each ``learner.step`` start that
+        took an event, the device's time put on the host clock: each
+        event's time from the first marker's event, plus the least offset
+        under which no marker is reached on the device before the host
+        recorded it (so the tightest marker reads a lead of 0)."""
+        recs = self._closed() if recs is None else recs
+        raw = [(r.id, r.t0, r.dev_ns) for r in recs
+               if r.site.name == MARKER and r.dev_ns is not None]
+        if not raw:
+            return []
+        offset = max(h - e for _, h, e in raw)
+        return [(i, h, e + offset) for i, h, e in raw]
+
+    def summary(self) -> dict:
+        """Per span name (``spans``): ``count``, ``host_ns`` and
+        ``self_ns`` (less the spans opened inside it on its thread) and
+        ``device_ms`` (the event pairs' sum, ``None`` without events);
+        ``steps`` (the ``learner.step`` spans held), ``lead_ms`` (per
+        marker, how far the host ran ahead of the device: ``markers()``'
+        device time less its host time), ``launches_per_step`` (the kernel
+        wrappers' counters over the ``learner.step`` spans) and
+        ``overflow``. Waits for the events it reads."""
+        recs = self._closed()
+        with self._mu:
+            steps, launches = self._steps, dict(self._launches)
+            overflow = self.overflow
+        names: dict[str, dict] = {}
+        for r in recs:
+            d = names.setdefault(r.site.name, {
+                "count": 0, "host_ns": 0, "self_ns": 0, "device_ms": None})
+            d["count"] += 1
+            d["host_ns"] += r.t1 - r.t0
+            d["self_ns"] += r.t1 - r.t0 - r.child_ns
+            if r.device_ms is not None:
+                d["device_ms"] = (d["device_ms"] or 0.0) + r.device_ms
+        return {
+            "steps": names.get(MARKER, {}).get("count", 0),
+            "spans": names,
+            "lead_ms": [(d - h) / 1e6 for _, h, d in self.markers(recs)],
+            "launches_per_step": ({k: v / steps for k, v in launches.items()}
+                                  if steps else {}),
+            "overflow": overflow,
+        }
+
+
+spans = SpanTable()
+REGISTRY.register_provider("spans", spans.summary)
+
+
+class Span:
+    """One span site (``span(name)``): ``with span(name):`` or, as a
+    decorator, ``@span(name)``. Inactive, entering reads one flag and
+    leaving reads ``spans.open``."""
+
+    __slots__ = ("name", "events")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.events = not name.startswith("kernel.")
+
+    def at(self, step: int) -> "Span":
+        """This span, and the spans opened after it on its thread until
+        the next ``at``, carry ``step`` (when the spans are active)."""
+        if _autograd_profiler._is_profiler_enabled or spans.forced:
+            spans._tls.step = step
+        return self
+
+    def __enter__(self) -> "Span":
+        if _autograd_profiler._is_profiler_enabled or spans.forced:
+            spans._enter(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if spans.open:
+            spans._exit(self)
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not (_autograd_profiler._is_profiler_enabled
+                    or spans.forced):
+                return fn(*args, **kwargs)
+            with self:
+                return fn(*args, **kwargs)
+
+        return spanned
+
+
+_SITES = {name: Span(name) for name in SPAN_NAMES}
+
+
+def span(name: str) -> Span:
+    """The span site ``name``, one of ``SPAN_NAMES``."""
+    site = _SITES.get(name)
+    if site is None:
+        raise KeyError(f"unknown span {name!r}; the spans are {SPAN_NAMES}")
+    return site

@@ -18,6 +18,11 @@ priorities, as in the reference.
 ``make_sharded_fused_chunk`` is the chunk over the data-sharded replay
 (``replay/sharded_per.py``): each rank samples its own shards, and only
 the gradients and one IS normalizer per step cross ranks.
+
+Each step is a ``learner.step`` span carrying ``state.step``, with the
+sampler's ``sampler.draw``, ``sampler.weights`` and ``sampler.writeback``
+and the ring's ``replay.gather`` inside it (``io/profiling.span``; inert
+unless the profiler is on).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from d4pg_tpu_torch.io.profiling import span
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
 from d4pg_tpu_torch.learner.update import UpdateDraws, update_step
 from d4pg_tpu_torch.parallel.data_parallel import (
@@ -83,27 +89,34 @@ def fused_chunk_step(
                          f"{tuple(injected.shape)}")
     out = {name: [] for name in _METRICS}
     for t in range(k):
-        w = None
-        if trees is None:
-            idx = injected[t] if injected is not None else torch.randint(
-                0, max(int(size), 1), (batch_size,), generator=generator,
-                dtype=torch.int32, device=storage.obs.device)
-        else:
-            if injected is None:
-                idx = dper.sample(trees, generator, batch_size, size)
-            else:
-                idx = dper.sample_from_uniforms(trees, injected[t], size)
-            beta = dper.beta_schedule(state.step, beta0, beta_steps)
-            w = dper.is_weights(trees, idx, beta, size)
-        batch = TransitionBatch(*[arr[idx] for arr in storage])
-        metrics = update_step(config, state, batch, w,
-                              None if draws is None else draws.at(t))
-        if trees is not None:
-            trees = dper.update_from_td(trees, idx, metrics["td_error"],
-                                        alpha)
-        metrics["idx"] = idx
-        for name in _METRICS:
-            out[name].append(metrics[name])
+        with span("learner.step").at(state.step):
+            w = None
+            with span("sampler.draw"):
+                if trees is None:
+                    idx = (injected[t] if injected is not None
+                           else torch.randint(
+                               0, max(int(size), 1), (batch_size,),
+                               generator=generator, dtype=torch.int32,
+                               device=storage.obs.device))
+                elif injected is None:
+                    idx = dper.sample(trees, generator, batch_size, size)
+                else:
+                    idx = dper.sample_from_uniforms(trees, injected[t], size)
+            if trees is not None:
+                with span("sampler.weights"):
+                    beta = dper.beta_schedule(state.step, beta0, beta_steps)
+                    w = dper.is_weights(trees, idx, beta, size)
+            with span("replay.gather"):
+                batch = TransitionBatch(*[arr[idx] for arr in storage])
+            metrics = update_step(config, state, batch, w,
+                                  None if draws is None else draws.at(t))
+            if trees is not None:
+                with span("sampler.writeback"):
+                    trees = dper.update_from_td(trees, idx,
+                                                metrics["td_error"], alpha)
+            metrics["idx"] = idx
+            for name in _METRICS:
+                out[name].append(metrics[name])
     return trees, {name: torch.stack(v) for name, v in out.items()}
 
 
@@ -163,7 +176,8 @@ def shard_weights(trees, idx: torch.Tensor, beta: float,
     leaf = torch.gather(trees.sum_tree, 1, cap + idx.long())
     q = leaf / total[:, None] / n
     q_min = torch.min(trees.min_tree[:, 1] / total / n).reshape(1)
-    mesh.all_reduce(q_min, "min")
+    with span("collective.is_min"):
+        mesh.all_reduce(q_min, "min")
     neg_beta = torch.full((), -float(np.float32(beta)), dtype=torch.float32,
                           device=dev)
     return torch.pow(q / q_min, neg_beta)
@@ -225,39 +239,46 @@ def make_sharded_fused_chunk(
         trees = None if trees is None else trees.clone()
         out = {name: [] for name in _METRICS}
         for t in range(k):
-            idx = []
-            for s in range(n_local):
-                limit = max(int(size[s]), 1)
-                if trees is None:
-                    idx.append(injected[t, s].to(dev) if injected is not None
-                               else torch.randint(
-                                   0, limit, (b_local,), generator=generator,
-                                   dtype=torch.int32, device=dev))
-                    continue
-                u = (injected[t, s].to(dev) if injected is not None
-                     else torch.rand(b_local, generator=generator,
-                                     device=dev))
-                idx.append(dper.sample_from_uniforms(trees.shard(s), u,
-                                                     size[s]))
-            idx = torch.stack(idx)  # [n_local, b_local]
-            w = None
-            if trees is not None:
-                beta = dper.beta_schedule(state.step, beta0, beta_steps)
-                w = shard_weights(trees, idx, beta, mesh).reshape(-1)
-            batch = TransitionBatch(*[
-                torch.cat([arr[s][idx[s]] for s in range(n_local)])
-                for arr in storage])
-            metrics = update_step(config, state, batch, w,
-                                  None if draws is None else draws.at(t),
-                                  grad_reduce=reduce)
-            if trees is not None:
-                td = metrics["td_error"].reshape(n_local, b_local)
-                for s in range(n_local):
-                    trees.set_shard(s, dper.update_from_td(
-                        trees.shard(s), idx[s], td[s], alpha))
-            metrics["idx"] = idx.reshape(-1)
-            for name in _METRICS:
-                out[name].append(metrics[name])
+            with span("learner.step").at(state.step):
+                idx = []
+                with span("sampler.draw"):
+                    for s in range(n_local):
+                        limit = max(int(size[s]), 1)
+                        if trees is None:
+                            idx.append(
+                                injected[t, s].to(dev) if injected is not None
+                                else torch.randint(
+                                    0, limit, (b_local,), generator=generator,
+                                    dtype=torch.int32, device=dev))
+                            continue
+                        u = (injected[t, s].to(dev) if injected is not None
+                             else torch.rand(b_local, generator=generator,
+                                             device=dev))
+                        idx.append(dper.sample_from_uniforms(
+                            trees.shard(s), u, size[s]))
+                    idx = torch.stack(idx)  # [n_local, b_local]
+                w = None
+                if trees is not None:
+                    with span("sampler.weights"):
+                        beta = dper.beta_schedule(state.step, beta0,
+                                                  beta_steps)
+                        w = shard_weights(trees, idx, beta, mesh).reshape(-1)
+                with span("replay.gather"):
+                    batch = TransitionBatch(*[
+                        torch.cat([arr[s][idx[s]] for s in range(n_local)])
+                        for arr in storage])
+                metrics = update_step(config, state, batch, w,
+                                      None if draws is None else draws.at(t),
+                                      grad_reduce=reduce)
+                if trees is not None:
+                    with span("sampler.writeback"):
+                        td = metrics["td_error"].reshape(n_local, b_local)
+                        for s in range(n_local):
+                            trees.set_shard(s, dper.update_from_td(
+                                trees.shard(s), idx[s], td[s], alpha))
+                metrics["idx"] = idx.reshape(-1)
+                for name in _METRICS:
+                    out[name].append(metrics[name])
         stacked = {name: torch.stack(v) for name, v in out.items()}
         return trees, replicated_metrics(stacked, mesh)
 

@@ -22,7 +22,8 @@ the collect phase lands before training), then per chunk
 Without one (``service=None``) it runs against a buffer filled between
 runs. After each chunk the trace recorder's ``mark_grad`` stamps the
 traces whose rows committed before it (``obs/trace``; a no-op when none
-is pending).
+is pending). Each chunk, commit to ``mark_grad``, is a ``learner.chunk``
+span (``io/profiling.span``).
 
 ``DealtLoop`` is the consumer half of the sample-on-ingest plane
 (``replay/sampler.py``): per block it pops the replica's ring (a
@@ -42,6 +43,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from d4pg_tpu_torch.io.profiling import span
 from d4pg_tpu_torch.learner.fused import (
     make_fused_chunk,
     make_sharded_fused_chunk,
@@ -127,18 +129,19 @@ class FusedLoop:
         while done < n:
             k = min(self.k, n - done)
             fn = self.fused_for(k)
-            if self.ingest is not None:
-                self.ingest.commit()
-            if self._prioritized:
-                buffer.trees, metrics = fn(state, buffer.trees,
-                                           buffer.storage, buffer.size,
-                                           generator=self._generator)
-            else:
-                metrics = fn(state, buffer.storage, buffer.size,
-                             generator=self._generator)
-            if self.ingest is not None:
-                self.ingest.stage()
-            trace_recorder.mark_grad()
+            with span("learner.chunk").at(state.step):
+                if self.ingest is not None:
+                    self.ingest.commit()
+                if self._prioritized:
+                    buffer.trees, metrics = fn(state, buffer.trees,
+                                               buffer.storage, buffer.size,
+                                               generator=self._generator)
+                else:
+                    metrics = fn(state, buffer.storage, buffer.size,
+                                 generator=self._generator)
+                if self.ingest is not None:
+                    self.ingest.stage()
+                trace_recorder.mark_grad()
             done += k
             self.steps_done += k
             self.chunks += 1

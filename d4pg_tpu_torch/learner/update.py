@@ -52,6 +52,7 @@ from d4pg_tpu_torch.core.losses import (
 )
 from d4pg_tpu_torch.core.mog import mog_mean, mog_target, mog_td_loss
 from d4pg_tpu_torch.core.updates import soft_update, tie_encoder
+from d4pg_tpu_torch.io.profiling import span
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
 from d4pg_tpu_torch.ops.augment import random_shift
 from d4pg_tpu_torch.ops.projection import projection
@@ -74,6 +75,7 @@ class UpdateDraws(NamedTuple):
         return UpdateDraws(*[None if d is None else d[t] for d in self])
 
 
+@span("update")
 def update_step(
     config: D4PGConfig,
     state: D4PGState,
@@ -89,72 +91,80 @@ def update_step(
     ``grad_reduce(params)``, when given, runs between each ``backward``
     and its Adam step on that network's parameters (the data-parallel
     learner averages their gradients over ranks there,
-    ``parallel/data_parallel.grad_reducer``)."""
+    ``parallel/data_parallel.grad_reducer``). The update is an ``update``
+    span with ``update.augment``, ``update.target``, ``update.critic``,
+    ``update.actor`` and ``update.soft_targets`` inside; each encoder tie
+    belongs to the step before it."""
     draws = UpdateDraws() if draws is None else draws
     gen = state.generator
     if config.augment == "shift":
         # obs and next_obs get independent offsets (DrQ's convention)
-        batch = batch._replace(
-            obs=random_shift(batch.obs, config.augment_pad, gen,
-                             offsets=draws.obs_shift),
-            next_obs=random_shift(batch.next_obs, config.augment_pad, gen,
-                                  offsets=draws.next_shift))
+        with span("update.augment"):
+            batch = batch._replace(
+                obs=random_shift(batch.obs, config.augment_pad, gen,
+                                 offsets=draws.obs_shift),
+                next_obs=random_shift(batch.next_obs, config.augment_pad,
+                                      gen, offsets=draws.next_shift))
     mog = config.critic_family == "mog"
 
     # --- critic step ------------------------------------------------------
-    with torch.no_grad():
+    with span("update.target"), torch.no_grad():
         next_action = state.target_actor(batch.next_obs)
         target = state.target_critic(batch.next_obs, next_action)
-    pred = state.critic(batch.obs, batch.action)
-    if mog:
-        critic_loss, td_error = mog_td_loss(
-            pred, mog_target(target, batch.reward, batch.discount), gen,
-            config.mog_samples, is_weights, gumbel=draws.gumbel,
-            normal=draws.normal)
-    else:
-        if config.projection == "pallas_ce":
-            td_error = projection_ce(config.support, target, batch.reward,
-                                     batch.discount, pred)
+    with span("update.critic"):
+        pred = state.critic(batch.obs, batch.action)
+        if mog:
+            critic_loss, td_error = mog_td_loss(
+                pred, mog_target(target, batch.reward, batch.discount), gen,
+                config.mog_samples, is_weights, gumbel=draws.gumbel,
+                normal=draws.normal)
         else:
-            project = (projection if config.projection == "pallas"
-                       else categorical_projection)
-            with torch.no_grad():
-                proj = project(config.support, target, batch.reward,
-                               batch.discount)
-            td_error = cross_entropy_per_sample(proj, pred)
-        critic_loss = weighted_mean(td_error, is_weights)
-    state.critic_opt.zero_grad(set_to_none=True)
-    critic_loss.backward()
-    if grad_reduce is not None:
-        grad_reduce(state.critic.parameters())
-    state.critic_opt.step()
-    if config.share_encoder:
-        tie_encoder(state.actor, state.critic)
+            if config.projection == "pallas_ce":
+                td_error = projection_ce(config.support, target,
+                                         batch.reward, batch.discount, pred)
+            else:
+                project = (projection if config.projection == "pallas"
+                           else categorical_projection)
+                with torch.no_grad():
+                    proj = project(config.support, target, batch.reward,
+                                   batch.discount)
+                td_error = cross_entropy_per_sample(proj, pred)
+            critic_loss = weighted_mean(td_error, is_weights)
+        state.critic_opt.zero_grad(set_to_none=True)
+        critic_loss.backward()
+        if grad_reduce is not None:
+            grad_reduce(state.critic.parameters())
+        state.critic_opt.step()
+        if config.share_encoder:
+            tie_encoder(state.actor, state.critic)
 
     # --- actor step, through the stepped critic ---------------------------
-    action = state.actor(batch.obs)
-    if mog:
-        q = mog_mean(state.critic(batch.obs, action))
-    else:
-        q = expected_q(config.support, state.critic(batch.obs, action))
-    actor_loss = -torch.mean(q)
-    if config.action_l2:
-        actor_loss = actor_loss + config.action_l2 * torch.mean(action**2)
-    params = list(state.actor.parameters())
-    grads = torch.autograd.grad(actor_loss, params, allow_unused=True)
-    for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
-    if grad_reduce is not None:
-        grad_reduce(params)
-    state.actor_opt.step()
-    if config.share_encoder:
-        tie_encoder(state.actor, state.critic)
+    with span("update.actor"):
+        action = state.actor(batch.obs)
+        if mog:
+            q = mog_mean(state.critic(batch.obs, action))
+        else:
+            q = expected_q(config.support, state.critic(batch.obs, action))
+        actor_loss = -torch.mean(q)
+        if config.action_l2:
+            actor_loss = actor_loss + config.action_l2 * torch.mean(
+                action**2)
+        params = list(state.actor.parameters())
+        grads = torch.autograd.grad(actor_loss, params, allow_unused=True)
+        for p, g in zip(params, grads):
+            p.grad = torch.zeros_like(p) if g is None else g
+        if grad_reduce is not None:
+            grad_reduce(params)
+        state.actor_opt.step()
+        if config.share_encoder:
+            tie_encoder(state.actor, state.critic)
 
     # --- soft target updates ----------------------------------------------
-    soft_update(state.target_actor, state.actor, config.tau)
-    soft_update(state.target_critic, state.critic, config.tau)
-    if config.share_encoder:
-        tie_encoder(state.target_actor, state.target_critic)
+    with span("update.soft_targets"):
+        soft_update(state.target_actor, state.actor, config.tau)
+        soft_update(state.target_critic, state.critic, config.tau)
+        if config.share_encoder:
+            tie_encoder(state.target_actor, state.target_critic)
     state.step += 1
     actor_loss = actor_loss.detach()
     return {

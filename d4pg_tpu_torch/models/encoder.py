@@ -29,7 +29,8 @@ holds its out-channel slice of ``conv1`` .. ``conv4`` and
 ``model_axis`` is set: each convolution's input enters the model region
 and its ReLU output is gathered back to all channels before the next
 layer reads it. Without one (``model_axis is None``) the encoder is the
-whole one.
+whole one. Each forward is a ``model.encoder`` span
+(``io/profiling.span``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from d4pg_tpu_torch.io.profiling import span
 from d4pg_tpu_torch.models.actor import Actor
 from d4pg_tpu_torch.models.critic import CategoricalCritic
 from d4pg_tpu_torch.models.init import lecun_normal
@@ -72,6 +74,7 @@ class PixelEncoder(nn.Module):
         self.ln = nn.LayerNorm(latent_dim, eps=LN_EPS)
         self.model_axis = None  # parallel/model_axis.ModelAxis when split
 
+    @span("model.encoder")
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         lead = pixels.shape[:-3]

@@ -11,6 +11,8 @@ kernel (``csrc/projection.cu``) computes exactly
 ``projection`` runs the plain version for a tensor on the CPU and the
 CUDA kernel for a tensor on the card; there is no other path. It is
 forward only: the learner stops the gradient at the projected target.
+Each call is a ``kernel.projection`` span (``io/profiling.span``, host
+side only: no device events).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from d4pg_tpu_torch.core.distribution import (
     CategoricalSupport,
     categorical_projection,
 )
+from d4pg_tpu_torch.io.profiling import span, spans
 from d4pg_tpu_torch.ops.kernels import library
 
 projection_plain = categorical_projection
@@ -56,6 +59,7 @@ def check_operands(support: CategoricalSupport, target_probs, rewards,
     return b, a
 
 
+@span("kernel.projection")
 def projection(
     support: CategoricalSupport,
     target_probs: torch.Tensor,
@@ -85,3 +89,4 @@ def projection(
 
 
 projection.launches = 0
+spans.count_launches("projection", lambda: projection.launches)

@@ -16,7 +16,11 @@ gradient for ``target_probs``, ``rewards`` or ``discounts``.
 ``ProjectionCE`` (forward and backward CUDA kernels of
 ``csrc/projection_ce.cu``) for a tensor on the card; there is no other
 path. Each forward launch adds one to ``projection_ce.fwd_launches``,
-each backward launch one to ``projection_ce.bwd_launches``.
+each backward launch one to ``projection_ce.bwd_launches``. A call is a
+``kernel.projection_ce.fwd`` span and each backward kernel a
+``kernel.projection_ce.bwd`` one (``io/profiling.span``, host side only;
+on the card autograd runs the backward on its own thread, so that span
+has no parent).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from d4pg_tpu_torch.core.distribution import (
     categorical_projection,
 )
 from d4pg_tpu_torch.core.losses import cross_entropy_per_sample
+from d4pg_tpu_torch.io.profiling import span, spans
 from d4pg_tpu_torch.ops.kernels import library
 from d4pg_tpu_torch.ops.projection import check_operands
 
@@ -68,6 +73,7 @@ def forward_kernel(support, target_probs, rewards, discounts,
     return td
 
 
+@span("kernel.projection_ce.bwd")
 def backward_kernel(support, target_probs, rewards, discounts, pred_probs,
                     grad_td) -> torch.Tensor:
     """dq [B, A] from the backward kernel for the cotangent ``grad_td``
@@ -109,6 +115,7 @@ class ProjectionCE(torch.autograd.Function):
         return None, None, None, None, dq
 
 
+@span("kernel.projection_ce.fwd")
 def projection_ce(
     support: CategoricalSupport,
     target_probs: torch.Tensor,
@@ -130,3 +137,7 @@ def projection_ce(
 
 projection_ce.fwd_launches = 0
 projection_ce.bwd_launches = 0
+spans.count_launches("projection_ce.fwd",
+                     lambda: projection_ce.fwd_launches)
+spans.count_launches("projection_ce.bwd",
+                     lambda: projection_ce.bwd_launches)

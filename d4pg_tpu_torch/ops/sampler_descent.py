@@ -13,7 +13,8 @@ to each other. The kernel resolves several levels per dependent round
 trip to memory (``rounds``), visiting the same nodes with the same
 arithmetic. The port's fit rule: the tree stays in device memory (no
 shared-memory bound such as the Pallas kernel's VMEM budget), so any
-capacity up to 2^30 leaves works.
+capacity up to 2^30 leaves works. Each call is a ``kernel.descent``
+span (``io/profiling.span``, host side only: no device events).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import math
 
 import torch
 
+from d4pg_tpu_torch.io.profiling import span, spans
 from d4pg_tpu_torch.ops.kernels import library
 
 
@@ -51,6 +53,7 @@ def descend_plain(sum_tree: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
     return (node - cap).to(torch.int32)
 
 
+@span("kernel.descent")
 def descend(sum_tree: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
     """Leaf slots (int32, ``mass``'s shape) of prefix masses ``mass``
     (float32) in ``sum_tree`` ([2 * cap] float32). Each kernel launch adds
@@ -85,3 +88,4 @@ def descend(sum_tree: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
 
 
 descend.launches = 0
+spans.count_launches("descent", lambda: descend.launches)

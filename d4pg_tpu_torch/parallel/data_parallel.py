@@ -32,6 +32,7 @@ from typing import Iterable
 
 import torch
 
+from d4pg_tpu_torch.io.profiling import span
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
 from d4pg_tpu_torch.learner.update import multi_update_step, update_step
 from d4pg_tpu_torch.parallel import partition
@@ -112,6 +113,7 @@ def grad_reducer(mesh: RankMesh):
     if mesh.data_size == 1:
         return None
 
+    @span("collective.grad_reduce")
     @torch.no_grad()
     def reduce(params: Iterable[torch.nn.Parameter]) -> None:
         grads = [p.grad for p in params if p.grad is not None]

@@ -104,7 +104,11 @@ that the sharded plane admitted on its header; in-process adds and the
 one-shard receiver, which decodes before the service sees the frame,
 carry no trace id, as in the reference. ``--profile_dir d`` writes
 a ``torch.profiler`` trace (Chrome trace JSON) of the first cycle's grad
-steps into ``d``, where the reference writes an XLA trace.
+steps into ``d``, where the reference writes an XLA trace, and beside it
+``spans_<pid>_<ns>.json``: the summary of the hot path's spans over the
+same steps (``io/profiling.spans``: per span its count, host and self
+ns and device ms, the host's lead over the device per grad step, kernel
+launches per grad step), which the profiler turns on.
 
 Devices. The learner runs on the CUDA card for ``--platform auto`` and
 ``accel``, and raises when there is none: unlike the reference's
@@ -137,6 +141,7 @@ bfloat16`` select the MoG critic and bfloat16 products.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import threading
 import time
@@ -1536,20 +1541,26 @@ def profiled(profile_dir: str, device: torch.device, fn, *args):
     """``fn(*args)`` under ``torch.profiler`` (host and, on the card,
     device events); the trace goes to ``profile_dir`` as Chrome trace
     JSON (``trace_<pid>_<ns>.json``, viewable in Perfetto or
-    chrome://tracing)."""
+    chrome://tracing), and the summary of the spans the profiler turned
+    on beside it (``spans_<pid>_<ns>.json``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from d4pg_tpu_torch.io.profiling import spans
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    spans.reset()
     with profile(activities=activities) as prof:
         out = fn(*args)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir,
-                        f"trace_{os.getpid()}_{time.time_ns()}.json")
+    stamp = f"{os.getpid()}_{time.time_ns()}"
+    path = os.path.join(profile_dir, f"trace_{stamp}.json")
     prof.export_chrome_trace(path)
+    with open(os.path.join(profile_dir, f"spans_{stamp}.json"), "w") as f:
+        json.dump(spans.summary(), f)
     print(f"profiler trace of the first cycle: {path}", flush=True)
     return out
 
