@@ -171,6 +171,7 @@ class CheckpointManager:
         for name in _MODULES + _OPTIMIZERS:
             getattr(template, name).load_state_dict(payload[name])
         template.step = int(payload["step"])
+        template.targets_tied = False  # the saved targets may be untied
         template.generator.set_state(payload["state_generator"].cpu())
         if generator is not None and payload["generator"] is not None:
             generator.set_state(payload["generator"].cpu())

@@ -133,4 +133,5 @@ def state_from_jax(config: D4PGConfig, jax_state,
     _load_adam(state.actor_opt, state.actor, jax_state.actor_opt_state)
     _load_adam(state.critic_opt, state.critic, jax_state.critic_opt_state)
     state.step = int(np.asarray(jax_state.step))
+    state.targets_tied = False  # the loaded targets may be untied
     return state

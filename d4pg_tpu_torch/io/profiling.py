@@ -541,8 +541,9 @@ class SpanTable:
             self._steps = 0
 
     def count_launches(self, name: str, read) -> None:
-        """Report ``read()`` (a kernel wrapper's launch counter) per grad
-        step in ``summary()`` under ``name``."""
+        """Report ``read()`` (a kernel wrapper's launch counter, or another
+        host counter of the step such as ``update_step.encoder_reused``)
+        per grad step in ``summary()`` under ``name``."""
         self._sources[name] = read
 
     # -- the span sites' two halves (active spans only) ----------------------
@@ -665,7 +666,8 @@ class SpanTable:
         ``steps`` (the ``learner.step`` spans held), ``lead_ms`` (per
         marker, how far the host ran ahead of the device: ``markers()``'
         device time less its host time), ``launches_per_step`` (the kernel
-        wrappers' counters over the ``learner.step`` spans) and
+        wrappers' counters and ``encoder.reused``, the encoder forwards the
+        update step saved, over the ``learner.step`` spans) and
         ``overflow``. Waits for the events it reads."""
         recs = self._closed()
         with self._mu:

@@ -317,6 +317,8 @@ class MeshReplicaGroup:
                     [v.view(layout[j][2].shape) for j, v in zip(
                         pos, torch.split(src, [layout[j][2].numel()
                                                for j in pos]))])
+        for state in self._states:
+            state.targets_tied = False  # the merged targets may be untied
         return merged
 
     def run_round(self, n: int) -> dict:

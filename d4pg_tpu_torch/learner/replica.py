@@ -100,6 +100,7 @@ def adopt_params(state: D4PGState, params: dict) -> None:
     with torch.no_grad():
         for f, m in _MODULES.items():
             getattr(state, m).load_state_dict(params[f])
+    state.targets_tied = False  # an aggregate's targets may be untied
 
 
 def replica_generator_seed(seed: int, replica: int) -> int:
@@ -135,7 +136,8 @@ def replica_state(state: D4PGState, replica: int, seed: int,
         gen.set_state(state.generator.get_state())
     else:
         gen.manual_seed(replica_generator_seed(seed, replica))
-    return D4PGState(*nets, step=state.step, generator=gen)
+    return D4PGState(*nets, step=state.step, generator=gen,
+                     targets_tied=state.targets_tied)
 
 
 class LearnerReplica:

@@ -171,7 +171,19 @@ class D4PGState:
     reads it for the PER beta schedule without a device sync.
     ``generator`` lives on the state's device and takes the place of the
     reference's ``key``: the DrQ offsets and the MoG draws of the updates
-    come from it (the checkpoint saves it)."""
+    come from it (the checkpoint saves it).
+
+    ``targets_tied`` is a host fact like ``step``: the two target
+    encoders are bitwise equal, so one forward on ``next_obs`` serves both
+    target heads (``learner/update.py``). ``init_state`` and every
+    ``update_step`` under ``share_encoder`` set it; an unshared
+    ``update_step`` and every path that writes parameters into an
+    existing state clear it (``io/checkpoint.restore``,
+    ``io/from_jax.state_from_jax``, ``learner/replica.adopt_params``, the
+    replicas' merge), so the first step after ``share_encoder`` is turned
+    on over an unshared state runs both target encoders, as the
+    reference does. ``parallel/data_parallel.replicate_state`` gives
+    every rank rank 0's."""
 
     actor: torch.nn.Module
     critic: torch.nn.Module
@@ -181,6 +193,7 @@ class D4PGState:
     critic_opt: torch.optim.Adam
     step: int = 0
     generator: torch.Generator | None = None
+    targets_tied: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -214,4 +227,5 @@ def init_state(config: D4PGConfig, seed: int = 0,
         critic_opt=config.optimizer(critic, config.lr_critic),
         generator=torch.Generator(device=dev).manual_seed(
             int(seed) + _STATE_STREAM),
+        targets_tied=config.share_encoder,
     )

@@ -6,7 +6,10 @@ Counterpart of ``d4pg_tpu/learner/update.py``. One ``update_step``:
     independent offsets (``ops.augment.random_shift``); both losses see
     the shifted batch;
   - target distribution Z'(s', pi'(s')) under ``no_grad`` (the reference
-    stop-gradients the target, so nothing flows into it);
+    stop-gradients the target, so nothing flows into it); with
+    ``share_encoder`` and the target encoders tied
+    (``D4PGState.targets_tied``) one target encoder forward on
+    ``next_obs`` feeds both target heads;
   - the categorical family's per-sample cross-entropy against the
     projected Bellman target: ``einsum`` projects with the plain
     ``categorical_projection`` on every device, ``pallas`` with the
@@ -24,10 +27,20 @@ Counterpart of ``d4pg_tpu/learner/update.py``. One ``update_step``:
     with gradients taken w.r.t. the actor's parameters only, so no
     critic ``.grad`` is written by the actor loss. A parameter the loss
     does not reach (the detached shared encoder) gets a zero gradient,
-    as optax gives it, so every Adam step counter advances together;
+    as optax gives it, so every Adam step counter advances together.
+    With ``share_encoder`` the actor's encoder is bitwise the stepped
+    critic's and the gradient stops at its latent, so one forward of the
+    critic's encoder on ``obs``, under ``no_grad``, feeds the actor's
+    head and the critic's;
   - actor Adam step, the encoder tie again (it overwrites what stale
     Adam moments would move), soft target updates (tau), the target
     actor's encoder tied to the target critic's, step counter + 1.
+
+Each encoder forward a step saves this way (two a step once the targets
+are tied, one on the first step after ``share_encoder`` is turned on
+over an unshared state, none without it) adds one to
+``update_step.encoder_reused``, reported per grad step as
+``encoder.reused`` in ``spans.summary()``.
 
 The random draws (DrQ offsets, MoG components and normals) come from
 the state's generator, or are injected as ``UpdateDraws`` (the tests
@@ -52,7 +65,7 @@ from d4pg_tpu_torch.core.losses import (
 )
 from d4pg_tpu_torch.core.mog import mog_mean, mog_target, mog_td_loss
 from d4pg_tpu_torch.core.updates import soft_update, tie_encoder
-from d4pg_tpu_torch.io.profiling import span
+from d4pg_tpu_torch.io.profiling import span, spans
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
 from d4pg_tpu_torch.ops.augment import random_shift
 from d4pg_tpu_torch.ops.projection import projection
@@ -109,8 +122,16 @@ def update_step(
 
     # --- critic step ------------------------------------------------------
     with span("update.target"), torch.no_grad():
-        next_action = state.target_actor(batch.next_obs)
-        target = state.target_critic(batch.next_obs, next_action)
+        if config.share_encoder and state.targets_tied:
+            # the pixel networks' MLP heads (``.actor``, ``.critic``) on
+            # one latent of the tied encoders
+            z = state.target_critic.encoder(batch.next_obs)
+            next_action = state.target_actor.actor(z)
+            target = state.target_critic.critic(z, next_action)
+            update_step.encoder_reused += 1
+        else:
+            next_action = state.target_actor(batch.next_obs)
+            target = state.target_critic(batch.next_obs, next_action)
     with span("update.critic"):
         pred = state.critic(batch.obs, batch.action)
         if mog:
@@ -140,11 +161,19 @@ def update_step(
 
     # --- actor step, through the stepped critic ---------------------------
     with span("update.actor"):
-        action = state.actor(batch.obs)
-        if mog:
-            q = mog_mean(state.critic(batch.obs, action))
+        if config.share_encoder:
+            with torch.no_grad():
+                z = state.critic.encoder(batch.obs)
+            action = state.actor.actor(z)
+            q = expected_q(config.support, state.critic.critic(z, action))
+            update_step.encoder_reused += 1
         else:
-            q = expected_q(config.support, state.critic(batch.obs, action))
+            action = state.actor(batch.obs)
+            if mog:
+                q = mog_mean(state.critic(batch.obs, action))
+            else:
+                q = expected_q(config.support,
+                               state.critic(batch.obs, action))
         actor_loss = -torch.mean(q)
         if config.action_l2:
             actor_loss = actor_loss + config.action_l2 * torch.mean(
@@ -165,6 +194,7 @@ def update_step(
         soft_update(state.target_critic, state.critic, config.tau)
         if config.share_encoder:
             tie_encoder(state.target_actor, state.target_critic)
+    state.targets_tied = config.share_encoder
     state.step += 1
     actor_loss = actor_loss.detach()
     return {
@@ -173,6 +203,10 @@ def update_step(
         "q_mean": -actor_loss,
         "td_error": td_error.detach(),
     }
+
+
+update_step.encoder_reused = 0
+spans.count_launches("encoder.reused", lambda: update_step.encoder_reused)
 
 
 def multi_update_step(

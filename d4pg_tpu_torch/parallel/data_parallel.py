@@ -67,8 +67,8 @@ def _adam_tensors(state: D4PGState) -> list[torch.Tensor]:
 @torch.no_grad()
 def replicate_state(state: D4PGState, mesh: RankMesh) -> D4PGState:
     """Make every rank's ``state`` rank 0's, in place: the networks and
-    targets, the Adam moments and step counts, the step counter and the
-    state's generator; then, on a ``{data, model}`` mesh, keep this
+    targets, the Adam moments and step counts, the step counter, the
+    targets' tie flag and the state's generator; then, on a ``{data, model}`` mesh, keep this
     rank's slice of each split leaf (``model_axis.shard_state``; the
     state must be whole on entry). Collective; a no-op on a world of
     1."""
@@ -76,8 +76,10 @@ def replicate_state(state: D4PGState, mesh: RankMesh) -> D4PGState:
         return state
     meta = mesh.broadcast_object(
         {"step": int(state.step), "generator": state.generator.get_state(),
+         "targets_tied": state.targets_tied,
          "adam": any(getattr(state, o).state for o, _ in _OPTIMIZERS)})
     state.step = meta["step"]
+    state.targets_tied = meta["targets_tied"]
     state.generator.set_state(meta["generator"])
     tensors = [t for m in _MODULES
                for t in getattr(state, m).state_dict().values()]

@@ -36,6 +36,7 @@ from d4pg_tpu.replay import device_per as jdper
 from d4pg_tpu.replay import prioritized as jper
 from d4pg_tpu.replay.fused_buffer import FusedDeviceReplay as JaxReplay
 from d4pg_tpu.replay.uniform import TransitionBatch as JaxBatch
+from d4pg_tpu_torch.io.checkpoint import CheckpointManager
 from d4pg_tpu_torch.io.from_jax import state_from_jax, torch_layout
 from d4pg_tpu_torch.learner import pipeline as tpipe
 from d4pg_tpu_torch.learner import state as tstate
@@ -181,6 +182,68 @@ def test_multi_update_step_matches_reference(rng, name, kw, projection):
         for a, c in zip(ts.actor.encoder.parameters(),
                         ts.critic.encoder.parameters()):
             assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("carry", ["from_jax", "restore"])
+def test_share_encoder_flip_matches_reference(rng, tmp_path, carry):
+    """An unshared pixel state, stepped three times by the reference, then
+    carried into a ``share_encoder`` state (``state_from_jax``, or a
+    checkpoint of it restored into a shared template): its target encoders
+    are not tied, so the first shared step runs both of them and reuses
+    only the actor step's latent (1 a step), the second reuses both (2).
+    Both steps hold to the reference's at the learner's bars."""
+    b = 8
+    unshared = {**PIXEL, "share_encoder": False, "projection": "einsum"}
+    shared = {**PIXEL, "projection": "einsum"}
+    j0 = jstate.D4PGConfig(**unshared)
+    rows = _rows(rng, (3, b), SHAPE)
+    # moved off init, so each network's action and value depend on its
+    # own encoder's latent beyond the bars
+    noise = np.random.default_rng(5)
+    js = jstate.init_state(j0, jax.random.key(5))
+    js = js._replace(**{f: jax.tree_util.tree_map(
+        lambda x: x + 0.1 * noise.standard_normal(x.shape).astype(np.float32),
+        getattr(js, f)) for f in ("actor_params", "critic_params",
+                                  "target_actor_params",
+                                  "target_critic_params")})
+    js, _ = jax.jit(lambda s, bb, ww: jax_multi_update(j0, s, bb, ww))(
+        js,
+        JaxBatch(**{n: jnp.asarray(v) for n, v in rows.items()}),
+        jnp.asarray((0.5 + rng.random((3, b))).astype(np.float32)))
+    carried = jax.tree_util.tree_map(
+        np.asarray, js._replace(key=jax.random.key_data(js.key)))
+    tcfg = tstate.D4PGConfig(**shared)
+    if carry == "from_jax":
+        ts = state_from_jax(tcfg, carried, "cpu")
+    else:
+        ckpt = CheckpointManager(str(tmp_path))
+        ckpt.save(state_from_jax(tstate.D4PGConfig(**unshared), carried,
+                                 "cpu"))
+        ts, _ = ckpt.restore(tstate.init_state(tcfg, 0, "cpu"))
+    assert ts.step == 3 and not ts.targets_tied
+    assert any(not torch.equal(a, c) for a, c in zip(
+        ts.target_actor.encoder.parameters(),
+        ts.target_critic.encoder.parameters()))
+    jcfg = jstate.D4PGConfig(**shared)
+    draws, _ = reference_draws(jcfg, js.key, 2, b)
+    jstep = jax.jit(lambda s, bb, ww: jax_update_step(jcfg, s, bb, ww))
+    for t, reused in enumerate((1, 2)):
+        batch = _rows(rng, (b,), SHAPE)
+        w = (0.5 + rng.random(b)).astype(np.float32)
+        js, jm = jstep(js, JaxBatch(**{n: jnp.asarray(v)
+                                       for n, v in batch.items()}),
+                       jnp.asarray(w))
+        before = update_step.encoder_reused
+        tm = update_step(tcfg, ts, TransitionBatch(
+            **{n: torch.from_numpy(v) for n, v in batch.items()}),
+            torch.from_numpy(w), draws.at(t))
+        assert update_step.encoder_reused - before == reused
+        assert ts.targets_tied
+        for metric in ("critic_loss", "actor_loss", "q_mean", "td_error"):
+            np.testing.assert_allclose(
+                tm[metric].numpy(), np.asarray(jm[metric]), rtol=RTOL,
+                err_msg=f"step {t}: {metric}")
+        _assert_states(js, ts)
 
 
 BF16 = [("vector", VECTOR), ("pixel", PIXEL), ("mog", MOG)]

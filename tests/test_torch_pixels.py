@@ -23,7 +23,13 @@ from d4pg_tpu.learner import state as jstate
 from d4pg_tpu.models import encoder as jenc
 from d4pg_tpu.ops.augment import random_shift as jax_random_shift
 from d4pg_tpu_torch.config import ExperimentConfig
-from d4pg_tpu_torch.core.updates import tie_encoder
+from d4pg_tpu_torch.core.distribution import categorical_projection
+from d4pg_tpu_torch.core.losses import (
+    cross_entropy_per_sample,
+    expected_q,
+    weighted_mean,
+)
+from d4pg_tpu_torch.core.updates import soft_update, tie_encoder
 from d4pg_tpu_torch.distributed.weights import WeightStore
 from d4pg_tpu_torch.envs.fake import PixelPointEnv
 from d4pg_tpu_torch.envs.vector import EnvPool
@@ -484,6 +490,75 @@ def test_shared_encoder_tie_survives_warm_moments(rng):
         update_step(shared, state, batch)
         assert _encoders_equal(state.actor, state.critic)
         assert _encoders_equal(state.target_actor, state.target_critic)
+
+
+def _five_forward_step(config, state, batch, w):
+    """The shared-encoder update with every network on its own encoder:
+    the target actor's and critic's on next_obs, the critic's on obs, then
+    the actor's and the stepped critic's on obs."""
+    gen, pad = state.generator, config.augment_pad
+    obs = random_shift(batch.obs, pad, gen)
+    next_obs = random_shift(batch.next_obs, pad, gen)
+    with torch.no_grad():
+        target = state.target_critic(next_obs, state.target_actor(next_obs))
+        proj = categorical_projection(config.support, target, batch.reward,
+                                      batch.discount)
+    td_error = cross_entropy_per_sample(proj, state.critic(obs, batch.action))
+    critic_loss = weighted_mean(td_error, w)
+    state.critic_opt.zero_grad(set_to_none=True)
+    critic_loss.backward()
+    state.critic_opt.step()
+    tie_encoder(state.actor, state.critic)
+    action = state.actor(obs)
+    actor_loss = -torch.mean(expected_q(config.support,
+                                        state.critic(obs, action)))
+    params = list(state.actor.parameters())
+    grads = torch.autograd.grad(actor_loss, params, allow_unused=True)
+    for p, g in zip(params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g
+    state.actor_opt.step()
+    tie_encoder(state.actor, state.critic)
+    soft_update(state.target_actor, state.actor, config.tau)
+    soft_update(state.target_critic, state.critic, config.tau)
+    tie_encoder(state.target_actor, state.target_critic)
+    return {"critic_loss": critic_loss.detach(),
+            "actor_loss": actor_loss.detach(), "td_error": td_error.detach()}
+
+
+def test_shared_encoder_reuse_is_bitwise_five_forwards(rng):
+    """With the encoders tied, ``update_step`` runs three encoder forwards
+    a step (one on next_obs for both target heads, the critic's on obs,
+    one on obs for the actor's head and the critic's) and counts two
+    reused; every metric, all four networks and both Adam states stay
+    bitwise what five forwards give."""
+    config = _px_config(encoder_channels=CH8, share_encoder=True,
+                        augment="shift", tau=0.05)
+    reused, plain = init_state(config, 4, "cpu"), init_state(config, 4, "cpu")
+    assert reused.targets_tied
+    w = torch.from_numpy((0.5 + rng.random(8)).astype(np.float32))
+    for _ in range(2):
+        batch = _px_batch(rng)
+        before = update_step.encoder_reused
+        got = update_step(config, reused, batch, w)
+        assert update_step.encoder_reused - before == 2
+        want = _five_forward_step(config, plain, batch, w)
+        for name in want:
+            assert torch.equal(got[name], want[name]), name
+        for net in ("actor", "critic", "target_actor", "target_critic"):
+            for (name, a), b in zip(
+                    getattr(reused, net).named_parameters(),
+                    getattr(plain, net).parameters()):
+                assert torch.equal(a, b), f"{net}.{name}"
+        for opt, net in (("actor_opt", "actor"), ("critic_opt", "critic")):
+            for a, b in zip(getattr(reused, net).parameters(),
+                            getattr(plain, net).parameters()):
+                sa = getattr(reused, opt).state[a]
+                sb = getattr(plain, opt).state[b]
+                assert set(sa) == set(sb)
+                for key in sa:
+                    assert torch.equal(sa[key], sb[key]), (opt, key)
+        assert torch.equal(reused.generator.get_state(),
+                           plain.generator.get_state())
 
 
 def test_shared_encoder_requires_pixel_categorical():

@@ -47,11 +47,11 @@ def clean_table():
     spans.reset()
 
 
-def _learner(prioritized: bool, seed: int = 0):
+def _learner(prioritized: bool, seed: int = 0, shared: bool = True):
     cfg = D4PGConfig(obs_dim=int(np.prod(SHAPE)), act_dim=ACT, v_min=-10.0,
                      v_max=10.0, n_atoms=11, hidden=(16, 16), pixels=True,
                      obs_shape=SHAPE, encoder_channels=(4, 4, 4, 4),
-                     augment="shift", share_encoder=True,
+                     augment="shift", share_encoder=shared,
                      projection="pallas_ce")
     state = init_state(cfg, seed, "cpu")
     buf = FusedDeviceReplay(CAPACITY, SHAPE, ACT, prioritized=prioritized,
@@ -157,9 +157,10 @@ def test_profiled_chunk_spans_are_kineto_ranges_nested_as_linked(
             assert r["step"] == K
 
 
+@pytest.mark.parametrize("shared", [True, False])
 @pytest.mark.parametrize("prioritized", [True, False])
-def test_span_counts_fit_the_chunk(prioritized):
-    state, _, loop = _learner(prioritized)
+def test_span_counts_fit_the_chunk(prioritized, shared):
+    state, _, loop = _learner(prioritized, shared=shared)
     spans.enable()
     loop.run(state, 2 * K)
     s = spans.summary()
@@ -171,8 +172,10 @@ def test_span_counts_fit_the_chunk(prioritized):
                  "update.actor", "update.soft_targets",
                  "kernel.projection_ce.fwd"):
         assert count[name] == steps, name
-    # target actor and critic, critic, actor, critic of the actor's action
-    assert count["model.encoder"] == 5 * steps
+    # shared: one target encoder for both target heads, the critic's, one
+    # for the actor's head and the critic's head at the actor's action;
+    # unshared: target actor and critic, critic, actor, critic again
+    assert count["model.encoder"] == (3 if shared else 5) * steps
     if prioritized:
         for name in ("sampler.weights", "sampler.writeback",
                      "kernel.descent"):
@@ -183,9 +186,11 @@ def test_span_counts_fit_the_chunk(prioritized):
         assert 0 <= d["self_ns"] <= d["host_ns"], name
         assert d["device_ms"] is None  # no CUDA here
     # the CPU runs the kernels' plain versions: no launch counted
-    assert set(s["launches_per_step"]) == {
+    per_step = dict(s["launches_per_step"])
+    assert per_step.pop("encoder.reused") == (2.0 if shared else 0.0)
+    assert set(per_step) == {
         "descent", "projection", "projection_ce.fwd", "projection_ce.bwd"}
-    assert all(v == 0 for v in s["launches_per_step"].values())
+    assert all(v == 0 for v in per_step.values())
 
 
 @pytest.mark.parametrize("prioritized", [True, False])
