@@ -3,13 +3,18 @@ actor and critic.
 
 The encoder: each 3x3 convolution at XLA's ``SAME`` output size (two
 FLOPs per multiply-add: ``2 H_out W_out C_out 9 C_in``) and the
-projection to the latent. A grad step runs it forward six times (the
-target actor and target critic on s', the critic on s and its backward,
-the actor on s with its output detached, the stepped critic in the
-policy loss) and backward once, for the critic loss: the weight
-gradients and every input gradient but the first convolution's, whose
-input is the frames. The policy loss's gradient stops at the latent. The
+projection to the latent. The grad step as the model states it runs the
+encoder forward five times (the target actor and the target critic on
+s', the critic on s, the actor on s with its output detached, the
+stepped critic in the policy loss) and backward once, for the critic
+loss: the weight gradients and every input gradient but the first
+convolution's, whose input is the frames, two forwards' worth less the
+first convolution's. The policy loss's gradient stops at the latent. The
 MLP heads take the latent as their state (``mlp_d4pg``).
+
+The count is the model's, not the program's: with the encoder shared
+and the targets tied, the program reuses one latent for both target
+heads and one for the policy loss, and runs three of the five forwards.
 """
 
 from __future__ import annotations

@@ -5,16 +5,16 @@ Every draw comes from a ``torch.Generator`` on the card seeded from
 block of ring rows can be made again alone (the reference gathers the
 rows it needs that way, after the program's state is freed).
 
-  - Initial weights: one normal draw for all leaves of the actor and the
-    critic, cut and scaled per leaf (``reference.nets.init_scale``);
-    the targets start as copies, and with a shared encoder the actor's
-    encoder is the critic's.
-  - Ring rows: state vectors N(0, 1) or uint8 frames uniform over
-    [0, 255], actions U(-1, 1), n-step rewards uniform over the
-    traffic's ``reward`` range, episode ends with probability
-    ``done_share``, and discounts ``gamma ** n_step * (1 - done)``.
+  - Initial weights: one normal draw for all leaves of the family's
+    networks (``layout``), cut and scaled per leaf (``init_scale``); the
+    targets start as copies, and the leaves the networks share are made
+    equal (``tie``).
+  - Ring rows: the family's observations (``observations``), actions
+    U(-1, 1), n-step rewards uniform over the traffic's ``reward`` range,
+    episode ends with probability ``done_share``, and discounts
+    ``gamma ** n_step * (1 - done)``.
   - The loop's and the state's generators, whose draws (PER uniforms or
-    uniform slots; DrQ offsets) the reference replays.
+    uniform slots; the family's own ``draws``) the reference replays.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import zlib
 import numpy as np
 import torch
 
-from reference import nets
+from harness import spec
 
 FIELDS = ("obs", "action", "reward", "next_obs", "done", "discount")
 
@@ -44,8 +44,9 @@ def generator(device, seed: int, *tags) -> torch.Generator:
 
 
 def make_params(cfg: dict, seed: int, device) -> dict:
-    """``{"actor": {name: tensor}, "critic": {name: tensor}}``."""
-    shapes = nets.layout(cfg)
+    """``{net: {name: tensor}}`` of the family's networks."""
+    family = spec.family(cfg)
+    shapes = family.layout(cfg)
     total = sum(math.prod(s) for net in shapes.values() for s in net.values())
     flat = torch.randn(total, generator=generator(device, seed, "weights"),
                        device=device)
@@ -54,17 +55,14 @@ def make_params(cfg: dict, seed: int, device) -> dict:
         out[net] = {}
         for name, shape in leaves.items():
             n = math.prod(shape)
-            kind, std = nets.init_scale(name, shape, cfg, net)
+            kind, std = family.init_scale(name, shape, cfg, net)
             if kind == "normal":
                 out[net][name] = (flat[off:off + n] * std).view(shape).clone()
             else:
                 out[net][name] = torch.full(shape, 1.0 if kind == "one"
                                             else 0.0, device=device)
             off += n
-    if cfg.get("pixels"):
-        for name in shapes["actor"]:
-            if name.startswith("encoder."):
-                out["actor"][name] = out["critic"][name].clone()
+    family.tie(out, cfg)
     return out
 
 
@@ -73,16 +71,11 @@ def rows_block(cfg: dict, traffic: dict, seed: int, rank: int, block: int,
     """Ring rows ``[block * fill_block, block * fill_block + n)`` of rank
     ``rank`` as device tensors."""
     g = generator(device, seed, "rows", rank, block)
-    if cfg.get("pixels"):
-        shape = (n, *cfg["obs_shape"])
+    family = spec.family(cfg)
 
-        def obs():
-            return torch.randint(0, 256, shape, generator=g, device=device,
-                                 dtype=torch.uint8)
-    else:
-        def obs():
-            return torch.randn(n, int(cfg["obs_dim"]), generator=g,
-                               device=device)
+    def obs():
+        return family.observations(cfg, n, g, device)
+
     lo, hi = traffic["reward"]
     o = obs()
     action = torch.rand(n, int(cfg["act_dim"]), generator=g,

@@ -70,8 +70,8 @@ def learn(cell, seed: int, seconds: float, traced: bool, device,
             break
     _sync(device)
     elapsed = time.perf_counter() - t0
-    bad = int((~torch.isfinite(metrics["critic_loss"])
-               | ~torch.isfinite(metrics["actor_loss"])).sum())
+    finite = [torch.isfinite(metrics[name]) for name in lrn.family.LOSSES]
+    bad = int((~torch.stack(finite).all(dim=0)).sum())
     out = {"steps": steps, "elapsed": elapsed,
            "chunk_s": [b - a for a, b in zip(marks, marks[1:])],
            "setup_s": window_start - t_start, "fill_s": lrn.fill_s,

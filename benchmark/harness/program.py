@@ -1,8 +1,9 @@
 """The program under test, set up as ``python -m d4pg_tpu_torch.train``
 sets it up, with the benchmark's inputs.
 
-``learner`` builds the state (``init_state``), loads the benchmark's
-initial weights into it, fills the replay ring through the program's own
+``learner`` builds the state (``init_state``, with the configuration's
+family's ``program_config``), loads the benchmark's initial weights into
+the family's networks, fills the replay ring through the program's own
 ``add`` / ``drain`` (``FusedDeviceReplay``, or this rank's
 ``ShardedFusedReplay`` on a mesh), and makes the ``FusedLoop`` whose
 ``run`` every check step, warm-up chunk and timed chunk goes through.
@@ -15,31 +16,9 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
-from harness import inputs
-
-
-def d4pg_config(cfg: dict):
-    from d4pg_tpu_torch.learner.state import D4PGConfig
-
-    pixels = bool(cfg.get("pixels"))
-    return D4PGConfig(
-        obs_dim=(int(np.prod(cfg["obs_shape"])) if pixels
-                 else int(cfg["obs_dim"])),
-        act_dim=int(cfg["act_dim"]), v_min=float(cfg["v_min"]),
-        v_max=float(cfg["v_max"]), n_atoms=int(cfg["n_atoms"]),
-        hidden=tuple(cfg["hidden"]), lr_actor=float(cfg["lr_actor"]),
-        lr_critic=float(cfg["lr_critic"]), adam_b1=float(cfg["adam_b1"]),
-        adam_b2=float(cfg["adam_b2"]), tau=float(cfg["tau"]),
-        gamma=float(cfg["gamma"]), projection=cfg["projection"],
-        compute_dtype=cfg["compute_dtype"], pixels=pixels,
-        obs_shape=tuple(cfg["obs_shape"]) if pixels else (),
-        encoder_channels=tuple(cfg.get("encoder_channels", (32,) * 4)),
-        augment=cfg.get("augment", "none"),
-        augment_pad=int(cfg.get("augment_pad", 4)),
-        share_encoder=bool(cfg.get("share_encoder", False)))
+from harness import inputs, spec
 
 
 @dataclasses.dataclass
@@ -48,16 +27,27 @@ class Learner:
     buffer: object
     loop: object
     params0: dict  # the initial weights the benchmark made
+    family: object  # families/<family>.py
     fill_s: float = 0.0
+
+    @property
+    def nets(self) -> dict:
+        """``{net: (online, target or None, optimizer)}``."""
+        return self.family.program_nets(self.state)
 
 
 @torch.no_grad()
-def load_params(state, params: dict) -> None:
-    """The benchmark's initial weights into the online nets and targets;
-    the names and shapes must match exactly."""
-    for net in ("actor", "critic"):
-        for module in (getattr(state, net), getattr(state, f"target_{net}")):
-            module.load_state_dict(params[net], strict=True)
+def load_params(nets: dict, params: dict) -> None:
+    """The benchmark's initial weights into the online nets and targets
+    (``nets``: ``{net: (online, target or None, optimizer)}``); the names
+    and shapes must match exactly, and every network gets its weights."""
+    if set(nets) != set(params):
+        raise ValueError(f"the program's networks {sorted(nets)} are not "
+                         f"the weights' {sorted(params)}")
+    for net, (online, target, _) in nets.items():
+        for module in (online, target):
+            if module is not None:
+                module.load_state_dict(params[net], strict=True)
 
 
 def fill(buffer, cfg: dict, traffic: dict, seed: int, rank: int,
@@ -81,11 +71,12 @@ def learner(cfg: dict, traffic: dict, seed: int, device,
     from d4pg_tpu_torch.learner.loop import FusedLoop
     from d4pg_tpu_torch.learner.state import init_state
 
-    dc = d4pg_config(cfg)
+    family = spec.family(cfg)
+    dc = family.program_config(cfg)
     state = init_state(dc, seed=inputs.derive(seed, "init") & 0x7FFFFFFF,
                        device=device)
     params0 = inputs.make_params(cfg, seed, device)
-    load_params(state, params0)
+    load_params(family.program_nets(state), params0)
     state.generator = inputs.generator(device, seed, "state")
     rank = 0
     per = bool(traffic["prioritized"])
@@ -117,22 +108,21 @@ def learner(cfg: dict, traffic: dict, seed: int, device,
         prioritized=per, alpha=float(cfg["per_alpha"]),
         beta0=float(cfg["per_beta0"]),
         beta_steps=int(cfg["per_beta_steps"]), mesh=mesh)
-    return Learner(state, buffer, loop, params0, fill_s)
+    return Learner(state, buffer, loop, params0, family, fill_s)
 
 
-def leaves(state) -> dict:
-    """``{"actor/<name>": tensor, "critic/<name>": tensor}`` of the
-    online nets."""
-    return {f"{net}/{k}": v for net in ("actor", "critic")
-            for k, v in getattr(state, net).state_dict().items()}
+def leaves(nets: dict) -> dict:
+    """``{"<net>/<name>": tensor}`` of the online nets."""
+    return {f"{net}/{k}": v for net, (online, _, _) in nets.items()
+            for k, v in online.state_dict().items()}
 
 
-def adam_moments(state) -> dict:
-    """``{"<net>/<name>": (exp_avg, exp_avg_sq)}`` of the two Adams."""
+def adam_moments(nets: dict) -> dict:
+    """``{"<net>/<name>": (exp_avg, exp_avg_sq)}`` of every network's
+    Adam."""
     out = {}
-    for net in ("actor", "critic"):
-        module, opt = getattr(state, net), getattr(state, f"{net}_opt")
-        for k, p in module.named_parameters():
+    for net, (online, _, opt) in nets.items():
+        for k, p in online.named_parameters():
             st = opt.state.get(p, {})
             out[f"{net}/{k}"] = (st.get("exp_avg"), st.get("exp_avg_sq"))
     return out
@@ -148,27 +138,28 @@ def check_steps(lrn: Learner, cfg: dict, steps: int) -> dict:
     of every step, the first gradient as Adam got it (its first moment
     after one step over ``1 - b1``), and after the last step the change
     of every leaf, of the targets and Adam's moments, and the trees."""
-    state, loop = lrn.state, lrn.loop
+    state, loop, nets = lrn.state, lrn.loop, lrn.nets
     b1 = float(cfg["adam_b1"])
     first = loop.run(state, 1)
     grad1 = {k: _norm(m) / (1.0 - b1)
-             for k, (m, _) in adam_moments(state).items()}
+             for k, (m, _) in adam_moments(nets).items()}
     rest = loop.run(state, steps - 1)
-    out = {name: [float(x) for m in (first, rest) for x in m[name]]
-           for name in ("critic_loss", "actor_loss")}
+    out = {"losses": {name: [float(x) for m in (first, rest) for x in m[name]]
+                      for name in lrn.family.LOSSES}}
     out["td"] = torch.cat([first["td_error"], rest["td_error"]]).float().cpu()
     out["idx"] = torch.cat([first["idx"], rest["idx"]]).long().cpu()
     out["grad1"] = grad1
-    p0 = {f"{net}/{k}": v for net in ("actor", "critic")
-          for k, v in lrn.params0[net].items()}
-    now = leaves(state)
-    targets = {f"{net}/{k}": v for net in ("actor", "critic")
-               for k, v in getattr(state, f"target_{net}").state_dict()
-               .items()}
+    p0 = {f"{net}/{k}": v for net, leaves0 in lrn.params0.items()
+          for k, v in leaves0.items()}
+    now = leaves(nets)
+    targets = {f"{net}/{k}": v for net, (_, target, _) in nets.items()
+               if target is not None
+               for k, v in target.state_dict().items()}
     out["change3"] = {k: _norm(now[k] - p0[k]) for k in p0}
-    out["target3"] = {k: _norm(targets[k] - p0[k]) for k in p0}
+    out["target3"] = {k: _norm(targets[k] - p0[k]) for k in p0
+                      if k in targets}
     out["moments3"] = {}
-    for k, (m, v) in adam_moments(state).items():
+    for k, (m, v) in adam_moments(nets).items():
         out["moments3"][k + "/m"] = _norm(m)
         out["moments3"][k + "/v"] = _norm(v)
     trees = lrn.buffer.trees

@@ -11,6 +11,13 @@ it, so a new cell or metric is new files and entries, never an edit:
   - ``runners/<runner>.py``: ``run(cell) -> result`` drives the program;
   - ``metrics/<metric>.py``: ``read(ctx) -> float | None`` reads one
     metric from what a run measured (``None``: nothing to read);
+  - ``families/<family>.py``: all that depends on a configuration's
+    model family (its ``family`` key): the program's config and networks,
+    the losses both sides report, the initial weights' layout and ties,
+    the ring's observations, the update's own draws and how the reference
+    applies them, the reference's grad step, and the tiny shrink of the
+    CPU tests (the interface: ``families/mlp_d4pg.py``); a configuration
+    whose family has no file is refused;
   - ``flops/<family or kernel>.py``: the operations and bytes of a model
     family's grad step and of a kernel;
   - ``limits/<cell>.json``: the limit of each number the cell compares;
@@ -69,8 +76,14 @@ def cell(name: str, root: Path = ROOT) -> Cell:
     if not limits_path.exists():
         raise SystemExit(f"no limits file {limits_path}: a cell compares "
                          f"every number it reads against its limit")
-    return Cell(name=name, chips=int(w["chips"]),
-                config=load_json(root / conf["file"]),
+    config = load_json(root / conf["file"])
+    family_path = here / "families" / f"{config.get('family')}.py"
+    if not family_path.exists():
+        raise SystemExit(f"configuration {conf['name']!r} is of family "
+                         f"{config.get('family')!r}, which has no file "
+                         f"{family_path}: the harness takes all that "
+                         f"depends on a model family from its file")
+    return Cell(name=name, chips=int(w["chips"]), config=config,
                 traffic=load_json(here / "traffic" / f"{w['traffic']}.json"),
                 end_to_end=e2e, per_layer=per_layer,
                 limits=load_json(limits_path))
@@ -89,3 +102,9 @@ def plugin(folder: str, name: str, root: Path = BENCH):
     sys.modules[key] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def family(cfg: dict):
+    """The module of the configuration's family,
+    ``families/<family>.py``."""
+    return plugin("families", cfg["family"])

@@ -1,19 +1,20 @@
-"""Actor and critic networks as functions of named parameter tensors.
+"""The plain pieces the families' networks are built from, as functions of
+named parameter tensors.
 
 Parameter names follow the published Flax tree that the program keeps
 (``fc1`` .. ``fcN``, ``out``, ``head``; ``encoder.conv1`` ..
 ``encoder.conv4``, ``encoder.proj``, ``encoder.ln``), so one dict of
-tensors describes a network for the program and for this reference.
+tensors describes a network for the program and for this reference. A
+family (``families/<family>.py``) puts them together.
 
-  - MLP actor: ReLU hidden layers, tanh output.
-  - Critic: ``fc1`` on the state, the action joined after it, the other
-    hidden layers with ReLU, a linear head of ``n_atoms`` logits whose
-    softmax is the value distribution.
+  - MLP policy: ReLU hidden layers, tanh output.
+  - Critic torso: ``fc1`` on the state, the action joined after it, the
+    other hidden layers with ReLU, a linear head of ``n_atoms`` logits
+    whose softmax is the value distribution.
   - Pixel encoder (DrQ-v2): frames [B, H, W, C] uint8 scaled by 1/255,
-    four 3x3 convolutions (the first at stride 2) with XLA's ``SAME``
-    padding (the odd pixel after) and ReLU, flattened in (h, w, c) order,
-    a linear projection, LayerNorm (epsilon 1e-6) and tanh. The pixel
-    actor and critic put their MLP (``actor.*``, ``critic.*``) on top.
+    3x3 convolutions (the first at stride 2) with XLA's ``SAME`` padding
+    (the odd pixel after) and ReLU, flattened in (h, w, c) order, a
+    linear projection, LayerNorm (epsilon 1e-6) and tanh.
 """
 
 from __future__ import annotations
@@ -26,42 +27,35 @@ import torch.nn.functional as F
 LN_EPS = 1e-6
 
 
-def layout(cfg: dict) -> dict[str, dict[str, tuple]]:
-    """``{"actor": {name: shape}, "critic": {name: shape}}`` of a
-    configuration (the harness's config file)."""
-    hidden = list(cfg["hidden"])
-    act = int(cfg["act_dim"])
+def mlp_layout(prefix: str, width_in: int, hidden, out_name: str,
+               out_width: int, action: int = 0) -> dict[str, tuple]:
+    """``{name: shape}`` of an MLP over ``width_in`` features; with
+    ``action`` > 0 the critic torso, whose action joins after ``fc1``."""
+    hidden = list(hidden)
+    out = {}
+    widths_in = [width_in, hidden[0] + action, *hidden[1:-1]]
+    for i, (w_in, h) in enumerate(zip(widths_in, hidden)):
+        out[f"{prefix}fc{i + 1}.weight"] = (h, w_in)
+        out[f"{prefix}fc{i + 1}.bias"] = (h,)
+    out[f"{prefix}{out_name}.weight"] = (out_width, hidden[-1])
+    out[f"{prefix}{out_name}.bias"] = (out_width,)
+    return out
 
-    def mlp(prefix, width_in, out_name, out_width, critic):
-        out = {}
-        widths_in = ([width_in, hidden[0] + act, *hidden[1:-1]] if critic
-                     else [width_in, *hidden[:-1]])
-        for i, (w_in, h) in enumerate(zip(widths_in, hidden)):
-            out[f"{prefix}fc{i + 1}.weight"] = (h, w_in)
-            out[f"{prefix}fc{i + 1}.bias"] = (h,)
-        out[f"{prefix}{out_name}.weight"] = (out_width, hidden[-1])
-        out[f"{prefix}{out_name}.bias"] = (out_width,)
-        return out
 
-    if not cfg.get("pixels"):
-        obs = int(cfg["obs_dim"])
-        return {"actor": mlp("", obs, "out", act, False),
-                "critic": mlp("", obs, "head", int(cfg["n_atoms"]), True)}
+def encoder_layout(obs_shape, channels, latent: int) -> dict[str, tuple]:
+    """``{name: shape}`` of the ``SAME``-padded pixel encoder."""
     enc = {}
-    h, w, c = cfg["obs_shape"]
-    for i, ch in enumerate(cfg["encoder_channels"]):
+    h, w, c = obs_shape
+    for i, ch in enumerate(channels):
         stride = 2 if i == 0 else 1
         enc[f"encoder.conv{i + 1}.weight"] = (ch, c, 3, 3)
         enc[f"encoder.conv{i + 1}.bias"] = (ch,)
         h, w, c = -(-h // stride), -(-w // stride), ch
-    latent = int(cfg["latent_dim"])
     enc["encoder.proj.weight"] = (latent, h * w * c)
     enc["encoder.proj.bias"] = (latent,)
     enc["encoder.ln.weight"] = (latent,)
     enc["encoder.ln.bias"] = (latent,)
-    return {"actor": {**enc, **mlp("actor.", latent, "out", act, False)},
-            "critic": {**enc, **mlp("critic.", latent, "head",
-                                    int(cfg["n_atoms"]), True)}}
+    return enc
 
 
 def init_scale(name: str, shape: tuple, cfg: dict, net: str) -> tuple:
@@ -78,14 +72,30 @@ def init_scale(name: str, shape: tuple, cfg: dict, net: str) -> tuple:
     return "normal", 1.0 / math.sqrt(math.prod(shape[1:]))
 
 
-def _mlp(p: dict, prefix: str, x: torch.Tensor, n_hidden: int,
-         action: torch.Tensor | None = None) -> torch.Tensor:
+def mlp(p: dict, prefix: str, x: torch.Tensor, n_hidden: int,
+        action: torch.Tensor | None = None) -> torch.Tensor:
     for i in range(n_hidden):
         name = f"{prefix}fc{i + 1}"
         x = torch.relu(F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"]))
         if i == 0 and action is not None:
             x = torch.cat([x, action], dim=-1)
     return x
+
+
+def policy(p: dict, prefix: str, x: torch.Tensor,
+           n_hidden: int) -> torch.Tensor:
+    """pi(x) in (-1, 1)^act_dim."""
+    x = mlp(p, prefix, x, n_hidden)
+    return torch.tanh(F.linear(x, p[f"{prefix}out.weight"],
+                               p[f"{prefix}out.bias"]))
+
+
+def critic_probs(p: dict, prefix: str, x: torch.Tensor,
+                 action: torch.Tensor, n_hidden: int) -> torch.Tensor:
+    """Z(x, a) as [B, n_atoms] probabilities."""
+    x = mlp(p, prefix, x, n_hidden, action)
+    logits = F.linear(x, p[f"{prefix}head.weight"], p[f"{prefix}head.bias"])
+    return torch.softmax(logits, dim=-1)
 
 
 def _same_pads(size: int, stride: int) -> tuple[int, int]:
@@ -119,29 +129,3 @@ def encoder(p: dict, frames: torch.Tensor, channels) -> torch.Tensor:
     x = F.layer_norm(x, (x.shape[-1],), p["encoder.ln.weight"],
                      p["encoder.ln.bias"], LN_EPS)
     return torch.tanh(x)
-
-
-def actor(p: dict, obs: torch.Tensor, cfg: dict) -> torch.Tensor:
-    """pi(s) in (-1, 1)^act_dim. The pixel actor's encoder output is
-    detached: with the encoder shared, the critic loss alone trains it."""
-    n = len(cfg["hidden"])
-    prefix = ""
-    if cfg.get("pixels"):
-        obs = encoder(p, obs, cfg["encoder_channels"]).detach()
-        prefix = "actor."
-    x = _mlp(p, prefix, obs, n)
-    return torch.tanh(F.linear(x, p[f"{prefix}out.weight"],
-                               p[f"{prefix}out.bias"]))
-
-
-def critic_probs(p: dict, obs: torch.Tensor, action: torch.Tensor,
-                 cfg: dict) -> torch.Tensor:
-    """Z(s, a) as [B, n_atoms] probabilities."""
-    n = len(cfg["hidden"])
-    prefix = ""
-    if cfg.get("pixels"):
-        obs = encoder(p, obs, cfg["encoder_channels"])
-        prefix = "critic."
-    x = _mlp(p, prefix, obs, n, action)
-    logits = F.linear(x, p[f"{prefix}head.weight"], p[f"{prefix}head.bias"])
-    return torch.softmax(logits, dim=-1)

@@ -14,6 +14,7 @@ and the numbers of ``harness/check.py`` decide ``correct``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import os
 
@@ -41,7 +42,8 @@ def tf32(on: bool):
 
 def draws(cell, seed: int, device, steps: int) -> dict:
     """The random draws the program's first steps took: the loop's PER
-    uniforms or uniform slots per rank, the state's DrQ offsets."""
+    uniforms or uniform slots per rank, and the family's own from the
+    state's generator."""
     cfg, traffic = cell.config, cell.traffic
     ranks, b = int(traffic.get("ranks", 1)), int(traffic["batch_size"])
     gens = [inputs.generator(device, seed, "loop", r) for r in range(ranks)]
@@ -54,26 +56,27 @@ def draws(cell, seed: int, device, steps: int) -> dict:
         out["slots"] = [[torch.randint(0, size, (b,), generator=g,
                                        dtype=torch.int32, device=device)
                          for g in gens] for _ in range(steps)]
-    if cfg.get("pixels") and cfg.get("augment") == "shift":
-        g = inputs.generator(device, seed, "state")
-        hi = 2 * int(cfg["augment_pad"]) + 1
-        out["shift"] = [tuple(torch.randint(0, hi, (ranks * b, 2),
-                                            generator=g, device=device)
-                              for _ in range(2)) for _ in range(steps)]
+    out.update(spec.family(cfg).draws(
+        cfg, traffic, inputs.generator(device, seed, "state"), device, steps))
     return out
 
 
 def reference(cell, seed: int, device, slots=None,
-              steps: int = learn.CHECK_STEPS, lower: bool = False) -> dict:
+              steps: int = learn.CHECK_STEPS, lower: bool = False,
+              learner=None) -> dict:
     """The reference's first ``steps`` grad steps of ``cell`` for
     ``seed``, judging and following the program's ``slots`` (in TF32
-    when ``lower``: the control)."""
+    when ``lower``: the control), with the family's grad step or the
+    ``learner`` class given in its place."""
     cfg, traffic = cell.config, cell.traffic
+    family = spec.family(cfg)
     with tf32(lower):
+        params = inputs.make_params(cfg, seed, device)
         return follow(
-            cfg, traffic, inputs.make_params(cfg, seed, device),
+            cfg, traffic, (learner or family.Learner)(cfg, params), params,
             lambda r, idx: inputs.rows_at(cfg, traffic, seed, r, idx,
                                           device),
+            functools.partial(family.apply_draws, cfg),
             draws(cell, seed, device, steps), steps, slots)
 
 

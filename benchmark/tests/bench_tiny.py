@@ -25,19 +25,13 @@ def staged(config: str, traffic: str, name: str = "staged"):
 
 
 def tiny(name_or_cell):
+    """The cell with its family's tiny shrink (``tiny`` of
+    ``families/<family>.py``) and at most two ranks."""
     cell = (spec.cell(name_or_cell) if isinstance(name_or_cell, str)
             else name_or_cell)
     cfg, tr = dict(cell.config), dict(cell.traffic)
-    ranks = int(tr.get("ranks", 1))
-    if cfg.get("pixels"):
-        cfg.update(obs_shape=[16, 16, 3], encoder_channels=[4, 4, 4, 4],
-                   hidden=[16] * len(cfg["hidden"]), memory_size=300)
-        tr.update(batch_size=8, k=4, fill_rows=300, fill_block=64)
-    else:
-        cfg.update(obs_dim=12, act_dim=3, hidden=[16, 16, 16],
-                   memory_size=1000 * min(ranks, 2))
-        tr.update(batch_size=32, k=4, fill_rows=1000, fill_block=256)
-    if ranks > 1:
+    spec.family(cfg).tiny(cfg, tr)
+    if int(tr.get("ranks", 1)) > 1:
         tr["ranks"] = 2
     cell.config, cell.traffic = cfg, tr
     return cell

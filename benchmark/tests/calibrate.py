@@ -21,8 +21,8 @@ prints one JSON line per reading with the numbers of
     slot its sampler draws moved to the next leaf.
 
 A state left unchanged reads 1 on ``grad1_gap``, ``change3_gap``,
-``target3_gap`` and ``moments3_gap`` by their definition and needs no
-run.
+``target3_gap``, ``moments3_gap`` and their median gaps by their
+definition and needs no run.
 """
 
 from __future__ import annotations
@@ -42,14 +42,10 @@ for p in (str(BENCH.parent), str(BENCH)):
 import torch  # noqa: E402
 
 from harness import check, learn, spec  # noqa: E402
-from reference import learner as ref_learner  # noqa: E402
 from reference import per as ref_per  # noqa: E402
 
 
-Plain = ref_learner.Learner
-
-
-class HalfBatch(Plain):
+class HalfBatch:
     """The critic loss over the first half of each rank's rows alone
     (its TD errors, for the write-back, over all of them)."""
 
@@ -62,7 +58,7 @@ class HalfBatch(Plain):
         return loss, td
 
 
-class NoExchange(Plain):
+class NoExchange:
     """Every rank steps on its own rows' gradients: one learner per rank,
     the losses still the ranks' mean, rank 0's state reported."""
 
@@ -75,38 +71,53 @@ class NoExchange(Plain):
 
     def step(self, rows):
         if self.ranks is None:
-            self.ranks = [Plain(self.cfg, self.p)
-                          for _ in rows]
+            self.ranks = [self.plain(self.cfg, self.p) for _ in rows]
         res = [lr.step([r]) for lr, r in zip(self.ranks, rows)]
         zero = self.ranks[0]
         self.p, self.target, self.opt = zero.p, zero.target, zero.opt
         self.grads = zero.grads
-        return {"critic_loss": sum(r["critic_loss"] for r in res) / len(res),
-                "actor_loss": sum(r["actor_loss"] for r in res) / len(res),
+        return {"losses": {name: sum(r["losses"][name] for r in res)
+                           / len(res) for name in res[0]["losses"]},
                 "td": [r["td"][0] for r in res]}
 
     def replicas(self) -> list:
         return [torch.cat([lr.p[n][k].reshape(-1).cpu()
-                           for n in ("actor", "critic") for k in lr.p[n]])
+                           for n in lr.p for k in lr.p[n]])
                 for lr in self.ranks]
 
 
-class SlotShift(Plain):
+class SlotShift:
     """A sampler whose every slot is its neighbour's: the reference's
-    descent moved one leaf on."""
+    descent moved one leaf on (``planted``)."""
+
+
+def readings(cell) -> list:
+    """``(kind, learner class, lower)`` of the cell's control and each
+    fault it can have, over the family's grad step (``Learner`` of
+    ``families/<family>.py``)."""
+    plain = spec.family(cell.config).Learner
+
+    def over(fault):
+        return type(fault.__name__, (fault, plain), {"plain": plain})
+
+    kinds = [("control", plain, True), ("half_batch", over(HalfBatch), False)]
+    if int(cell.traffic.get("ranks", 1)) > 1:
+        kinds.append(("no_exchange", over(NoExchange), False))
+    if cell.traffic["prioritized"]:
+        kinds.append(("slot_shift", over(SlotShift), False))
+    return kinds
 
 
 @contextlib.contextmanager
 def planted(cls):
-    saved = ref_learner.Learner, ref_per.Trees.descend
-    ref_learner.Learner = cls
-    if cls is SlotShift:
+    saved = ref_per.Trees.descend
+    if issubclass(cls, SlotShift):
         ref_per.Trees.descend = lambda self, mass: torch.clamp(
-            saved[1](self, mass) + 1, max=self.size - 1)
+            saved(self, mass) + 1, max=self.size - 1)
     try:
         yield
     finally:
-        ref_learner.Learner, ref_per.Trees.descend = saved
+        ref_per.Trees.descend = saved
 
 
 def program_readings(cell, seeds, device):
@@ -165,18 +176,13 @@ def main(argv=None) -> int:
                              if ranks > 1 else None)
         print(json.dumps({"kind": "program", "seed": seed, **nums,
                           "worst": check.worst_leaves(p, ref)}), flush=True)
-    kinds = [("control", Plain, True),
-             ("half_batch", HalfBatch, False)]
-    if ranks > 1:
-        kinds.append(("no_exchange", NoExchange, False))
-    if per:
-        kinds.append(("slot_shift", SlotShift, False))
     for seed in [int(s) for s in args.control_seeds.split(",") if s]:
-        for kind, cls, lower in kinds:
+        for kind, cls, lower in readings(cell):
             with planted(cls):
-                fake = runner.reference(cell, seed, device, lower=lower)
-            replicas = (NoExchange.last.replicas() if cls is NoExchange
-                        else None)
+                fake = runner.reference(cell, seed, device, lower=lower,
+                                        learner=cls)
+            replicas = (NoExchange.last.replicas()
+                        if issubclass(cls, NoExchange) else None)
             ref = runner.reference(cell, seed, device, fake["idx"])
             nums = check.numbers(fake, ref, per, replicas)
             print(json.dumps({"kind": kind, "seed": seed, **nums,

@@ -38,7 +38,8 @@ def run(name: str, prepare: str | None = None) -> bool:
 
 
 def unchanged() -> None:
-    """Every update leaves the state as it found it."""
+    """Every update leaves the state as it found it: every network and
+    optimizer of the state restored after the step."""
     import copy
 
     from d4pg_tpu_torch.learner import fused
@@ -46,17 +47,19 @@ def unchanged() -> None:
     real = fused.update_step
 
     def step(config, state, batch, w=None, draws=None, grad_reduce=None):
-        nets = ("actor", "critic", "target_actor", "target_critic")
-        saved = {n: copy.deepcopy(getattr(state, n).state_dict())
-                 for n in nets}
-        opts = {n: copy.deepcopy(getattr(state, n).state_dict())
-                for n in ("actor_opt", "critic_opt")}
+        nets = {n: v for n, v in vars(state).items()
+                if isinstance(v, torch.nn.Module)}
+        opts = {n: v for n, v in vars(state).items()
+                if isinstance(v, torch.optim.Optimizer)}
+        saved = {n: copy.deepcopy(v.state_dict()) for n, v in nets.items()}
+        saved_opts = {n: copy.deepcopy(v.state_dict())
+                      for n, v in opts.items()}
         metrics = real(config, state, batch, w, draws, grad_reduce)
-        for n in nets:
-            getattr(state, n).load_state_dict(saved[n])
-        for n, sd in opts.items():
-            getattr(state, n).load_state_dict(sd)
-            getattr(state, n).state.clear()
+        for n, module in nets.items():
+            module.load_state_dict(saved[n])
+        for n, opt in opts.items():
+            opt.load_state_dict(saved_opts[n])
+            opt.state.clear()
         state.step -= 1
         return metrics
 

@@ -7,9 +7,8 @@ from __future__ import annotations
 import torch
 
 from bench_tiny import staged, tiny
-from harness import inputs, program
-from reference import learner as ref_learner
-from reference import nets, per
+from harness import inputs, program, spec
+from reference import augment, d4pg, per
 
 
 def test_projection_matches_the_ports():
@@ -25,7 +24,7 @@ def test_projection_matches_the_ports():
     d = (torch.rand(64, generator=g) > 0.2).float() * 0.97
     want = categorical_projection(CategoricalSupport(0.0, 800.0, 51), probs,
                                   r, d)
-    got = ref_learner.projection(cfg, probs, r, d)
+    got = d4pg.projection(cfg, probs, r, d)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
@@ -84,29 +83,31 @@ def test_drq_shift_matches_the_ports():
     frames = torch.randint(0, 256, (6, 12, 12, 3), generator=g,
                            dtype=torch.uint8)
     off = torch.randint(0, 9, (6, 2), generator=g)
-    assert torch.equal(ref_learner.shift(frames, 4, off),
+    assert torch.equal(augment.shift(frames, 4, off),
                        random_shift(frames, 4, offsets=off))
 
 
 def test_networks_match_the_ports_with_the_benchmarks_weights():
+    from d4pg_tpu_torch.learner.state import init_state
+
     for cell in (tiny(staged("humanoid-d4pg", "per.b32768")),
                  tiny("cheetah-pixels.per.b512")):
         cfg = cell.config
+        family = spec.family(cfg)
         params = inputs.make_params(cfg, 11, torch.device("cpu"))
-        from d4pg_tpu_torch.learner.state import init_state
-
-        state = init_state(program.d4pg_config(cfg), 0, "cpu")
-        program.load_params(state, params)
+        state = init_state(family.program_config(cfg), 0, "cpu")
+        program.load_params(family.program_nets(state), params)
+        ref = family.Learner(cfg, params)
         rows = inputs.rows_block(cfg, cell.traffic, 11, 0, 0, 8,
                                  torch.device("cpu"))
         with torch.no_grad():
             a = state.actor(rows["obs"])
-            torch.testing.assert_close(nets.actor(params["actor"],
-                                                  rows["obs"], cfg), a)
+            torch.testing.assert_close(ref.actor(params["actor"],
+                                                 rows["obs"]), a)
             q = state.critic(rows["obs"], rows["action"])
             torch.testing.assert_close(
-                nets.critic_probs(params["critic"], rows["obs"],
-                                  rows["action"], cfg), q)
+                ref.critic(params["critic"], rows["obs"], rows["action"]),
+                q)
 
 
 def test_rows_made_again_are_the_rows_handed_over():
