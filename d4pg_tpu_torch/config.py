@@ -16,6 +16,12 @@ them (``d4pg_tpu/config.py``); the port reads three of them differently:
     backend;
   - ``actor_device``: ``cpu`` acts on the host CPU, ``default`` on the
     learner's device.
+
+The port alone has CURL (Srinivas, Laskin and Abbeel 2020):
+``--contrastive curl`` with ``--crop_size``, ``--encoder_tau`` and
+``--lr_encoder`` (see ``learner/state.D4PGConfig``, which derives CURL's
+crops and encoder from ``contrastive``). The README gives the flag line
+of CURL's cheetah-run sizes.
 """
 
 from __future__ import annotations
@@ -43,6 +49,10 @@ class ExperimentConfig:
     augment: str = "none"
     augment_pad: int = 4
     share_encoder: bool = False
+    crop_size: int = 84
+    contrastive: str = "none"
+    encoder_tau: float = 0.05
+    lr_encoder: float = 1e-3
     reward_scale: float = 1.0
     memory_size: int = 1_000_000
     batch_size: int = 64
@@ -211,6 +221,10 @@ class ExperimentConfig:
             augment=self.augment,
             augment_pad=self.augment_pad,
             share_encoder=self.share_encoder,
+            crop_size=self.crop_size,
+            contrastive=self.contrastive,
+            encoder_tau=self.encoder_tau,
+            lr_encoder=self.lr_encoder,
             encoder_channels=(self.encoder_width,) * 4,
             lr_actor=self.lr_actor,
             lr_critic=self.lr_critic,
@@ -257,6 +271,26 @@ def build_parser() -> argparse.ArgumentParser:
     _add_bool_flag(p, "share_encoder", d.share_encoder,
                    "critic-trained shared conv encoder (SAC-AE/DrQ; "
                    "pixel envs)")
+    p.add_argument("--contrastive", choices=("none", "curl"),
+                   default=d.contrastive,
+                   help="'curl': CURL's contrastive step (bilinear "
+                        "InfoNCE against the momentum key encoder) with "
+                        "its random crops, unpadded encoder without tanh "
+                        "and the actor's own trunk; one learner, no "
+                        "--augment")
+    p.add_argument("--crop_size", type=int, default=d.crop_size,
+                   help="--contrastive curl: the encoders' square input, "
+                        "cut from the stored --pixel_size frames (CURL: "
+                        "84 of 100)")
+    p.add_argument("--encoder_tau", type=float, default=d.encoder_tau,
+                   help="--contrastive curl: soft-update rate of the "
+                        "target encoders (the key encoder)")
+    p.add_argument("--lr_encoder", type=float, default=d.lr_encoder,
+                   help="--contrastive curl: lr of the encoder's and the "
+                        "contrastive head's Adams")
+    p.add_argument("--hidden", type=int, nargs="+", default=d.hidden,
+                   help="the actor's and critic's hidden widths (port "
+                        "only; CURL's cheetah-run: 1024 1024)")
     p.add_argument("--rmsize", type=int, default=d.memory_size, dest="memory_size")
     p.add_argument("--bsize", type=int, default=d.batch_size, dest="batch_size")
     p.add_argument("--warmup", type=int, default=d.warmup)
@@ -429,4 +463,5 @@ def parse_args(argv=None) -> ExperimentConfig:
     ns["normalize_obs"] = bool(ns["normalize_obs"])
     ns["sample_on_ingest"] = bool(ns["sample_on_ingest"])
     ns["autoscale"] = bool(ns["autoscale"])
+    ns["hidden"] = tuple(ns["hidden"])
     return ExperimentConfig(**ns)

@@ -3,12 +3,15 @@
 Counterpart of ``d4pg_tpu/core/losses.py``: the distributional critic
 loss is the cross-entropy between the projected target and the predicted
 distribution, IS-weighted for PER; the policy loss is the negative
-expected Q through the support bin centers.
+expected Q through the support bin centers. CURL's contrastive loss is
+the cross-entropy of each row of the [B, B] bilinear logits against its
+own column (``models/contrastive.py``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from d4pg_tpu_torch.core.distribution import CategoricalSupport
 
@@ -42,3 +45,11 @@ def expected_q(support: CategoricalSupport,
                probs: torch.Tensor) -> torch.Tensor:
     """E[Z] via the support bin centers: [..., A] -> [...]."""
     return torch.sum(probs * support.atoms(probs.device), dim=-1)
+
+
+def contrastive_loss(logits: torch.Tensor) -> torch.Tensor:
+    """InfoNCE over [B, B] ``logits``: the mean cross-entropy of row i
+    against label i (``curl_sac.py``'s ``nn.CrossEntropyLoss`` against
+    ``arange(B)``)."""
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return F.cross_entropy(logits, labels)

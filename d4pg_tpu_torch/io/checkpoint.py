@@ -9,7 +9,10 @@ the critic and both targets, both Adam states, the step (it also drives
 the PER beta schedule), the state's own generator (the DrQ offsets and
 MoG draws; the reference keeps a PRNG key in its state), the learner's
 ``torch.Generator`` state (it draws the PER uniforms) and the caller's
-``extra`` (the driver's ``env_steps``).
+``extra`` (the driver's ``env_steps``). A CURL state adds its ``curl``
+module (``W``, and the critic's encoder again) and its two Adams,
+``encoder_opt`` and ``curl_opt``; a CURL checkpoint restores into a CURL
+template only, and a plain one into a plain one.
 
 Layout: ``<directory>/<step>.pt``, written to a temporary name and
 renamed, so a crash mid-save leaves the previous checkpoint whole; the
@@ -42,6 +45,13 @@ from d4pg_tpu_torch.learner.state import D4PGState
 
 _MODULES = ("actor", "critic", "target_actor", "target_critic")
 _OPTIMIZERS = ("actor_opt", "critic_opt")
+_CURL = ("curl", "encoder_opt", "curl_opt")
+
+
+def _entries(state: D4PGState) -> tuple[str, ...]:
+    """The state's modules and optimizers a checkpoint holds."""
+    return _MODULES + _OPTIMIZERS + (_CURL if state.curl is not None
+                                     else ())
 
 
 class SnapshotCorruptError(RuntimeError):
@@ -136,7 +146,7 @@ class CheckpointManager:
              generator: torch.Generator | None = None) -> None:
         """Checkpoint at the state's own learner step."""
         payload = {name: getattr(state, name).state_dict()
-                   for name in _MODULES + _OPTIMIZERS}
+                   for name in _entries(state)}
         payload["step"] = int(state.step)
         payload["state_generator"] = state.generator.get_state()
         payload["generator"] = (None if generator is None
@@ -168,7 +178,13 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint under {self._dir}")
         payload = torch.load(self._path(step), map_location=template.device,
                              weights_only=True)
-        for name in _MODULES + _OPTIMIZERS:
+        if ("curl" in payload) != (template.curl is not None):
+            raise ValueError(
+                f"checkpoint {self._path(step)} is "
+                f"{'' if 'curl' in payload else 'not '}a CURL state and the "
+                f"template is {'' if template.curl is not None else 'not '}"
+                "one: build the template with the run's --contrastive")
+        for name in _entries(template):
             getattr(template, name).load_state_dict(payload[name])
         template.step = int(payload["step"])
         template.targets_tied = False  # the saved targets may be untied

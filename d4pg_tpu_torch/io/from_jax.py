@@ -122,7 +122,12 @@ def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module,
 def state_from_jax(config: D4PGConfig, jax_state,
                    device: str | torch.device | None = None) -> D4PGState:
     """The port's ``D4PGState`` holding ``jax_state``'s weights, Adam
-    moments and step, on ``device`` (default ``cuda``)."""
+    moments and step, on ``device`` (default ``cuda``). The reference has
+    no CURL path, so a CURL ``config`` is refused."""
+    if config.contrastive != "none":
+        raise ValueError(
+            f"--contrastive {config.contrastive} has no counterpart in the "
+            "JAX package: there is no reference state to load")
     state = init_state(config, 0, device)
     for module, params in (
             (state.actor, jax_state.actor_params),

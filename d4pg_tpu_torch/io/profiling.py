@@ -472,7 +472,7 @@ SPAN_NAMES = (
     "learner.chunk", "learner.step", "sampler.draw", "sampler.weights",
     "replay.gather", "update", "update.augment", "update.target",
     "update.critic", "update.actor", "update.soft_targets",
-    "sampler.writeback", "model.encoder", "kernel.descent",
+    "update.contrastive", "sampler.writeback", "model.encoder", "kernel.descent",
     "kernel.projection_ce.fwd", "kernel.projection_ce.bwd",
     "kernel.projection", "collective.grad_reduce", "collective.is_min")
 # the span whose starts calibrate the device's clock (``SpanTable.markers``)

@@ -74,7 +74,8 @@ def fused_chunk_step(
     ``storage`` is the ring's [capacity + shadow, ...] tensors and
     ``size`` the live row count. Returns the new trees (``None`` for
     uniform replay) and the per-step metrics stacked along K
-    (``td_error`` and ``idx`` [K, B])."""
+    (``td_error`` and ``idx`` [K, B]; CURL's ``curl_loss`` beside the
+    losses)."""
     if trees is None and u is not None:
         raise ValueError("u (PER uniforms) does not apply to uniform "
                          "replay: inject slots")
@@ -87,7 +88,8 @@ def fused_chunk_step(
     if injected is not None and tuple(injected.shape) != (k, batch_size):
         raise ValueError(f"{what} must be [{k}, {batch_size}], got "
                          f"{tuple(injected.shape)}")
-    out = {name: [] for name in _METRICS}
+    names = _metric_names(config)
+    out = {name: [] for name in names}
     for t in range(k):
         with span("learner.step").at(state.step):
             w = None
@@ -115,9 +117,16 @@ def fused_chunk_step(
                     trees = dper.update_from_td(trees, idx,
                                                 metrics["td_error"], alpha)
             metrics["idx"] = idx
-            for name in _METRICS:
+            for name in names:
                 out[name].append(metrics[name])
     return trees, {name: torch.stack(v) for name, v in out.items()}
+
+
+def _metric_names(config: D4PGConfig) -> tuple[str, ...]:
+    """The per-step metrics a chunk stacks: CURL's loss besides."""
+    if config.contrastive == "curl":
+        return _METRICS + ("curl_loss",)
+    return _METRICS
 
 
 def make_fused_chunk(

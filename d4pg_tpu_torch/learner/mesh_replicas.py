@@ -80,7 +80,11 @@ import torch
 from d4pg_tpu_torch.learner.aggregator import tree_map
 from d4pg_tpu_torch.learner.fused import make_fused_chunk
 from d4pg_tpu_torch.learner.replica import _MODULES, PARAM_FIELDS
-from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
+from d4pg_tpu_torch.learner.state import (
+    D4PGConfig,
+    D4PGState,
+    refuse_contrastive,
+)
 from d4pg_tpu_torch.learner.update import multi_update_step
 from d4pg_tpu_torch.parallel.mesh import replica_mesh
 from d4pg_tpu_torch.replay import device_per as dper
@@ -167,6 +171,7 @@ class MeshReplicaGroup:
         beta_steps: int = 100_000,
         devices=None,
     ):
+        refuse_contrastive(config, "the replica group")
         self.n = len(states)
         if self.n < 1:
             raise ValueError("need at least one replica state")

@@ -72,7 +72,11 @@ import torch
 from d4pg_tpu_torch.core.locking import TieredLock
 from d4pg_tpu_torch.distributed.weights import copy_params
 from d4pg_tpu_torch.learner.loop import DealtLoop, FusedLoop
-from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
+from d4pg_tpu_torch.learner.state import (
+    D4PGConfig,
+    D4PGState,
+    refuse_contrastive,
+)
 from d4pg_tpu_torch.learner.update import multi_update_step
 from d4pg_tpu_torch.replay.schedule import SharedBetaSchedule
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
@@ -165,6 +169,7 @@ class LearnerReplica:
         generator: torch.Generator | None = None,
         updates=None,
     ):
+        refuse_contrastive(config, "a learner replica")
         if buffer is None and service is None:
             raise ValueError(
                 "need buffer= (fused mode, sole consumer; service= "

@@ -21,12 +21,13 @@ import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.core.distribution import CategoricalSupport
-from d4pg_tpu_torch.core.updates import tie_encoder
+from d4pg_tpu_torch.core.updates import tie_convs, tie_encoder
 from d4pg_tpu_torch.models.actor import Actor
 from d4pg_tpu_torch.models.critic import (
     CategoricalCritic,
     MixtureOfGaussianCritic,
 )
+from d4pg_tpu_torch.models.contrastive import CURL
 from d4pg_tpu_torch.models.encoder import PixelActor, PixelCategoricalCritic
 from d4pg_tpu_torch.models.layers import COMPUTE_DTYPES
 
@@ -54,7 +55,18 @@ class D4PGConfig:
     and the kernels' operands stay float32. ``pixels`` selects the conv
     encoder over [H, W, C] frames (``obs_shape``, ``encoder_channels``),
     with the DrQ shift (``augment='shift'``, ``augment_pad``) and the
-    shared encoder (``share_encoder``) as options."""
+    shared encoder (``share_encoder``) as options.
+
+    CURL (``contrastive='curl'``) brings, with no option of its own:
+    three random ``crop_size`` crops of the stored ``obs_shape`` frames
+    a step in place of ``augment`` (the actor center-crops when it
+    acts), CURL's encoder (unpadded convolutions, no tanh after the
+    LayerNorm), the actor's own trunk over the critic's convolutions, the target critic's
+    encoder as the momentum key encoder (``encoder_tau`` on every
+    ``encoder.`` leaf, ``tau`` on the heads) and the contrastive step
+    with two Adams at ``lr_encoder`` (``learner/update.py``). It runs on
+    one learner: the data-parallel learner, the model axis, the replica
+    group and MoG refuse it."""
 
     obs_dim: int
     act_dim: int
@@ -80,6 +92,10 @@ class D4PGConfig:
     augment: str = "none"  # 'none' | 'shift'
     augment_pad: int = 4
     share_encoder: bool = False
+    crop_size: int = 84
+    contrastive: str = "none"  # 'none' | 'curl'
+    encoder_tau: float = 0.05
+    lr_encoder: float = 1e-3
 
     def __post_init__(self):
         object.__setattr__(self, "hidden", tuple(self.hidden))
@@ -94,6 +110,8 @@ class D4PGConfig:
             raise ValueError(f"unknown projection {self.projection!r}")
         if self.augment not in ("none", "shift"):
             raise ValueError(f"unknown augment {self.augment!r}")
+        if self.contrastive not in ("none", "curl"):
+            raise ValueError(f"unknown contrastive {self.contrastive!r}")
         if self.augment != "none" and not self.pixels:
             raise ValueError(
                 "--augment is an image augmentation; it requires the "
@@ -118,6 +136,27 @@ class D4PGConfig:
         if self.pixels and len(self.obs_shape) != 3:
             raise ValueError(f"pixels=True needs obs_shape [H, W, C], got "
                              f"{self.obs_shape}")
+        if self.contrastive == "curl":
+            if self.critic_family != "categorical":
+                raise ValueError(
+                    "--contrastive curl trains the categorical critic's "
+                    "pixel encoder; --critic_family mog has none")
+            if not self.pixels:
+                raise ValueError(
+                    "--contrastive curl contrasts crops of frames; it "
+                    "requires the pixel (conv-encoder) observation path")
+            if self.augment != "none":
+                raise ValueError(
+                    "--contrastive curl augments with its own random "
+                    "crops; drop --augment")
+            if not 0 < self.crop_size <= min(self.obs_shape[:2]):
+                raise ValueError(
+                    f"--crop_size {self.crop_size} does not fit the "
+                    f"stored {self.obs_shape[:2]} frames")
+            if self.share_encoder:
+                raise ValueError(
+                    "--contrastive curl ties the convolutions alone (the "
+                    "actor keeps its own trunk); drop --share_encoder")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -127,6 +166,19 @@ class D4PGConfig:
     @property
     def support(self) -> CategoricalSupport:
         return CategoricalSupport(self.v_min, self.v_max, self.n_atoms)
+
+    @property
+    def encoder_shape(self) -> tuple:
+        """The [H, W, C] frames the encoders see: CURL's crops, else the
+        stored frames."""
+        if self.contrastive == "curl":
+            return (self.crop_size, self.crop_size, self.obs_shape[-1])
+        return tuple(self.obs_shape)
+
+    def _encoder_kwargs(self) -> dict:
+        # CURL's encoder pads nothing and ends at the LayerNorm
+        curl = self.contrastive == "curl"
+        return dict(padding="valid" if curl else "same", tanh=not curl)
 
     @property
     def obs_spec(self) -> int | tuple:
@@ -141,7 +193,11 @@ class D4PGConfig:
                               channels=self.encoder_channels,
                               hidden=self.hidden,
                               detach_encoder=self.share_encoder,
-                              generator=generator, dtype=self.dtype)
+                              generator=generator, dtype=self.dtype,
+                              detach_convs=self.contrastive == "curl",
+                              crop=(self.crop_size
+                                    if self.contrastive == "curl" else None),
+                              **self._encoder_kwargs())
         return Actor(self.obs_dim, self.act_dim, self.hidden,
                      generator=generator, dtype=self.dtype)
 
@@ -152,9 +208,10 @@ class D4PGConfig:
                 generator=generator, dtype=self.dtype)
         if self.pixels:
             return PixelCategoricalCritic(
-                self.obs_shape, self.act_dim, self.n_atoms,
+                self.encoder_shape, self.act_dim, self.n_atoms,
                 channels=self.encoder_channels, hidden=self.hidden,
-                generator=generator, dtype=self.dtype)
+                generator=generator, dtype=self.dtype,
+                **self._encoder_kwargs())
         return CategoricalCritic(self.obs_dim, self.act_dim, self.n_atoms,
                                  self.hidden, generator=generator,
                                  dtype=self.dtype)
@@ -183,7 +240,14 @@ class D4PGState:
     replicas' merge), so the first step after ``share_encoder`` is turned
     on over an unshared state runs both target encoders, as the
     reference does. ``parallel/data_parallel.replicate_state`` gives
-    every rank rank 0's."""
+    every rank rank 0's.
+
+    CURL (``contrastive='curl'``) adds ``curl`` (``models/contrastive.
+    CURL``: ``W`` and the critic's encoder), ``encoder_opt`` (CURL's
+    ``encoder_optimizer``, over the critic's encoder) and ``curl_opt``
+    (its ``cpc_optimizer``, over ``curl``); ``None`` otherwise. Its
+    target convolutions are tied from ``init_state`` on and after every
+    soft update, so its target step always runs one conv map."""
 
     actor: torch.nn.Module
     critic: torch.nn.Module
@@ -194,10 +258,25 @@ class D4PGState:
     step: int = 0
     generator: torch.Generator | None = None
     targets_tied: bool = False
+    curl: CURL | None = None
+    encoder_opt: torch.optim.Adam | None = None
+    curl_opt: torch.optim.Adam | None = None
 
     @property
     def device(self) -> torch.device:
         return next(self.actor.parameters()).device
+
+
+def refuse_contrastive(config, what: str) -> None:
+    """Raise where ``what`` (the data-parallel learner, the model axis,
+    the replica group) would take a CURL ``config`` (a ``D4PGConfig`` or
+    the driver's ``ExperimentConfig``): CURL's state and step live on one
+    learner."""
+    if config.contrastive != "none":
+        raise ValueError(
+            f"--contrastive {config.contrastive} runs on one learner: "
+            f"{what} carries neither CURL's W, encoder_opt and curl_opt "
+            "nor its contrastive step")
 
 
 # the state's stream is seeded apart from a driver's PER stream of the
@@ -210,14 +289,24 @@ def init_state(config: D4PGConfig, seed: int = 0,
     """Fresh networks (drawn on the CPU from ``seed``, then moved, so a seed
     gives the same weights on every device), targets as hard copies, Adam
     states and the state's generator. With ``share_encoder`` the actor's
-    encoder is the critic's from step 0, targets included. ``device``
-    defaults to ``cuda`` and raises without a card."""
+    encoder is the critic's from step 0, targets included; with CURL its
+    convolutions are, and ``W`` is drawn last. ``device`` defaults to
+    ``cuda`` and raises without a card."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     actor = config.build_actor(gen).to(dev)
     critic = config.build_critic(gen).to(dev)
     if config.share_encoder:
         tie_encoder(actor, critic)
+    curl = {}
+    if config.contrastive == "curl":
+        tie_convs(actor, critic)
+        module = CURL(critic.encoder, critic.encoder.proj.out_features,
+                      gen).to(dev)
+        curl = dict(curl=module,
+                    encoder_opt=config.optimizer(critic.encoder,
+                                                 config.lr_encoder),
+                    curl_opt=config.optimizer(module, config.lr_encoder))
     return D4PGState(
         actor=actor,
         critic=critic,
@@ -228,4 +317,5 @@ def init_state(config: D4PGConfig, seed: int = 0,
         generator=torch.Generator(device=dev).manual_seed(
             int(seed) + _STATE_STREAM),
         targets_tied=config.share_encoder,
+        **curl,
     )

@@ -36,15 +36,42 @@ Counterpart of ``d4pg_tpu/learner/update.py``. One ``update_step``:
     Adam moments would move), soft target updates (tau), the target
     actor's encoder tied to the target critic's, step counter + 1.
 
+CURL (``contrastive='curl'``, Srinivas, Laskin and Abbeel 2020,
+``curl_sac.py``'s update order) runs, in order:
+
+  1. three random crops (``ops.augment.random_crop``): ``obs`` (also the
+     anchor), ``next_obs`` and ``pos``, a second crop of the ``obs``
+     frames;
+  2. the target: one conv map of the target convolutions (tied) on
+     ``next_obs`` feeds the target actor's trunk and the target
+     critic's;
+  3. the critic step as above, then the actor's convolutions tied to
+     the stepped critic's (``core.updates.tie_convs``);
+  4. the actor step: one ``no_grad`` conv map of the stepped
+     convolutions on ``obs`` feeds the actor's own trunk (with gradient)
+     and the critic's trunk and head; Adam and the tie;
+  5. the soft updates, ``encoder_tau`` on the encoder leaves and ``tau``
+     on the heads, then the target actor's convolutions tied to the
+     target critic's;
+  6. the contrastive step: the critic's encoder on the anchor (with
+     gradient), the target critic's, the momentum key encoder, on
+     ``pos`` (under ``no_grad``), the [B, B] bilinear logits and their
+     cross-entropy (``core.losses.contrastive_loss``), its backward,
+     ``encoder_opt`` then ``curl_opt`` on the one gradient, and the tie.
+
+Five encoder forwards and two backwards a step; the anchor's forward
+sees the weights and input of step 4's conv map and is not shared.
+
 Each encoder forward a step saves this way (two a step once the targets
 are tied, one on the first step after ``share_encoder`` is turned on
-over an unshared state, none without it) adds one to
+over an unshared state, none without it; two a CURL step) adds one to
 ``update_step.encoder_reused``, reported per grad step as
-``encoder.reused`` in ``spans.summary()``.
+``encoder.reused`` in ``spans.summary()``; each contrastive step adds
+one to ``update_step.contrastive_steps`` (``contrastive.steps``).
 
-The random draws (DrQ offsets, MoG components and normals) come from
-the state's generator, or are injected as ``UpdateDraws`` (the tests
-hand both packages the same draws). The state is updated in place; the
+The random draws (DrQ offsets, CURL crops, MoG components and normals)
+come from the state's generator, or are injected as ``UpdateDraws`` (the
+tests hand both packages the same draws). The state is updated in place; the
 metrics are detached tensors. ``multi_update_step`` runs K such updates
 over stacked batches; ``act``, ``act_deterministic`` and ``act_ou``
 choose actions.
@@ -59,15 +86,16 @@ import torch
 from d4pg_tpu_torch.core import noise
 from d4pg_tpu_torch.core.distribution import categorical_projection
 from d4pg_tpu_torch.core.losses import (
+    contrastive_loss,
     cross_entropy_per_sample,
     expected_q,
     weighted_mean,
 )
 from d4pg_tpu_torch.core.mog import mog_mean, mog_target, mog_td_loss
-from d4pg_tpu_torch.core.updates import soft_update, tie_encoder
+from d4pg_tpu_torch.core.updates import soft_update, tie_convs, tie_encoder
 from d4pg_tpu_torch.io.profiling import span, spans
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
-from d4pg_tpu_torch.ops.augment import random_shift
+from d4pg_tpu_torch.ops.augment import random_crop, random_shift
 from d4pg_tpu_torch.ops.projection import projection
 from d4pg_tpu_torch.ops.projection_ce import projection_ce
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
@@ -82,6 +110,9 @@ class UpdateDraws(NamedTuple):
     next_shift: torch.Tensor | None = None  # [B, 2] of next_obs
     gumbel: torch.Tensor | None = None  # [B, S, K] MoG component draws
     normal: torch.Tensor | None = None  # [B, S] MoG standard normals
+    obs_crop: torch.Tensor | None = None  # [B, 2] crop offsets of obs
+    next_crop: torch.Tensor | None = None  # of next_obs
+    pos_crop: torch.Tensor | None = None  # of pos, CURL's second obs crop
 
     def at(self, t: int) -> "UpdateDraws":
         """Step ``t`` of stacked draws."""
@@ -99,17 +130,20 @@ def update_step(
     = None,
 ) -> dict[str, torch.Tensor]:
     """One full D4PG update of ``state`` in place. Returns scalar
-    ``critic_loss`` / ``actor_loss`` / ``q_mean`` and the per-sample
-    ``td_error`` [B] (the PER priority signal), all detached.
+    ``critic_loss`` / ``actor_loss`` / ``q_mean`` (and ``curl_loss`` with
+    CURL) and the per-sample ``td_error`` [B] (the PER priority signal),
+    all detached.
     ``grad_reduce(params)``, when given, runs between each ``backward``
     and its Adam step on that network's parameters (the data-parallel
     learner averages their gradients over ranks there,
     ``parallel/data_parallel.grad_reducer``). The update is an ``update``
     span with ``update.augment``, ``update.target``, ``update.critic``,
-    ``update.actor`` and ``update.soft_targets`` inside; each encoder tie
-    belongs to the step before it."""
+    ``update.actor``, ``update.soft_targets`` and, with CURL,
+    ``update.contrastive`` inside; each encoder tie belongs to the step
+    before it."""
     draws = UpdateDraws() if draws is None else draws
     gen = state.generator
+    curl = config.contrastive == "curl"
     if config.augment == "shift":
         # obs and next_obs get independent offsets (DrQ's convention)
         with span("update.augment"):
@@ -118,11 +152,29 @@ def update_step(
                                  offsets=draws.obs_shift),
                 next_obs=random_shift(batch.next_obs, config.augment_pad,
                                       gen, offsets=draws.next_shift))
+    elif curl:
+        # three independent crops, drawn in this order (CURL's sample_cpc)
+        with span("update.augment"):
+            size = config.crop_size
+            obs = random_crop(batch.obs, size, gen, offsets=draws.obs_crop)
+            next_obs = random_crop(batch.next_obs, size, gen,
+                                   offsets=draws.next_crop)
+            pos = random_crop(batch.obs, size, gen, offsets=draws.pos_crop)
+            batch = batch._replace(obs=obs, next_obs=next_obs)
     mog = config.critic_family == "mog"
 
     # --- critic step ------------------------------------------------------
     with span("update.target"), torch.no_grad():
-        if config.share_encoder and state.targets_tied:
+        if curl:
+            # the target trunks on one map of the tied target convolutions
+            with span("model.encoder"):
+                h = state.target_critic.encoder.conv_map(batch.next_obs)
+            next_action = state.target_actor.actor(
+                state.target_actor.encoder.trunk(h))
+            target = state.target_critic.critic(
+                state.target_critic.encoder.trunk(h), next_action)
+            update_step.encoder_reused += 1
+        elif config.share_encoder and state.targets_tied:
             # the pixel networks' MLP heads (``.actor``, ``.critic``) on
             # one latent of the tied encoders
             z = state.target_critic.encoder(batch.next_obs)
@@ -158,10 +210,22 @@ def update_step(
         state.critic_opt.step()
         if config.share_encoder:
             tie_encoder(state.actor, state.critic)
+        elif curl:
+            tie_convs(state.actor, state.critic)
 
     # --- actor step, through the stepped critic ---------------------------
     with span("update.actor"):
-        if config.share_encoder:
+        if curl:
+            # one map of the stepped (tied) convolutions under the actor's
+            # own trunk and the critic's
+            with torch.no_grad():
+                with span("model.encoder"):
+                    h = state.critic.encoder.conv_map(batch.obs)
+                z = state.critic.encoder.trunk(h)
+            action = state.actor.actor(state.actor.encoder.trunk(h))
+            q = expected_q(config.support, state.critic.critic(z, action))
+            update_step.encoder_reused += 1
+        elif config.share_encoder:
             with torch.no_grad():
                 z = state.critic.encoder(batch.obs)
             action = state.actor.actor(z)
@@ -187,14 +251,23 @@ def update_step(
         state.actor_opt.step()
         if config.share_encoder:
             tie_encoder(state.actor, state.critic)
+        elif curl:
+            tie_convs(state.actor, state.critic)
 
     # --- soft target updates ----------------------------------------------
     with span("update.soft_targets"):
-        soft_update(state.target_actor, state.actor, config.tau)
-        soft_update(state.target_critic, state.critic, config.tau)
+        encoder_tau = config.encoder_tau if curl else None
+        soft_update(state.target_actor, state.actor, config.tau, encoder_tau)
+        soft_update(state.target_critic, state.critic, config.tau,
+                    encoder_tau)
         if config.share_encoder:
             tie_encoder(state.target_actor, state.target_critic)
+        elif curl:
+            tie_convs(state.target_actor, state.target_critic)
     state.targets_tied = config.share_encoder
+    metrics = {}
+    if curl:
+        metrics["curl_loss"] = _contrastive_step(state, batch.obs, pos)
     state.step += 1
     actor_loss = actor_loss.detach()
     return {
@@ -202,11 +275,37 @@ def update_step(
         "actor_loss": actor_loss,
         "q_mean": -actor_loss,
         "td_error": td_error.detach(),
+        **metrics,
     }
 
 
 update_step.encoder_reused = 0
+update_step.contrastive_steps = 0
 spans.count_launches("encoder.reused", lambda: update_step.encoder_reused)
+spans.count_launches("contrastive.steps",
+                     lambda: update_step.contrastive_steps)
+
+
+@span("update.contrastive")
+def _contrastive_step(state: D4PGState, anchor: torch.Tensor,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """CURL's ``update_cpc``: the InfoNCE loss of the critic's encoder on
+    the anchors against the momentum key encoder on the positives, one
+    backward, ``encoder_opt`` then ``curl_opt`` on its gradient (the
+    encoder stepped by both, from their own moments), and the actor's
+    convolutions tied again. Returns the detached loss."""
+    z_a = state.critic.encoder(anchor)
+    with torch.no_grad():
+        z_pos = state.target_critic.encoder(pos)
+    loss = contrastive_loss(state.curl.logits(z_a, z_pos))
+    state.encoder_opt.zero_grad(set_to_none=True)
+    state.curl_opt.zero_grad(set_to_none=True)
+    loss.backward()
+    state.encoder_opt.step()
+    state.curl_opt.step()
+    tie_convs(state.actor, state.critic)
+    update_step.contrastive_steps += 1
+    return loss.detach()
 
 
 def multi_update_step(

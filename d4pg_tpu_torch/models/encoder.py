@@ -24,6 +24,17 @@ Parameter names follow the Flax tree: ``encoder.conv1`` ..
 the latent (``--share_encoder``: the critic loss alone trains the tied
 encoder).
 
+CURL's encoder (``padding='valid', tanh=False``, Srinivas,
+Laskin and Abbeel 2020, ``curl_sac.py``'s ``PixelEncoder``) pads
+nothing (84 px give maps of 41, 39, 37 and 35) and ends at the
+LayerNorm (``output_logits=True``). The encoder is two halves:
+``conv_map`` (the convolutions, flattened) and ``trunk`` (``proj``,
+``ln`` and the tanh), so one conv map can feed two trunks.
+``PixelActor(detach_convs=True)`` is CURL's actor: its own trunk over
+convolutions tied to the critic's, the gradient stopped between them;
+with ``crop`` it takes the stored frames and center-crops them first,
+as CURL's ``select_action`` does.
+
 On a ``{data, model}`` mesh (``parallel/model_axis.py``) each model rank
 holds its out-channel slice of ``conv1`` .. ``conv4`` and
 ``model_axis`` is set: each convolution's input enters the model region
@@ -46,17 +57,23 @@ from d4pg_tpu_torch.models.actor import Actor
 from d4pg_tpu_torch.models.critic import CategoricalCritic
 from d4pg_tpu_torch.models.init import lecun_normal
 from d4pg_tpu_torch.models.layers import conv_same, dense, same_padding
+from d4pg_tpu_torch.ops.augment import center_crop
 
 LN_EPS = 1e-6  # Flax's LayerNorm epsilon (torch's default is 1e-5)
+PADDINGS = ("same", "valid")
 
 
 class PixelEncoder(nn.Module):
     def __init__(self, obs_shape: Sequence[int], latent_dim: int = 50,
                  channels: Sequence[int] = (32, 32, 32, 32),
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 padding: str = "same", tanh: bool = True):
         super().__init__()
+        if padding not in PADDINGS:
+            raise ValueError(f"unknown encoder padding {padding!r}")
         self.dtype = dtype
+        self.tanh = bool(tanh)
         self.obs_shape = tuple(int(s) for s in obs_shape)
         h, w, c = self.obs_shape
         self._pads = []
@@ -65,19 +82,38 @@ class PixelEncoder(nn.Module):
             conv = nn.Conv2d(c, ch, 3, stride=stride)
             lecun_normal(conv, generator)
             self.add_module(f"conv{i + 1}", conv)
-            (top, bottom), (left, right) = (same_padding(h, stride, 3),
-                                            same_padding(w, stride, 3))
+            if padding == "same":
+                (top, bottom), (left, right) = (same_padding(h, stride, 3),
+                                                same_padding(w, stride, 3))
+                h, w = -(-h // stride), -(-w // stride)
+            else:
+                top = bottom = left = right = 0
+                h, w = (h - 3) // stride + 1, (w - 3) // stride + 1
+            if h < 1 or w < 1:
+                raise ValueError(f"{self.obs_shape[:2]} frames are too "
+                                 f"small for {len(channels)} unpadded "
+                                 f"convolutions")
             self._pads.append((top, bottom, left, right))
-            h, w, c = -(-h // stride), -(-w // stride), ch
+            c = ch
         self.proj = nn.Linear(h * w * c, latent_dim)
         lecun_normal(self.proj, generator)
         self.ln = nn.LayerNorm(latent_dim, eps=LN_EPS)
         self.model_axis = None  # parallel/model_axis.ModelAxis when split
 
     @span("model.encoder")
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixels: torch.Tensor,
+                detach_convs: bool = False) -> torch.Tensor:
+        """The [..., latent] float32 latent of [..., H, W, C] frames; with
+        ``detach_convs`` no gradient reaches the convolutions."""
+        h = self.conv_map(pixels)
+        if detach_convs:
+            h = h.detach()
+        return self.trunk(h).reshape(*pixels.shape[:-3], -1)
+
+    def conv_map(self, pixels: torch.Tensor) -> torch.Tensor:
+        """The convolutions' [N, h * w * c] maps of [..., H, W, C] frames
+        (N the frames), flattened in Flax's (h, w, c) order."""
         dt = self.dtype
-        lead = pixels.shape[:-3]
         x = pixels.reshape(-1, *self.obs_shape).to(dt)
         # a 0-dim divisor made on the device: a Python scalar becomes a
         # multiply by its reciprocal on CUDA (an ulp off the quotient), and
@@ -92,11 +128,17 @@ class PixelEncoder(nn.Module):
             else:  # column-parallel: this rank's out-channels, gathered
                 x = axis.gather(torch.relu(conv_same(conv, axis.enter(x),
                                                      pads, dt)))
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # Flax's order
-        x = dense(self.proj, x, dt)
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # Flax's order
+
+    def trunk(self, h: torch.Tensor) -> torch.Tensor:
+        """The [N, latent] float32 latent of [N, h * w * c] conv maps."""
+        dt = self.dtype
+        x = dense(self.proj, h, dt)
         x = F.layer_norm(x.float(), self.ln.normalized_shape, self.ln.weight,
                          self.ln.bias, self.ln.eps).to(dt)
-        return torch.tanh(x).float().reshape(*lead, -1)
+        if self.tanh:
+            x = torch.tanh(x)
+        return x.float()
 
 
 class PixelActor(nn.Module):
@@ -108,16 +150,24 @@ class PixelActor(nn.Module):
                  hidden: Sequence[int] = (256, 256, 256),
                  detach_encoder: bool = False,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 padding: str = "same", tanh: bool = True,
+                 detach_convs: bool = False, crop: int | None = None):
         super().__init__()
         self.detach_encoder = bool(detach_encoder)
+        self.detach_convs = bool(detach_convs)
+        self.crop = crop
+        if crop is not None:
+            obs_shape = (crop, crop, obs_shape[-1])
         self.encoder = PixelEncoder(obs_shape, latent_dim, channels,
-                                    generator, dtype)
+                                    generator, dtype, padding, tanh)
         self.actor = Actor(latent_dim, act_dim, hidden, generator=generator,
                            dtype=dtype)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        z = self.encoder(pixels)
+        if self.crop is not None:
+            pixels = center_crop(pixels, self.crop)
+        z = self.encoder(pixels, detach_convs=self.detach_convs)
         if self.detach_encoder:
             z = z.detach()
         return self.actor(z)
@@ -131,10 +181,11 @@ class PixelCategoricalCritic(nn.Module):
                  channels: Sequence[int] = (32, 32, 32, 32),
                  hidden: Sequence[int] = (256, 256, 256),
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 padding: str = "same", tanh: bool = True):
         super().__init__()
         self.encoder = PixelEncoder(obs_shape, latent_dim, channels,
-                                    generator, dtype)
+                                    generator, dtype, padding, tanh)
         self.critic = CategoricalCritic(latent_dim, act_dim, n_atoms, hidden,
                                         generator=generator, dtype=dtype)
 

@@ -33,7 +33,11 @@ from typing import Iterable
 import torch
 
 from d4pg_tpu_torch.io.profiling import span
-from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
+from d4pg_tpu_torch.learner.state import (
+    D4PGConfig,
+    D4PGState,
+    refuse_contrastive,
+)
 from d4pg_tpu_torch.learner.update import multi_update_step, update_step
 from d4pg_tpu_torch.parallel import partition
 from d4pg_tpu_torch.parallel.mesh import RankMesh
@@ -159,7 +163,9 @@ def _block(tree, mesh: RankMesh, axis: int):
 def check_mesh_compatible(config: D4PGConfig) -> None:
     """The kernel arms are single-device in the reference (``pallas_call``
     does not partition under a sharded jit); the port keeps the refusal
-    and its message, with the rule table the mesh resolves."""
+    and its message, with the rule table the mesh resolves. CURL is
+    refused too (``learner/state.refuse_contrastive``)."""
+    refuse_contrastive(config, "the data-parallel learner")
     if config.projection in ("pallas", "pallas_ce"):
         raise ValueError(
             f"--projection {config.projection} is single-device only "

@@ -89,9 +89,14 @@ def shard_state(state, mesh):
     slice of every leaf the rules split over ``model``, its Adam moments
     sliced alike, and each pixel encoder gathers over ``mesh``. A no-op
     at ``model_parallel == 1``. Raises when a split dimension does not
-    divide by ``model_parallel``."""
+    divide by ``model_parallel``, and for a CURL state."""
     if mesh.model_parallel == 1:
         return state
+    if state.curl is not None:
+        raise ValueError(
+            "--contrastive curl runs on one learner: the model axis "
+            "carries neither CURL's W, encoder_opt and curl_opt nor its "
+            "contrastive step")
     placements = partition.state_placements(state)
     shard, _ = partition.make_shard_and_gather_fns(placements, mesh)
     for attr in _MODULES:

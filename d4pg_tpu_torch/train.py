@@ -177,7 +177,7 @@ from d4pg_tpu_torch.learner.aggregator import Aggregator
 from d4pg_tpu_torch.learner.loop import FusedLoop
 from d4pg_tpu_torch.learner.pipeline import ChunkPipeline
 from d4pg_tpu_torch.learner.replica import LearnerReplica, replica_state
-from d4pg_tpu_torch.learner.state import init_state
+from d4pg_tpu_torch.learner.state import init_state, refuse_contrastive
 from d4pg_tpu_torch.learner.update import multi_update_step, update_step
 from d4pg_tpu_torch.obs.containment import contained_crash
 from d4pg_tpu_torch.obs.trace import RECORDER as trace_recorder
@@ -265,6 +265,8 @@ def train(cfg: ExperimentConfig) -> dict:
     eval and the state checkpoint. The collective transport runs one
     process, whatever the mesh flags (see the module docstring)."""
     cfg = cfg.resolve()
+    if cfg.learners > 1 or cfg.sample_on_ingest:
+        refuse_contrastive(cfg, "the replica group")
     if cfg.mesh_learner:
         # refused before any rank starts, with the rule table
         check_mesh_compatible(cfg)
@@ -1107,7 +1109,8 @@ def run_learner(cfg: ExperimentConfig, mesh) -> dict:
             return None
         return {name: (v if v.dim() == 0 else v[-1])
                 for name, v in metrics.items()
-                if name in ("critic_loss", "actor_loss", "q_mean")}
+                if name in ("critic_loss", "actor_loss", "q_mean",
+                            "curl_loss")}
 
     stop_actors = threading.Event()
     actor_threads: dict[int, threading.Thread] = {}
@@ -1236,6 +1239,9 @@ def run_learner(cfg: ExperimentConfig, mesh) -> dict:
                 if metrics is not None:
                     last_metrics["critic_loss"] = float(metrics["critic_loss"])
                     last_metrics["actor_loss"] = float(metrics["actor_loss"])
+                    if "curl_loss" in metrics:
+                        last_metrics["curl_loss"] = float(
+                            metrics["curl_loss"])
                 if eval_metrics is not None:
                     last_metrics.update({
                         "avg_test_reward": eval_metrics["avg_test_reward"],

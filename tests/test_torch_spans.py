@@ -47,12 +47,14 @@ def clean_table():
     spans.reset()
 
 
-def _learner(prioritized: bool, seed: int = 0, shared: bool = True):
+def _learner(prioritized: bool, seed: int = 0, shared: bool = True,
+             curl: bool = False):
+    extra = (dict(crop_size=15, contrastive="curl") if curl
+             else dict(augment="shift", share_encoder=shared))
     cfg = D4PGConfig(obs_dim=int(np.prod(SHAPE)), act_dim=ACT, v_min=-10.0,
                      v_max=10.0, n_atoms=11, hidden=(16, 16), pixels=True,
                      obs_shape=SHAPE, encoder_channels=(4, 4, 4, 4),
-                     augment="shift", share_encoder=shared,
-                     projection="pallas_ce")
+                     projection="pallas_ce", **extra)
     state = init_state(cfg, seed, "cpu")
     buf = FusedDeviceReplay(CAPACITY, SHAPE, ACT, prioritized=prioritized,
                             device="cpu")
@@ -188,9 +190,33 @@ def test_span_counts_fit_the_chunk(prioritized, shared):
     # the CPU runs the kernels' plain versions: no launch counted
     per_step = dict(s["launches_per_step"])
     assert per_step.pop("encoder.reused") == (2.0 if shared else 0.0)
+    assert per_step.pop("contrastive.steps") == 0.0
     assert set(per_step) == {
         "descent", "projection", "projection_ce.fwd", "projection_ce.bwd"}
     assert all(v == 0 for v in per_step.values())
+
+
+def test_a_curl_step_spans_its_contrastive_step_and_counts_it():
+    state, _, loop = _learner(False, curl=True)
+    spans.enable()
+    loop.run(state, 2 * K)
+    recs = spans.records()
+    s = spans.summary()
+    by_id = {r["id"]: r for r in recs}
+    steps = 2 * K
+    contrastive = [r for r in recs if r["name"] == "update.contrastive"]
+    assert len(contrastive) == steps
+    assert all(by_id[r["parent"]]["name"] == "update" for r in contrastive)
+    # the anchor's and the key's forwards inside it; the target's conv
+    # map, the critic's and the actor step's conv map before it
+    inside = [r for r in recs if r["name"] == "model.encoder"
+              and r["parent"] in {c["id"] for c in contrastive}]
+    assert len(inside) == 2 * steps
+    assert s["spans"]["model.encoder"]["count"] == 5 * steps
+    assert s["spans"]["update.augment"]["count"] == steps
+    per_step = s["launches_per_step"]
+    assert per_step["contrastive.steps"] == 1.0
+    assert per_step["encoder.reused"] == 2.0
 
 
 @pytest.mark.parametrize("prioritized", [True, False])

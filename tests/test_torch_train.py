@@ -80,6 +80,16 @@ def _csv(cfg):
     return Path(cfg.log_dir, cfg.run_name(), "returns.csv").read_text()
 
 
+# the port's CURL flags and fields (the reference has no CURL path)
+PORT_ONLY = {"crop_size", "contrastive", "encoder_tau", "lr_encoder"}
+
+
+def _shared(cfg) -> dict:
+    """The fields the reference's ``ExperimentConfig`` has too."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k not in PORT_ONLY}
+
+
 @pytest.mark.parametrize("argv", [
     [],
     ["--env", "point", "--bsize", "16", "--rmsize", "2000", "--n_eps", "2"],
@@ -92,10 +102,11 @@ def _csv(cfg):
 ])
 def test_parse_args_matches_reference(argv):
     port, ref = parse_args(argv), jconfig.parse_args(argv)
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert _shared(port) == dataclasses.asdict(ref)
     assert port.run_name() == ref.run_name()
-    assert (dataclasses.asdict(port.resolve())
-            == dataclasses.asdict(ref.resolve()))
+    assert _shared(port.resolve()) == dataclasses.asdict(ref.resolve())
+    defaults = ExperimentConfig()
+    assert all(getattr(port, k) == getattr(defaults, k) for k in PORT_ONLY)
 
 
 def test_parser_has_the_reference_flags():
@@ -104,7 +115,11 @@ def test_parser_has_the_reference_flags():
                  tuple(a.choices) if a.choices else None)
                 for a in parser._actions if a.dest != "help"}
 
-    assert flags(build_parser()) == flags(jconfig.build_parser())
+    port, ref = flags(build_parser()), flags(jconfig.build_parser())
+    # the port's flags: CURL's, and --hidden for CURL's widths
+    only = PORT_ONLY | {"hidden"}
+    assert {f[0] for f in port} - {f[0] for f in ref} == only
+    assert {f for f in port if f[0] not in only} == ref
     with pytest.raises(SystemExit):
         parse_args(["--batch_size", "8"])  # the reference's spelling only
 
