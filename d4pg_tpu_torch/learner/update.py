@@ -47,24 +47,30 @@ CURL (``contrastive='curl'``, Srinivas, Laskin and Abbeel 2020,
      critic's;
   3. the critic step as above, then the actor's convolutions tied to
      the stepped critic's (``core.updates.tie_convs``);
-  4. the actor step: one ``no_grad`` conv map of the stepped
-     convolutions on ``obs`` feeds the actor's own trunk (with gradient)
-     and the critic's trunk and head; Adam and the tie;
+  4. the actor step: one conv map of the stepped convolutions on
+     ``obs``, with gradient, is the anchor's; the actor's own trunk
+     (with gradient) and the critic's trunk and head read it detached,
+     so the actor loss reaches neither the map's graph nor the
+     critic's convolutions; Adam and the tie;
   5. the soft updates, ``encoder_tau`` on the encoder leaves and ``tau``
      on the heads, then the target actor's convolutions tied to the
      target critic's;
-  6. the contrastive step: the critic's encoder on the anchor (with
-     gradient), the target critic's, the momentum key encoder, on
-     ``pos`` (under ``no_grad``), the [B, B] bilinear logits and their
-     cross-entropy (``core.losses.contrastive_loss``), its backward,
-     ``encoder_opt`` then ``curl_opt`` on the one gradient, and the tie.
+  6. the contrastive step: the critic's trunk on step 4's attached map
+     (the anchor, with gradient), the target critic's encoder, the
+     momentum key encoder, on ``pos`` (under ``no_grad``), the [B, B]
+     bilinear logits and their cross-entropy
+     (``core.losses.contrastive_loss``), its backward through the trunk
+     and the map's graph, ``encoder_opt`` then ``curl_opt`` on the one
+     gradient, and the tie.
 
-Five encoder forwards and two backwards a step; the anchor's forward
-sees the weights and input of step 4's conv map and is not shared.
+Four encoder forwards and two backwards a step. Steps 4-6 write only
+the actor's parameters and the targets, so the map is the one the
+anchor's own forward would compute; an in-place write to the critic's
+convolutions between them fails autograd's saved-tensor version check.
 
 Each encoder forward a step saves this way (two a step once the targets
 are tied, one on the first step after ``share_encoder`` is turned on
-over an unshared state, none without it; two a CURL step) adds one to
+over an unshared state, none without it; three a CURL step) adds one to
 ``update_step.encoder_reused``, reported per grad step as
 ``encoder.reused`` in ``spans.summary()``; each contrastive step adds
 one to ``update_step.contrastive_steps`` (``contrastive.steps``).
@@ -216,15 +222,17 @@ def update_step(
     # --- actor step, through the stepped critic ---------------------------
     with span("update.actor"):
         if curl:
-            # one map of the stepped (tied) convolutions under the actor's
-            # own trunk and the critic's
+            # one map of the stepped (tied) convolutions: both trunks here
+            # read it detached, and the contrastive step's anchor keeps it
+            # attached (two forwards saved)
+            with span("model.encoder"):
+                anchor = state.critic.encoder.conv_map(batch.obs)
+            h = anchor.detach()
             with torch.no_grad():
-                with span("model.encoder"):
-                    h = state.critic.encoder.conv_map(batch.obs)
                 z = state.critic.encoder.trunk(h)
             action = state.actor.actor(state.actor.encoder.trunk(h))
             q = expected_q(config.support, state.critic.critic(z, action))
-            update_step.encoder_reused += 1
+            update_step.encoder_reused += 2
         elif config.share_encoder:
             with torch.no_grad():
                 z = state.critic.encoder(batch.obs)
@@ -267,7 +275,7 @@ def update_step(
     state.targets_tied = config.share_encoder
     metrics = {}
     if curl:
-        metrics["curl_loss"] = _contrastive_step(state, batch.obs, pos)
+        metrics["curl_loss"] = _contrastive_step(state, anchor, pos)
     state.step += 1
     actor_loss = actor_loss.detach()
     return {
@@ -287,14 +295,16 @@ spans.count_launches("contrastive.steps",
 
 
 @span("update.contrastive")
-def _contrastive_step(state: D4PGState, anchor: torch.Tensor,
+def _contrastive_step(state: D4PGState, h: torch.Tensor,
                       pos: torch.Tensor) -> torch.Tensor:
     """CURL's ``update_cpc``: the InfoNCE loss of the critic's encoder on
     the anchors against the momentum key encoder on the positives, one
     backward, ``encoder_opt`` then ``curl_opt`` on its gradient (the
     encoder stepped by both, from their own moments), and the actor's
-    convolutions tied again. Returns the detached loss."""
-    z_a = state.critic.encoder(anchor)
+    convolutions tied again. ``h`` is the anchors' conv map with its
+    graph (the actor step's): the critic's trunk runs on it here. Returns
+    the detached loss."""
+    z_a = state.critic.encoder.trunk(h)
     with torch.no_grad():
         z_pos = state.target_critic.encoder(pos)
     loss = contrastive_loss(state.curl.logits(z_a, z_pos))

@@ -5,9 +5,11 @@ At 20x20x3 frames cropped to 16 with 4-channel convolutions (maps of 7,
 biases, LayerNorm scales off 1): the crops, the unpadded encoder and the
 actor's own trunk over tied convolutions, the InfoNCE loss and its
 gradients, three whole update steps (every loss, leaf, target and the
-four Adams' moments), a ``FusedLoop.run`` chunk, the checkpoint, the
-training entry with the CURL flags, the refusals, and wrong variants
-failing by more than the tolerance.
+four Adams' moments), the step's one conv map for the actor step and
+the anchor against a step that runs the anchor's own forward (bitwise),
+a ``FusedLoop.run`` chunk, the checkpoint, the training entry with the
+CURL flags, the refusals, and wrong variants failing by more than the
+tolerance.
 
 Tolerances. ``FWD`` (rtol/atol 1e-5): the reference sums the same float32
 products in its own order (its convolutions and GEMMs are the CPU
@@ -27,10 +29,18 @@ import torch
 
 import plain_curl as plain
 from d4pg_tpu_torch.config import ExperimentConfig, parse_args
-from d4pg_tpu_torch.core.losses import contrastive_loss
+from d4pg_tpu_torch.core.distribution import categorical_projection
+from d4pg_tpu_torch.core.losses import (
+    contrastive_loss,
+    cross_entropy_per_sample,
+    expected_q,
+    weighted_mean,
+)
+from d4pg_tpu_torch.core.updates import soft_update, tie_convs
 from d4pg_tpu_torch.envs.dmc import parse_dmc_id
 from d4pg_tpu_torch.io.checkpoint import CheckpointManager
 from d4pg_tpu_torch.io.from_jax import state_from_jax
+from d4pg_tpu_torch.learner import update
 from d4pg_tpu_torch.learner.fused import make_fused_chunk
 from d4pg_tpu_torch.learner.mesh_replicas import MeshReplicaGroup
 from d4pg_tpu_torch.learner.replica import LearnerReplica
@@ -226,6 +236,145 @@ def test_three_update_steps_match_the_reference():
         _close(m["td_error"], td, FWD, f"step {t} td")
     assert state.step == 3
     _compare(state, ref)
+
+
+def _five_forward_step(cfg, state, batch, off):
+    """The CURL update with the anchor's own encoder forward in the
+    contrastive step: the target conv map on next_obs, the critic's
+    forward on obs, a ``no_grad`` conv map of obs for the actor step,
+    then the critic's encoder on the anchor and the key's on pos."""
+    obs = random_crop(batch.obs, cfg.crop_size, offsets=off[0])
+    next_obs = random_crop(batch.next_obs, cfg.crop_size, offsets=off[1])
+    pos = random_crop(batch.obs, cfg.crop_size, offsets=off[2])
+    with torch.no_grad():
+        h = state.target_critic.encoder.conv_map(next_obs)
+        next_action = state.target_actor.actor(
+            state.target_actor.encoder.trunk(h))
+        target = state.target_critic.critic(
+            state.target_critic.encoder.trunk(h), next_action)
+        proj = categorical_projection(cfg.support, target, batch.reward,
+                                      batch.discount)
+    td_error = cross_entropy_per_sample(proj,
+                                        state.critic(obs, batch.action))
+    critic_loss = weighted_mean(td_error, None)
+    state.critic_opt.zero_grad(set_to_none=True)
+    critic_loss.backward()
+    state.critic_opt.step()
+    tie_convs(state.actor, state.critic)
+    with torch.no_grad():
+        h = state.critic.encoder.conv_map(obs)
+        z = state.critic.encoder.trunk(h)
+    action = state.actor.actor(state.actor.encoder.trunk(h))
+    actor_loss = -torch.mean(expected_q(cfg.support,
+                                        state.critic.critic(z, action)))
+    params = list(state.actor.parameters())
+    grads = torch.autograd.grad(actor_loss, params, allow_unused=True)
+    for p, g in zip(params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g
+    state.actor_opt.step()
+    tie_convs(state.actor, state.critic)
+    soft_update(state.target_actor, state.actor, cfg.tau, cfg.encoder_tau)
+    soft_update(state.target_critic, state.critic, cfg.tau, cfg.encoder_tau)
+    tie_convs(state.target_actor, state.target_critic)
+    z_a = state.critic.encoder(obs)
+    with torch.no_grad():
+        z_pos = state.target_critic.encoder(pos)
+    curl_loss = contrastive_loss(state.curl.logits(z_a, z_pos))
+    state.encoder_opt.zero_grad(set_to_none=True)
+    state.curl_opt.zero_grad(set_to_none=True)
+    curl_loss.backward()
+    state.encoder_opt.step()
+    state.curl_opt.step()
+    tie_convs(state.actor, state.critic)
+    state.step += 1
+    actor_loss = actor_loss.detach()
+    return {"critic_loss": critic_loss.detach(), "actor_loss": actor_loss,
+            "q_mean": -actor_loss, "td_error": td_error.detach(),
+            "curl_loss": curl_loss.detach()}
+
+
+def _equal_states(got, want):
+    for net in ("actor", "critic", "target_actor", "target_critic"):
+        a, b = getattr(got, net), getattr(want, net)
+        for (name, p), q in zip(a.named_parameters(), b.parameters()):
+            assert torch.equal(p, q), f"{net}.{name}"
+    assert torch.equal(got.curl.W, want.curl.W)
+    opts = {"actor_opt": "actor", "critic_opt": "critic",
+            "encoder_opt": "critic.encoder", "curl_opt": "curl"}
+    for opt, net in opts.items():
+        for p, q in zip(_module(got, net).parameters(),
+                        _module(want, net).parameters()):
+            sa, sb = getattr(got, opt).state[p], getattr(want, opt).state[q]
+            assert sa.keys() == sb.keys() and sa, opt
+            for key in sa:
+                assert torch.equal(sa[key], sb[key]), (opt, key)
+    assert got.step == want.step
+
+
+def _module(state, path):
+    net, _, sub = path.partition(".")
+    module = getattr(state, net)
+    return module.get_submodule(sub) if sub else module
+
+
+def _actor_loss_misses_the_critics_convs(state, monkeypatch):
+    """Patch ``torch.autograd.grad`` so that, before the actor step's own
+    call, it asserts the actor loss has no path to the critic's
+    convolutions (it reads the anchor's map only detached)."""
+    real = torch.autograd.grad
+    convs = [p for n, p in state.critic.encoder.named_parameters()
+             if n.startswith("conv")]
+    calls = []
+
+    def grad(outputs, inputs, **kw):
+        reach = real(outputs, convs, retain_graph=True, allow_unused=True)
+        assert all(g is None for g in reach)
+        calls.append(1)
+        return real(outputs, inputs, **kw)
+
+    monkeypatch.setattr(torch.autograd, "grad", grad)
+    return calls
+
+
+def test_one_conv_map_serves_the_actor_step_and_the_anchor_bitwise(
+        monkeypatch):
+    """Four encoder forwards a step (the actor step's conv map kept with
+    its graph as the anchor's) give every leaf, target, Adam moment, ``W``
+    and metric of the step that runs the anchor's own forward, bitwise;
+    three forwards a step are counted reused."""
+    state, twin = _state(), _state()
+    batch = _batch()
+    off = _offsets(6, 3)
+    for t in range(3):
+        before = update_step.encoder_reused
+        with monkeypatch.context() as m:
+            calls = _actor_loss_misses_the_critics_convs(state, m)
+            got = update_step(CFG, state, batch, draws=_draws(off[t]))
+        assert calls == [1]
+        assert update_step.encoder_reused - before == 3
+        want = _five_forward_step(CFG, twin, batch, off[t])
+        assert got.keys() == want.keys()
+        for name in want:
+            assert torch.equal(got[name], want[name]), (t, name)
+        _equal_states(state, twin)
+
+
+def test_a_write_to_the_critics_convs_before_the_anchors_backward_fails(
+        monkeypatch):
+    """The anchor's map keeps the critic's convolutions as they were at
+    the actor step: an in-place write to them before the contrastive
+    backward is refused by autograd's saved-tensor version check."""
+    state = _state()
+    real = update.soft_update
+
+    def stepping(target, online, tau, encoder_tau=None):
+        real(target, online, tau, encoder_tau)
+        with torch.no_grad():
+            state.critic.encoder.conv2.weight.mul_(1.0)
+
+    monkeypatch.setattr(update, "soft_update", stepping)
+    with pytest.raises(RuntimeError, match="inplace operation"):
+        update_step(CFG, state, _batch(), draws=_draws(_offsets(6)[0]))
 
 
 def test_the_state_generator_draws_the_crops_in_order():

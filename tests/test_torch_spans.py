@@ -207,16 +207,17 @@ def test_a_curl_step_spans_its_contrastive_step_and_counts_it():
     contrastive = [r for r in recs if r["name"] == "update.contrastive"]
     assert len(contrastive) == steps
     assert all(by_id[r["parent"]]["name"] == "update" for r in contrastive)
-    # the anchor's and the key's forwards inside it; the target's conv
-    # map, the critic's and the actor step's conv map before it
+    # the key's forward inside it (the anchor's trunk runs on the actor
+    # step's conv map); the target's conv map, the critic's and the
+    # actor step's conv map before it
     inside = [r for r in recs if r["name"] == "model.encoder"
               and r["parent"] in {c["id"] for c in contrastive}]
-    assert len(inside) == 2 * steps
-    assert s["spans"]["model.encoder"]["count"] == 5 * steps
+    assert len(inside) == steps
+    assert s["spans"]["model.encoder"]["count"] == 4 * steps
     assert s["spans"]["update.augment"]["count"] == steps
     per_step = s["launches_per_step"]
     assert per_step["contrastive.steps"] == 1.0
-    assert per_step["encoder.reused"] == 2.0
+    assert per_step["encoder.reused"] == 3.0
 
 
 @pytest.mark.parametrize("prioritized", [True, False])
