@@ -2,8 +2,8 @@
 
 Counterpart of ``d4pg_tpu/core/updates.py``: Polyak averaging
 ``theta' <- (1 - tau) * theta' + tau * theta`` (CURL's ``encoder_tau``
-for the encoder leaves), the hard copy, the shared-encoder tie and
-CURL's tie of the convolutions alone. Unlike
+for the encoder leaves), the hard copy and the tie of what the actor's
+encoder shares with the critic's. Unlike
 the JAX pytree maps these update the target module in place, with the
 multi-tensor ``_foreach`` ops (two launches for all parameters).
 """
@@ -40,23 +40,18 @@ def hard_update(target: nn.Module, online: nn.Module) -> None:
 
 
 @torch.no_grad()
-def tie_encoder(actor: nn.Module, critic: nn.Module) -> None:
-    """In place: the actor's ``encoder`` parameters become copies of the
-    critic's (``--share_encoder``: the critic loss alone trains the conv
-    encoder). One definition for every tie site: init, the per-step
-    online tie and the target tie. It copies, never aliases, so the
-    actor's Adam state keeps its own tensors."""
-    torch._foreach_copy_(list(actor.encoder.parameters()),
-                         list(critic.encoder.parameters()))
+def tie_shared(actor: nn.Module, critic: nn.Module, shares: str) -> None:
+    """In place: the actor encoder's parameters that ``shares`` names
+    (``D4PGConfig.shares``) become copies of the critic's: all of them
+    for ``"encoder"`` (``--share_encoder``: the critic loss alone trains
+    the encoder), the convolutions for ``"convs"`` (CURL's
+    ``copy_conv_weights_from``, which aliases where this copies; the
+    actor keeps its own trunk). One
+    definition for every tie site: init, the online ties and the target
+    tie. It copies, never aliases, so the actor's Adam state keeps its
+    own tensors."""
+    def part(module):
+        return [p for n, p in module.encoder.named_parameters()
+                if shares == "encoder" or n.startswith("conv")]
 
-
-@torch.no_grad()
-def tie_convs(actor: nn.Module, critic: nn.Module) -> None:
-    """In place: the actor's encoder convolutions become copies of the
-    critic's, its trunk (``proj``, ``ln``) its own (CURL's
-    ``copy_conv_weights_from``, which aliases where this copies)."""
-    torch._foreach_copy_(
-        [p for n, p in actor.encoder.named_parameters()
-         if n.startswith("conv")],
-        [p for n, p in critic.encoder.named_parameters()
-         if n.startswith("conv")])
+    torch._foreach_copy_(part(actor), part(critic))

@@ -43,7 +43,11 @@ from d4pg_tpu_torch.parallel.data_parallel import (
 from d4pg_tpu_torch.replay import device_per as dper
 from d4pg_tpu_torch.replay.uniform import TransitionBatch
 
-_METRICS = ("critic_loss", "actor_loss", "q_mean", "td_error", "idx")
+
+def _stacked(steps: list[dict[str, torch.Tensor]]) -> dict:
+    """The chunk's per-step metrics, each stacked along K: the keys
+    ``update_step`` returned, and ``idx``."""
+    return {name: torch.stack([m[name] for m in steps]) for name in steps[0]}
 
 
 def fused_chunk_step(
@@ -88,8 +92,7 @@ def fused_chunk_step(
     if injected is not None and tuple(injected.shape) != (k, batch_size):
         raise ValueError(f"{what} must be [{k}, {batch_size}], got "
                          f"{tuple(injected.shape)}")
-    names = _metric_names(config)
-    out = {name: [] for name in names}
+    steps = []
     for t in range(k):
         with span("learner.step").at(state.step):
             w = None
@@ -117,16 +120,8 @@ def fused_chunk_step(
                     trees = dper.update_from_td(trees, idx,
                                                 metrics["td_error"], alpha)
             metrics["idx"] = idx
-            for name in names:
-                out[name].append(metrics[name])
-    return trees, {name: torch.stack(v) for name, v in out.items()}
-
-
-def _metric_names(config: D4PGConfig) -> tuple[str, ...]:
-    """The per-step metrics a chunk stacks: CURL's loss besides."""
-    if config.contrastive == "curl":
-        return _METRICS + ("curl_loss",)
-    return _METRICS
+            steps.append(metrics)
+    return trees, _stacked(steps)
 
 
 def make_fused_chunk(
@@ -246,7 +241,7 @@ def make_sharded_fused_chunk(
             injected = injected[:, lo:lo + n_local]
         dev = storage.obs.device
         trees = None if trees is None else trees.clone()
-        out = {name: [] for name in _METRICS}
+        steps = []
         for t in range(k):
             with span("learner.step").at(state.step):
                 idx = []
@@ -286,10 +281,8 @@ def make_sharded_fused_chunk(
                             trees.set_shard(s, dper.update_from_td(
                                 trees.shard(s), idx[s], td[s], alpha))
                 metrics["idx"] = idx.reshape(-1)
-                for name in _METRICS:
-                    out[name].append(metrics[name])
-        stacked = {name: torch.stack(v) for name, v in out.items()}
-        return trees, replicated_metrics(stacked, mesh)
+                steps.append(metrics)
+        return trees, replicated_metrics(_stacked(steps), mesh)
 
     if not prioritized:
         def uniform(state, storage, size, generator=None, slots=None,

@@ -21,7 +21,7 @@ import torch
 
 from d4pg_tpu_torch import resolve_device
 from d4pg_tpu_torch.core.distribution import CategoricalSupport
-from d4pg_tpu_torch.core.updates import tie_convs, tie_encoder
+from d4pg_tpu_torch.core.updates import tie_shared
 from d4pg_tpu_torch.models.actor import Actor
 from d4pg_tpu_torch.models.critic import (
     CategoricalCritic,
@@ -61,10 +61,11 @@ class D4PGConfig:
     three random ``crop_size`` crops of the stored ``obs_shape`` frames
     a step in place of ``augment`` (the actor center-crops when it
     acts), CURL's encoder (unpadded convolutions, no tanh after the
-    LayerNorm), the actor's own trunk over the critic's convolutions, the target critic's
-    encoder as the momentum key encoder (``encoder_tau`` on every
-    ``encoder.`` leaf, ``tau`` on the heads) and the contrastive step
-    with two Adams at ``lr_encoder`` (``learner/update.py``). It runs on
+    LayerNorm), the actor's own trunk over the critic's convolutions
+    (``shares``), the target critic's encoder as the momentum key
+    encoder (``encoder_tau`` on every ``encoder.`` leaf, ``tau`` on the
+    heads) and the contrastive step with two Adams at ``lr_encoder``
+    (``learner/update.py``). It runs on
     one learner: the data-parallel learner, the model axis, the replica
     group and MoG refuse it."""
 
@@ -168,6 +169,18 @@ class D4PGConfig:
         return CategoricalSupport(self.v_min, self.v_max, self.n_atoms)
 
     @property
+    def shares(self) -> str | None:
+        """What the pixel actor's encoder shares with the critic's, the
+        one value the tie (``core.updates.tie_shared``) and the update's
+        tied path (``learner/update.py``) read: ``"convs"`` under CURL
+        (its own trunk over the critic's convolutions), ``"encoder"``
+        under ``share_encoder`` (the whole encoder), ``None`` otherwise.
+        The policy loss trains no shared parameter."""
+        if self.contrastive == "curl":
+            return "convs"
+        return "encoder" if self.share_encoder else None
+
+    @property
     def encoder_shape(self) -> tuple:
         """The [H, W, C] frames the encoders see: CURL's crops, else the
         stored frames."""
@@ -187,14 +200,10 @@ class D4PGConfig:
 
     def build_actor(self, generator: torch.Generator) -> torch.nn.Module:
         if self.pixels:
-            # share_encoder => the policy loss must not train the (tied)
-            # encoder: the gradient stops at the latent
             return PixelActor(self.obs_shape, self.act_dim,
                               channels=self.encoder_channels,
                               hidden=self.hidden,
-                              detach_encoder=self.share_encoder,
                               generator=generator, dtype=self.dtype,
-                              detach_convs=self.contrastive == "curl",
                               crop=(self.crop_size
                                     if self.contrastive == "curl" else None),
                               **self._encoder_kwargs())
@@ -230,24 +239,22 @@ class D4PGState:
     reference's ``key``: the DrQ offsets and the MoG draws of the updates
     come from it (the checkpoint saves it).
 
-    ``targets_tied`` is a host fact like ``step``: the two target
-    encoders are bitwise equal, so one forward on ``next_obs`` serves both
-    target heads (``learner/update.py``). ``init_state`` and every
-    ``update_step`` under ``share_encoder`` set it; an unshared
-    ``update_step`` and every path that writes parameters into an
-    existing state clear it (``io/checkpoint.restore``,
+    ``targets_tied`` is a host fact like ``step``: the target encoders'
+    shared parts (``D4PGConfig.shares``) are bitwise equal, so one
+    forward of that part on ``next_obs`` serves both target heads
+    (``learner/update.py``). ``init_state`` and every ``update_step`` set
+    it to ``shares is not None``; every path that writes parameters into
+    an existing state clears it (``io/checkpoint.restore``,
     ``io/from_jax.state_from_jax``, ``learner/replica.adopt_params``, the
     replicas' merge), so the first step after ``share_encoder`` is turned
-    on over an unshared state runs both target encoders, as the
-    reference does. ``parallel/data_parallel.replicate_state`` gives
-    every rank rank 0's.
+    on over an unshared state, or after a restore, runs both target
+    encoders, as the reference does.
+    ``parallel/data_parallel.replicate_state`` gives every rank rank 0's.
 
     CURL (``contrastive='curl'``) adds ``curl`` (``models/contrastive.
     CURL``: ``W`` and the critic's encoder), ``encoder_opt`` (CURL's
     ``encoder_optimizer``, over the critic's encoder) and ``curl_opt``
-    (its ``cpc_optimizer``, over ``curl``); ``None`` otherwise. Its
-    target convolutions are tied from ``init_state`` on and after every
-    soft update, so its target step always runs one conv map."""
+    (its ``cpc_optimizer``, over ``curl``); ``None`` otherwise."""
 
     actor: torch.nn.Module
     critic: torch.nn.Module
@@ -288,19 +295,18 @@ def init_state(config: D4PGConfig, seed: int = 0,
                device: str | torch.device | None = None) -> D4PGState:
     """Fresh networks (drawn on the CPU from ``seed``, then moved, so a seed
     gives the same weights on every device), targets as hard copies, Adam
-    states and the state's generator. With ``share_encoder`` the actor's
-    encoder is the critic's from step 0, targets included; with CURL its
-    convolutions are, and ``W`` is drawn last. ``device`` defaults to
-    ``cuda`` and raises without a card."""
+    states and the state's generator. The actor's shared encoder part
+    (``config.shares``) is the critic's from step 0, targets included;
+    CURL's ``W`` is drawn last. ``device`` defaults to ``cuda`` and
+    raises without a card."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     actor = config.build_actor(gen).to(dev)
     critic = config.build_critic(gen).to(dev)
-    if config.share_encoder:
-        tie_encoder(actor, critic)
+    if config.shares:
+        tie_shared(actor, critic, config.shares)
     curl = {}
     if config.contrastive == "curl":
-        tie_convs(actor, critic)
         module = CURL(critic.encoder, critic.encoder.proj.out_features,
                       gen).to(dev)
         curl = dict(curl=module,
@@ -316,6 +322,6 @@ def init_state(config: D4PGConfig, seed: int = 0,
         critic_opt=config.optimizer(critic, config.lr_critic),
         generator=torch.Generator(device=dev).manual_seed(
             int(seed) + _STATE_STREAM),
-        targets_tied=config.share_encoder,
+        targets_tied=config.shares is not None,
         **curl,
     )

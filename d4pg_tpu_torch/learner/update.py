@@ -6,10 +6,7 @@ Counterpart of ``d4pg_tpu/learner/update.py``. One ``update_step``:
     independent offsets (``ops.augment.random_shift``); both losses see
     the shifted batch;
   - target distribution Z'(s', pi'(s')) under ``no_grad`` (the reference
-    stop-gradients the target, so nothing flows into it); with
-    ``share_encoder`` and the target encoders tied
-    (``D4PGState.targets_tied``) one target encoder forward on
-    ``next_obs`` feeds both target heads;
+    stop-gradients the target, so nothing flows into it);
   - the categorical family's per-sample cross-entropy against the
     projected Bellman target: ``einsum`` projects with the plain
     ``categorical_projection`` on every device, ``pallas`` with the
@@ -19,58 +16,53 @@ Counterpart of ``d4pg_tpu/learner/update.py``. One ``update_step``:
     kernel wrapper runs its plain version. The MoG family takes the
     sampled cross-entropy against the Bellman-mapped target mixture
     (``core.mog``) and no kernel;
-  - IS-weighted mean critic loss, critic Adam step; with
-    ``share_encoder`` the actor's encoder becomes a copy of the stepped
-    critic's;
+  - IS-weighted mean critic loss, critic Adam step, the tie;
   - policy loss -E[Z(s, pi(s))] through the critic AFTER its Adam step
     (the reference's documented choice, ``learner/update.py:217-225``),
     with gradients taken w.r.t. the actor's parameters only, so no
     critic ``.grad`` is written by the actor loss. A parameter the loss
-    does not reach (the detached shared encoder) gets a zero gradient,
-    as optax gives it, so every Adam step counter advances together.
-    With ``share_encoder`` the actor's encoder is bitwise the stepped
-    critic's and the gradient stops at its latent, so one forward of the
-    critic's encoder on ``obs``, under ``no_grad``, feeds the actor's
-    head and the critic's;
-  - actor Adam step, the encoder tie again (it overwrites what stale
-    Adam moments would move), soft target updates (tau), the target
-    actor's encoder tied to the target critic's, step counter + 1.
+    does not reach (a shared encoder part) gets a zero gradient, as
+    optax gives it, so every Adam step counter advances together;
+  - actor Adam step, the tie again (it overwrites what stale Adam
+    moments would move), soft target updates (tau), the target tie,
+    step counter + 1.
+
+The tie and the tied path. ``config.shares`` names what the actor's
+encoder shares with the critic's: the whole encoder
+(``share_encoder``, DrQ's) or the convolutions (CURL's). After each
+step that writes the critic or the targets, the actor's shared part is
+made a copy of the critic's (``core.updates.tie_shared``). The target
+then runs one ``shared_part`` forward of the target critic's encoder
+on ``next_obs`` for both target heads, each through its ``own_part``,
+once the targets are tied (``D4PGState.targets_tied``). The actor step
+runs one ``shared_part`` forward of the stepped critic's encoder on
+``obs`` and detaches it: the actor's own part reads it with gradient
+and the critic's under ``no_grad``, so the policy loss reaches no
+shared parameter. That forward keeps its graph under CURL alone, as
+the contrastive step's anchor; under DrQ it runs under ``no_grad``.
 
 CURL (``contrastive='curl'``, Srinivas, Laskin and Abbeel 2020,
-``curl_sac.py``'s update order) runs, in order:
+``curl_sac.py``'s update order) adds three random crops
+(``ops.augment.random_crop``) in place of the shift: ``obs`` (also the
+anchor), ``next_obs`` and ``pos``, a second crop of the ``obs`` frames;
+``encoder_tau`` on the encoder leaves in the soft updates (the target
+critic's encoder is the momentum key encoder); and, last, the
+contrastive step: the critic's trunk on the actor step's attached map
+(the anchor, with gradient), the momentum key encoder on ``pos``
+(under ``no_grad``), the [B, B] bilinear logits and their
+cross-entropy (``core.losses.contrastive_loss``), its backward through
+the trunk and the map's graph, ``encoder_opt`` then ``curl_opt`` on the
+one gradient, and the tie. Four encoder forwards and two backwards a
+step. The actor step, soft updates and ties write only the actor's
+parameters and the targets, so the map is the one the anchor's own
+forward would compute; an in-place write to the critic's convolutions
+before its backward fails autograd's saved-tensor version check.
 
-  1. three random crops (``ops.augment.random_crop``): ``obs`` (also the
-     anchor), ``next_obs`` and ``pos``, a second crop of the ``obs``
-     frames;
-  2. the target: one conv map of the target convolutions (tied) on
-     ``next_obs`` feeds the target actor's trunk and the target
-     critic's;
-  3. the critic step as above, then the actor's convolutions tied to
-     the stepped critic's (``core.updates.tie_convs``);
-  4. the actor step: one conv map of the stepped convolutions on
-     ``obs``, with gradient, is the anchor's; the actor's own trunk
-     (with gradient) and the critic's trunk and head read it detached,
-     so the actor loss reaches neither the map's graph nor the
-     critic's convolutions; Adam and the tie;
-  5. the soft updates, ``encoder_tau`` on the encoder leaves and ``tau``
-     on the heads, then the target actor's convolutions tied to the
-     target critic's;
-  6. the contrastive step: the critic's trunk on step 4's attached map
-     (the anchor, with gradient), the target critic's encoder, the
-     momentum key encoder, on ``pos`` (under ``no_grad``), the [B, B]
-     bilinear logits and their cross-entropy
-     (``core.losses.contrastive_loss``), its backward through the trunk
-     and the map's graph, ``encoder_opt`` then ``curl_opt`` on the one
-     gradient, and the tie.
-
-Four encoder forwards and two backwards a step. Steps 4-6 write only
-the actor's parameters and the targets, so the map is the one the
-anchor's own forward would compute; an in-place write to the critic's
-convolutions between them fails autograd's saved-tensor version check.
-
-Each encoder forward a step saves this way (two a step once the targets
-are tied, one on the first step after ``share_encoder`` is turned on
-over an unshared state, none without it; three a CURL step) adds one to
+Each encoder forward the tied path saves (two a ``share_encoder`` step,
+three a CURL step, the anchor's counted by the contrastive step; one
+fewer while the targets are not tied, on the first step after
+``share_encoder`` is turned on over an unshared state or after a
+restore; none without a shared part) adds one to
 ``update_step.encoder_reused``, reported per grad step as
 ``encoder.reused`` in ``spans.summary()``; each contrastive step adds
 one to ``update_step.contrastive_steps`` (``contrastive.steps``).
@@ -98,7 +90,7 @@ from d4pg_tpu_torch.core.losses import (
     weighted_mean,
 )
 from d4pg_tpu_torch.core.mog import mog_mean, mog_target, mog_td_loss
-from d4pg_tpu_torch.core.updates import soft_update, tie_convs, tie_encoder
+from d4pg_tpu_torch.core.updates import soft_update, tie_shared
 from d4pg_tpu_torch.io.profiling import span, spans
 from d4pg_tpu_torch.learner.state import D4PGConfig, D4PGState
 from d4pg_tpu_torch.ops.augment import random_crop, random_shift
@@ -150,6 +142,7 @@ def update_step(
     draws = UpdateDraws() if draws is None else draws
     gen = state.generator
     curl = config.contrastive == "curl"
+    shares = config.shares
     if config.augment == "shift":
         # obs and next_obs get independent offsets (DrQ's convention)
         with span("update.augment"):
@@ -171,21 +164,13 @@ def update_step(
 
     # --- critic step ------------------------------------------------------
     with span("update.target"), torch.no_grad():
-        if curl:
-            # the target trunks on one map of the tied target convolutions
-            with span("model.encoder"):
-                h = state.target_critic.encoder.conv_map(batch.next_obs)
-            next_action = state.target_actor.actor(
-                state.target_actor.encoder.trunk(h))
-            target = state.target_critic.critic(
-                state.target_critic.encoder.trunk(h), next_action)
-            update_step.encoder_reused += 1
-        elif config.share_encoder and state.targets_tied:
-            # the pixel networks' MLP heads (``.actor``, ``.critic``) on
-            # one latent of the tied encoders
-            z = state.target_critic.encoder(batch.next_obs)
-            next_action = state.target_actor.actor(z)
-            target = state.target_critic.critic(z, next_action)
+        if shares and state.targets_tied:
+            # both target heads on one forward of the tied part
+            tc, ta = state.target_critic.encoder, state.target_actor.encoder
+            h = tc.shared_part(batch.next_obs, shares)
+            next_action = state.target_actor.actor(ta.own_part(h, shares))
+            target = state.target_critic.critic(tc.own_part(h, shares),
+                                                next_action)
             update_step.encoder_reused += 1
         else:
             next_action = state.target_actor(batch.next_obs)
@@ -214,29 +199,20 @@ def update_step(
         if grad_reduce is not None:
             grad_reduce(state.critic.parameters())
         state.critic_opt.step()
-        if config.share_encoder:
-            tie_encoder(state.actor, state.critic)
-        elif curl:
-            tie_convs(state.actor, state.critic)
+        if shares:
+            tie_shared(state.actor, state.critic, shares)
 
     # --- actor step, through the stepped critic ---------------------------
     with span("update.actor"):
-        if curl:
-            # one map of the stepped (tied) convolutions: both trunks here
-            # read it detached, and the contrastive step's anchor keeps it
-            # attached (two forwards saved)
-            with span("model.encoder"):
-                anchor = state.critic.encoder.conv_map(batch.obs)
+        if shares:
+            # one forward of the stepped critic's shared part; CURL's keeps
+            # its graph as the contrastive step's anchor
+            with torch.set_grad_enabled(curl):
+                anchor = state.critic.encoder.shared_part(batch.obs, shares)
             h = anchor.detach()
             with torch.no_grad():
-                z = state.critic.encoder.trunk(h)
-            action = state.actor.actor(state.actor.encoder.trunk(h))
-            q = expected_q(config.support, state.critic.critic(z, action))
-            update_step.encoder_reused += 2
-        elif config.share_encoder:
-            with torch.no_grad():
-                z = state.critic.encoder(batch.obs)
-            action = state.actor.actor(z)
+                z = state.critic.encoder.own_part(h, shares)
+            action = state.actor.actor(state.actor.encoder.own_part(h, shares))
             q = expected_q(config.support, state.critic.critic(z, action))
             update_step.encoder_reused += 1
         else:
@@ -257,10 +233,8 @@ def update_step(
         if grad_reduce is not None:
             grad_reduce(params)
         state.actor_opt.step()
-        if config.share_encoder:
-            tie_encoder(state.actor, state.critic)
-        elif curl:
-            tie_convs(state.actor, state.critic)
+        if shares:
+            tie_shared(state.actor, state.critic, shares)
 
     # --- soft target updates ----------------------------------------------
     with span("update.soft_targets"):
@@ -268,11 +242,9 @@ def update_step(
         soft_update(state.target_actor, state.actor, config.tau, encoder_tau)
         soft_update(state.target_critic, state.critic, config.tau,
                     encoder_tau)
-        if config.share_encoder:
-            tie_encoder(state.target_actor, state.target_critic)
-        elif curl:
-            tie_convs(state.target_actor, state.target_critic)
-    state.targets_tied = config.share_encoder
+        if shares:
+            tie_shared(state.target_actor, state.target_critic, shares)
+    state.targets_tied = shares is not None
     metrics = {}
     if curl:
         metrics["curl_loss"] = _contrastive_step(state, anchor, pos)
@@ -302,8 +274,8 @@ def _contrastive_step(state: D4PGState, h: torch.Tensor,
     backward, ``encoder_opt`` then ``curl_opt`` on its gradient (the
     encoder stepped by both, from their own moments), and the actor's
     convolutions tied again. ``h`` is the anchors' conv map with its
-    graph (the actor step's): the critic's trunk runs on it here. Returns
-    the detached loss."""
+    graph (the actor step's, one forward saved): the critic's trunk runs
+    on it here. Returns the detached loss."""
     z_a = state.critic.encoder.trunk(h)
     with torch.no_grad():
         z_pos = state.target_critic.encoder(pos)
@@ -313,7 +285,8 @@ def _contrastive_step(state: D4PGState, h: torch.Tensor,
     loss.backward()
     state.encoder_opt.step()
     state.curl_opt.step()
-    tie_convs(state.actor, state.critic)
+    tie_shared(state.actor, state.critic, "convs")
+    update_step.encoder_reused += 1
     update_step.contrastive_steps += 1
     return loss.detach()
 

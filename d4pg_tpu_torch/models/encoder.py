@@ -20,28 +20,30 @@ Matching Flax:
 
 Parameter names follow the Flax tree: ``encoder.conv1`` ..
 ``encoder.conv4``, ``encoder.proj``, ``encoder.ln``, then ``actor.*`` or
-``critic.*``. ``PixelActor(detach_encoder=True)`` stops the gradient at
-the latent (``--share_encoder``: the critic loss alone trains the tied
-encoder).
+``critic.*``.
 
 CURL's encoder (``padding='valid', tanh=False``, Srinivas,
 Laskin and Abbeel 2020, ``curl_sac.py``'s ``PixelEncoder``) pads
 nothing (84 px give maps of 41, 39, 37 and 35) and ends at the
 LayerNorm (``output_logits=True``). The encoder is two halves:
 ``conv_map`` (the convolutions, flattened) and ``trunk`` (``proj``,
-``ln`` and the tanh), so one conv map can feed two trunks.
-``PixelActor(detach_convs=True)`` is CURL's actor: its own trunk over
-convolutions tied to the critic's, the gradient stopped between them;
-with ``crop`` it takes the stored frames and center-crops them first,
-as CURL's ``select_action`` does.
+``ln`` and the tanh). What a pixel actor shares with the critic
+(``D4PGConfig.shares``) picks the seam: ``shared_part`` runs the
+shared half once (the conv map for ``"convs"``, CURL's; the whole
+latent for ``"encoder"``, ``--share_encoder``'s) and ``own_part`` is
+each network's own half on top (the trunk, or nothing). Where the
+actor's gradient stops is the update's to say (``learner/update.py``);
+``PixelActor`` is ``actor(encoder(pixels))``, after the center crop
+that CURL's actor takes of the stored frames, as CURL's
+``select_action`` does (``crop``).
 
 On a ``{data, model}`` mesh (``parallel/model_axis.py``) each model rank
 holds its out-channel slice of ``conv1`` .. ``conv4`` and
 ``model_axis`` is set: each convolution's input enters the model region
 and its ReLU output is gathered back to all channels before the next
 layer reads it. Without one (``model_axis is None``) the encoder is the
-whole one. Each forward is a ``model.encoder`` span
-(``io/profiling.span``).
+whole one. Each forward, and each ``shared_part``, is one
+``model.encoder`` span (``io/profiling.span``).
 """
 
 from __future__ import annotations
@@ -101,14 +103,24 @@ class PixelEncoder(nn.Module):
         self.model_axis = None  # parallel/model_axis.ModelAxis when split
 
     @span("model.encoder")
-    def forward(self, pixels: torch.Tensor,
-                detach_convs: bool = False) -> torch.Tensor:
-        """The [..., latent] float32 latent of [..., H, W, C] frames; with
-        ``detach_convs`` no gradient reaches the convolutions."""
-        h = self.conv_map(pixels)
-        if detach_convs:
-            h = h.detach()
-        return self.trunk(h).reshape(*pixels.shape[:-3], -1)
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """The [..., latent] float32 latent of [..., H, W, C] frames."""
+        z = self.trunk(self.conv_map(pixels))
+        return z.reshape(*pixels.shape[:-3], -1)
+
+    def shared_part(self, pixels: torch.Tensor, shares: str) -> torch.Tensor:
+        """The part of the frames' encoding that ``shares`` ties between
+        the actor and the critic: the conv map for ``"convs"``, the latent
+        for ``"encoder"``."""
+        if shares == "convs":
+            with span("model.encoder"):
+                return self.conv_map(pixels)
+        return self(pixels)
+
+    def own_part(self, h: torch.Tensor, shares: str) -> torch.Tensor:
+        """A network's own part on top of ``shared_part``'s ``h``: the
+        trunk for ``"convs"``, the identity for ``"encoder"``."""
+        return self.trunk(h) if shares == "convs" else h
 
     def conv_map(self, pixels: torch.Tensor) -> torch.Tensor:
         """The convolutions' [N, h * w * c] maps of [..., H, W, C] frames
@@ -148,14 +160,11 @@ class PixelActor(nn.Module):
                  latent_dim: int = 50,
                  channels: Sequence[int] = (32, 32, 32, 32),
                  hidden: Sequence[int] = (256, 256, 256),
-                 detach_encoder: bool = False,
                  generator: torch.Generator | None = None,
                  dtype: torch.dtype = torch.float32,
                  padding: str = "same", tanh: bool = True,
-                 detach_convs: bool = False, crop: int | None = None):
+                 crop: int | None = None):
         super().__init__()
-        self.detach_encoder = bool(detach_encoder)
-        self.detach_convs = bool(detach_convs)
         self.crop = crop
         if crop is not None:
             obs_shape = (crop, crop, obs_shape[-1])
@@ -167,10 +176,7 @@ class PixelActor(nn.Module):
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         if self.crop is not None:
             pixels = center_crop(pixels, self.crop)
-        z = self.encoder(pixels, detach_convs=self.detach_convs)
-        if self.detach_encoder:
-            z = z.detach()
-        return self.actor(z)
+        return self.actor(self.encoder(pixels))
 
 
 class PixelCategoricalCritic(nn.Module):

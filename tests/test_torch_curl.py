@@ -36,7 +36,7 @@ from d4pg_tpu_torch.core.losses import (
     expected_q,
     weighted_mean,
 )
-from d4pg_tpu_torch.core.updates import soft_update, tie_convs
+from d4pg_tpu_torch.core.updates import soft_update, tie_shared
 from d4pg_tpu_torch.envs.dmc import parse_dmc_id
 from d4pg_tpu_torch.io.checkpoint import CheckpointManager
 from d4pg_tpu_torch.io.from_jax import state_from_jax
@@ -168,10 +168,12 @@ def test_unpadded_encoder_and_the_actors_trunk_over_tied_convs():
         action = state.actor(frames)
         _close(state.critic(crops, action),
                plain.critic_probs(c, crops, action), FWD, "critic")
-    # the actor's loss reaches its trunk, never the convolutions
-    state.actor(frames).sum().backward()
+    # the update's actor loss reaches the actor's trunk, never the
+    # convolutions: their Adam moments stay zero
+    update_step(CFG, state, _batch(), draws=_draws(_offsets(4)[0]))
     for n, p in state.actor.encoder.named_parameters():
-        assert (p.grad is None) == n.startswith("conv"), n
+        moved = state.actor_opt.state[p]["exp_avg"].any()
+        assert bool(moved) != n.startswith("conv"), n
 
 
 def test_info_nce_and_its_gradients_into_w_and_the_encoder():
@@ -260,7 +262,7 @@ def _five_forward_step(cfg, state, batch, off):
     state.critic_opt.zero_grad(set_to_none=True)
     critic_loss.backward()
     state.critic_opt.step()
-    tie_convs(state.actor, state.critic)
+    tie_shared(state.actor, state.critic, "convs")
     with torch.no_grad():
         h = state.critic.encoder.conv_map(obs)
         z = state.critic.encoder.trunk(h)
@@ -272,10 +274,10 @@ def _five_forward_step(cfg, state, batch, off):
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
     state.actor_opt.step()
-    tie_convs(state.actor, state.critic)
+    tie_shared(state.actor, state.critic, "convs")
     soft_update(state.target_actor, state.actor, cfg.tau, cfg.encoder_tau)
     soft_update(state.target_critic, state.critic, cfg.tau, cfg.encoder_tau)
-    tie_convs(state.target_actor, state.target_critic)
+    tie_shared(state.target_actor, state.target_critic, "convs")
     z_a = state.critic.encoder(obs)
     with torch.no_grad():
         z_pos = state.target_critic.encoder(pos)
@@ -285,7 +287,7 @@ def _five_forward_step(cfg, state, batch, off):
     curl_loss.backward()
     state.encoder_opt.step()
     state.curl_opt.step()
-    tie_convs(state.actor, state.critic)
+    tie_shared(state.actor, state.critic, "convs")
     state.step += 1
     actor_loss = actor_loss.detach()
     return {"critic_loss": critic_loss.detach(), "actor_loss": actor_loss,
@@ -443,7 +445,7 @@ def test_a_fused_chunk_runs_the_reference_steps():
 def test_checkpoint_round_trip_keeps_w_and_the_new_adams(tmp_path):
     state = _state()
     batch = _batch()
-    off = _offsets(9, 2)
+    off = _offsets(9, 3)
     update_step(CFG, state, batch, draws=_draws(off[0]))
     ckpt = CheckpointManager(str(tmp_path))
     ckpt.save(state)
@@ -458,10 +460,19 @@ def test_checkpoint_round_trip_keeps_w_and_the_new_adams(tmp_path):
                 assert torch.equal(a[i][key], b[i][key]), (name, i, key)
     # the curl module still holds the restored critic's encoder
     assert restored.curl.encoder is restored.critic.encoder
-    want = update_step(CFG, state, batch, draws=_draws(off[1]))
-    got = update_step(CFG, restored, batch, draws=_draws(off[1]))
-    for name in ("critic_loss", "actor_loss", "curl_loss"):
-        assert torch.equal(got[name], want[name]), name
+    # the restore clears targets_tied: the first step runs both target
+    # encoders (two forwards reused, not three) on bitwise equal targets
+    assert not restored.targets_tied
+    for t, reused in ((1, 2), (2, 3)):
+        want = update_step(CFG, state, batch, draws=_draws(off[t]))
+        before = update_step.encoder_reused
+        got = update_step(CFG, restored, batch, draws=_draws(off[t]))
+        assert update_step.encoder_reused - before == reused
+        assert restored.targets_tied
+        assert got.keys() == want.keys()
+        for name in want:
+            assert torch.equal(got[name], want[name]), (t, name)
+        _equal_states(restored, state)
     plain_cfg = dataclasses.replace(CFG, contrastive="none")
     with pytest.raises(ValueError, match="CURL state"):
         ckpt.restore(init_state(plain_cfg, 0, "cpu"))

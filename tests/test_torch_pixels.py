@@ -29,7 +29,7 @@ from d4pg_tpu_torch.core.losses import (
     expected_q,
     weighted_mean,
 )
-from d4pg_tpu_torch.core.updates import soft_update, tie_encoder
+from d4pg_tpu_torch.core.updates import soft_update, tie_shared
 from d4pg_tpu_torch.distributed.weights import WeightStore
 from d4pg_tpu_torch.envs.fake import PixelPointEnv
 from d4pg_tpu_torch.envs.vector import EnvPool
@@ -182,20 +182,30 @@ def test_random_shift_draws_and_refuses(rng):
     assert torch.equal(same, imgs)
 
 
-def test_tie_encoder_copies_never_aliases():
+@pytest.mark.parametrize("shares", ["encoder", "convs"])
+def test_tie_encoder_copies_never_aliases(shares):
+    """The tie copies the shared part (every encoder leaf, or the
+    convolutions alone) and never aliases it; the rest stays the
+    actor's own."""
     cfg = D4PGConfig(obs_dim=int(np.prod(SHAPE)), act_dim=2, n_atoms=11,
                      hidden=(16, 16), pixels=True, obs_shape=SHAPE,
                      encoder_channels=CH8)
     ts = init_state(cfg, 0, "cpu")
     assert not torch.equal(ts.actor.encoder.conv1.weight,
                            ts.critic.encoder.conv1.weight)
-    tie_encoder(ts.actor, ts.critic)
-    for a, c in zip(ts.actor.encoder.parameters(),
-                    ts.critic.encoder.parameters()):
-        assert torch.equal(a, c) and a.data_ptr() != c.data_ptr()
-    before = ts.actor.actor.out.weight.clone()
-    tie_encoder(ts.actor, ts.critic)
-    assert torch.equal(ts.actor.actor.out.weight, before)
+    own = {n: p.clone() for n, p in ts.actor.named_parameters()}
+    tie_shared(ts.actor, ts.critic, shares)
+    for (name, a), c in zip(ts.actor.encoder.named_parameters(),
+                            ts.critic.encoder.parameters()):
+        if shares == "encoder" or name.startswith("conv"):
+            assert torch.equal(a, c) and a.data_ptr() != c.data_ptr()
+        else:
+            assert torch.equal(a, own["encoder." + name]), name
+    if shares == "convs":
+        assert not torch.equal(ts.actor.encoder.proj.weight,
+                               ts.critic.encoder.proj.weight)
+    tie_shared(ts.actor, ts.critic, shares)
+    assert torch.equal(ts.actor.actor.out.weight, own["actor.out.weight"])
 
 
 @pytest.mark.parametrize("stack", [1, 3])
@@ -484,8 +494,6 @@ def test_shared_encoder_tie_survives_warm_moments(rng):
     assert any(state.actor_opt.state[p]["exp_avg"].any()
                for p in state.actor.encoder.parameters())
     shared = _px_config(encoder_channels=CH8, share_encoder=True)
-    for module in (state.actor, state.target_actor):
-        module.detach_encoder = True  # what build_actor(shared) sets
     for _ in range(2):
         update_step(shared, state, batch)
         assert _encoders_equal(state.actor, state.critic)
@@ -495,7 +503,8 @@ def test_shared_encoder_tie_survives_warm_moments(rng):
 def _five_forward_step(config, state, batch, w):
     """The shared-encoder update with every network on its own encoder:
     the target actor's and critic's on next_obs, the critic's on obs, then
-    the actor's and the stepped critic's on obs."""
+    the actor's (its gradient stopped at the latent) and the stepped
+    critic's on obs."""
     gen, pad = state.generator, config.augment_pad
     obs = random_shift(batch.obs, pad, gen)
     next_obs = random_shift(batch.next_obs, pad, gen)
@@ -508,8 +517,8 @@ def _five_forward_step(config, state, batch, w):
     state.critic_opt.zero_grad(set_to_none=True)
     critic_loss.backward()
     state.critic_opt.step()
-    tie_encoder(state.actor, state.critic)
-    action = state.actor(obs)
+    tie_shared(state.actor, state.critic, "encoder")
+    action = state.actor.actor(state.actor.encoder(obs).detach())
     actor_loss = -torch.mean(expected_q(config.support,
                                         state.critic(obs, action)))
     params = list(state.actor.parameters())
@@ -517,10 +526,10 @@ def _five_forward_step(config, state, batch, w):
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
     state.actor_opt.step()
-    tie_encoder(state.actor, state.critic)
+    tie_shared(state.actor, state.critic, "encoder")
     soft_update(state.target_actor, state.actor, config.tau)
     soft_update(state.target_critic, state.critic, config.tau)
-    tie_encoder(state.target_actor, state.target_critic)
+    tie_shared(state.target_actor, state.target_critic, "encoder")
     return {"critic_loss": critic_loss.detach(),
             "actor_loss": actor_loss.detach(), "td_error": td_error.detach()}
 

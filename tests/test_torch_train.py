@@ -436,7 +436,10 @@ def test_family_runs_resume_to_the_same_state(tmp_path, monkeypatch, name):
     ttrain.train(dataclasses.replace(cfg, resume=True, n_cycles=0))
     _states_equal(states[0], states[1])
     if name.startswith("pixel"):
-        assert states[0].actor.detach_encoder
+        # the restored actor's encoder is bitwise the critic's
+        for a, c in zip(states[1].actor.encoder.parameters(),
+                        states[1].critic.encoder.parameters()):
+            assert torch.equal(a, c)
         rows = buffers[0].gather(np.arange(4)) if name == "pixel_host" \
             else buffers[0].storage
         assert rows.obs.dtype in (np.uint8, torch.uint8)
